@@ -1,0 +1,104 @@
+"""densityflows_tpu_torch — the PyTorch / CUDA port of densityflows_tpu.
+
+The package sits beside the JAX package and mirrors its layout (``ops/``,
+``models/``, ``utils/``, plus ``csrc/`` for the CUDA sources), so the
+counterpart of a module is found by path. It imports ``torch`` and
+``numpy`` only.
+
+Device rule: entry points run on a CUDA device unless the caller asks for
+the CPU. ``device=None`` means ``"cuda"`` and raises where CUDA is not
+available.
+
+Ported so far: the serving path — ``load_flow`` → ``log_prob`` / ``sample``
+/ ``sample_sweep`` / ``forward`` / ``inverse`` — on the hand-written
+whole-chain kernels ``chain_apply`` and ``chain_sample``
+(``csrc/chain_kernels.cu``). Training is not ported yet.
+"""
+
+from ._device import resolve_device
+from .axes import CouplingAxes, coupling_axes, is_reverse, reverse_axes
+from .convert import chain_from_spec_and_leaves, flow_from_jax_numpy
+from .data import (
+    DataArrays,
+    DataPartition,
+    MetaData,
+    dflt_theta,
+    maximum_theta,
+    minimum_theta,
+    normalize_input,
+    number_conditions,
+    number_dimensions,
+    resize_output,
+)
+from .models.blocks import CouplingBlock, coupling_block
+from .models.chains import FlowChain, concatenate, flow_chain
+from .models.distributions import StandardNormal
+from .models.flow import Flow, nll_loss
+from .models.glow import (
+    ActNormLayer,
+    InvertibleLinearLayer,
+    actnorm_layer,
+    invertible_linear_layer,
+)
+from .models.layers import (
+    JointRNVPCouplingLayer,
+    NICECouplingLayer,
+    RNVPCouplingLayer,
+    coupling_layer,
+    set_fused_kernels,
+)
+from .models.normalization import (
+    LogitLayer,
+    NormalizationLayer,
+    PermutationLayer,
+    logit_layer,
+    normalization_layer,
+    permutation_layer,
+)
+from .ops.coupling import (
+    nice_backward,
+    nice_forward,
+    rnvp_backward,
+    rnvp_forward,
+)
+from .ops.mlp import MLP, apply_mlp, init_mlp
+from .utils.checkpoint import (
+    load_element,
+    load_flow,
+    register_element,
+    save_element,
+    save_flow,
+)
+
+__version__ = "0.1.0"
+
+
+def summarize(obj) -> str:
+    """Pretty-print any flow element / chain / flow / data container."""
+    return obj.summarize()
+
+
+__all__ = [
+    "resolve_device",
+    "CouplingAxes", "coupling_axes", "reverse_axes", "is_reverse",
+    "DataArrays", "DataPartition", "MetaData", "dflt_theta",
+    "minimum_theta", "maximum_theta", "normalize_input", "resize_output",
+    "number_dimensions", "number_conditions",
+    "MLP", "init_mlp", "apply_mlp",
+    "rnvp_forward", "rnvp_backward", "nice_forward", "nice_backward",
+    "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
+    "coupling_layer", "set_fused_kernels",
+    "NormalizationLayer", "normalization_layer",
+    "PermutationLayer", "permutation_layer",
+    "LogitLayer", "logit_layer",
+    "ActNormLayer", "actnorm_layer",
+    "InvertibleLinearLayer", "invertible_linear_layer",
+    "CouplingBlock", "coupling_block",
+    "FlowChain", "flow_chain", "concatenate",
+    "StandardNormal",
+    "Flow", "nll_loss",
+    "summarize",
+    "save_flow", "load_flow", "save_element", "load_element",
+    "register_element",
+    "chain_from_spec_and_leaves", "flow_from_jax_numpy",
+]

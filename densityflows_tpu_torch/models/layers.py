@@ -1,0 +1,265 @@
+"""Coupling layers: RealNVP, joint-conditioner RealNVP and NICE, plus the
+constructor family.
+
+PyTorch counterpart of ``densityflows_tpu/models/layers.py``. Layers are
+``nn.Module``s: conditioner-MLP parameters are ``nn.Parameter``s, the
+:class:`~densityflows_tpu_torch.axes.CouplingAxes` is a plain static
+attribute.
+
+Direction convention: ``forward`` = latent z → data x (sampling),
+``inverse`` = data x → latent z (density/training). Both return
+``(y, log_det_jac)`` with per-sample ldj of batch shape. ``forward_`` is the
+ldj-free sampling path.
+
+Not in this package yet: the spline coupling layer, bf16 conditioners, and
+the per-layer fused kernel of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..axes import CouplingAxes, coupling_axes
+from ..ops import coupling as C
+from ..ops.mlp import MLP, apply_mlp, count_params, init_mlp
+
+__all__ = [
+    "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
+    "coupling_layer", "set_fused_kernels", "use_fused_chain",
+]
+
+# Whole-chain kernel policy: "auto" routes every fusable chain through the
+# CUDA chain kernels when the data is on a CUDA device; True routes on any
+# device (on the CPU the wrappers run their plain versions); False selects
+# the per-layer path. The crossover below which the per-layer path is faster
+# on an H100 has not been measured yet.
+_FUSED_MODE: str | bool = "auto"
+
+
+def set_fused_kernels(mode: str | bool) -> None:
+    """Set the whole-chain kernel policy: "auto" (default), True, or False."""
+    global _FUSED_MODE
+    if mode not in ("auto", True, False):
+        raise ValueError("mode must be 'auto', True, or False")
+    _FUSED_MODE = mode
+
+
+def use_fused_chain(device) -> bool:
+    """Whole-chain routing gate for data on ``device``."""
+    if _FUSED_MODE is True:
+        return True
+    if _FUSED_MODE is False:
+        return False
+    return torch.device(device).type == "cuda"
+
+
+def _clamp(s, m: float):
+    return m * torch.tanh(s / m) if m else s
+
+
+class RNVPCouplingLayer(nn.Module):
+    """Real-NVP affine coupling layer with separate ``s_net`` / ``t_net``.
+
+    ``max_log_scale`` 0.0 = unbounded; > 0 soft-clamps the log-scale to
+    (−M, M) via M·tanh(s/M), the guard against exp(s) overflow on
+    out-of-distribution inputs.
+    """
+
+    def __init__(self, s_net: MLP, t_net: MLP, axes: CouplingAxes,
+                 max_log_scale: float = 0.0):
+        super().__init__()
+        self.s_net, self.t_net = s_net, t_net
+        self.axes = axes
+        self.max_log_scale = float(max_log_scale)
+
+    def _conditioner(self, y, theta):
+        y_id, y_af = C.split_features(y, self.axes)
+        h = C.nn_input(y_id, theta)
+        s = _clamp(apply_mlp(self.s_net, h), self.max_log_scale)
+        return y_id, y_af, s, apply_mlp(self.t_net, h)
+
+    def forward(self, z, theta):
+        z_id, z_af, s, t = self._conditioner(z, theta)
+        x_af, ldj = C.rnvp_forward(s, t, z_af)
+        return C.recombine_features(z_id, x_af, self.axes), ldj
+
+    def inverse(self, x, theta):
+        x_id, x_af, s, t = self._conditioner(x, theta)
+        z_af, ldj = C.rnvp_backward(s, t, x_af)
+        return C.recombine_features(x_id, z_af, self.axes), ldj
+
+    def forward_(self, z, theta):
+        z_id, z_af, s, t = self._conditioner(z, theta)
+        return C.recombine_features(z_id, z_af * torch.exp(s) + t, self.axes)
+
+    def summarize(self) -> str:
+        return (
+            f"RNVPCouplingLayer | s_net > {list(self.s_net.dims)} "
+            f"({count_params(self.s_net)} parameters)\n"
+            f"                  | t_net > {list(self.t_net.dims)} "
+            f"({count_params(self.t_net)} parameters)\n"
+            f"                  | axes  > {self.axes.summarize()}"
+        )
+
+
+class JointRNVPCouplingLayer(nn.Module):
+    """Real-NVP coupling layer with a two-headed conditioner: one MLP emits
+    ``(s ‖ t)``. Same coupling math as :class:`RNVPCouplingLayer`; build
+    with ``coupling_layer(..., joint_conditioner=True)``."""
+
+    def __init__(self, st_net: MLP, axes: CouplingAxes,
+                 max_log_scale: float = 0.0):
+        super().__init__()
+        self.st_net = st_net
+        self.axes = axes
+        self.max_log_scale = float(max_log_scale)
+
+    def _conditioner(self, y, theta):
+        y_id, y_af = C.split_features(y, self.axes)
+        out = apply_mlp(self.st_net, C.nn_input(y_id, theta))
+        a = self.axes.transform_dim
+        s, t = out[..., :a], out[..., a:]
+        return y_id, y_af, _clamp(s, self.max_log_scale), t
+
+    def forward(self, z, theta):
+        z_id, z_af, s, t = self._conditioner(z, theta)
+        x_af, ldj = C.rnvp_forward(s, t, z_af)
+        return C.recombine_features(z_id, x_af, self.axes), ldj
+
+    def inverse(self, x, theta):
+        x_id, x_af, s, t = self._conditioner(x, theta)
+        z_af, ldj = C.rnvp_backward(s, t, x_af)
+        return C.recombine_features(x_id, z_af, self.axes), ldj
+
+    def forward_(self, z, theta):
+        z_id, z_af, s, t = self._conditioner(z, theta)
+        return C.recombine_features(z_id, z_af * torch.exp(s) + t, self.axes)
+
+    def summarize(self) -> str:
+        return (
+            f"JointRNVPCouplingLayer | st_net > {list(self.st_net.dims)} "
+            f"({count_params(self.st_net)} parameters)\n"
+            f"                       | axes   > {self.axes.summarize()}"
+        )
+
+
+class NICECouplingLayer(nn.Module):
+    """NICE additive (volume-preserving) coupling layer."""
+
+    def __init__(self, t_net: MLP, axes: CouplingAxes):
+        super().__init__()
+        self.t_net = t_net
+        self.axes = axes
+
+    def _conditioner(self, y, theta):
+        y_id, y_af = C.split_features(y, self.axes)
+        return y_id, y_af, apply_mlp(self.t_net, C.nn_input(y_id, theta))
+
+    def forward(self, z, theta):
+        z_id, z_af, t = self._conditioner(z, theta)
+        x_af, ldj = C.nice_forward(t, z_af)
+        return C.recombine_features(z_id, x_af, self.axes), ldj
+
+    def inverse(self, x, theta):
+        x_id, x_af, t = self._conditioner(x, theta)
+        z_af, ldj = C.nice_backward(t, x_af)
+        return C.recombine_features(x_id, z_af, self.axes), ldj
+
+    def forward_(self, z, theta):
+        z_id, z_af, t = self._conditioner(z, theta)
+        return C.recombine_features(z_id, z_af + t, self.axes)
+
+    def summarize(self) -> str:
+        return (
+            f"NICECouplingLayer | t_net > {list(self.t_net.dims)} "
+            f"({count_params(self.t_net)} parameters)\n"
+            f"                  | axes  > {self.axes.summarize()}"
+        )
+
+
+def coupling_layer(
+    d_or_axes_or_data,
+    mask: Sequence[int] | int | None = None,
+    *,
+    kind: type = RNVPCouplingLayer,
+    n: int = 0,
+    reverse: bool = False,
+    generator: torch.Generator | None = None,
+    n_sublayers_s: int = 2,
+    n_sublayers_t: int = 2,
+    hidden_dim_s: int = 32,
+    hidden_dim_t: int = 32,
+    activation_s: str = "relu",
+    activation_t: str = "relu",
+    bias: bool = True,
+    zero_init_final: bool = True,
+    max_log_scale: float = 0.0,
+    joint_conditioner: bool = False,
+    device=None,
+):
+    """Build a coupling layer with default conditioner MLPs.
+
+    The first argument is a :class:`CouplingAxes`, an ``int`` dimension
+    ``d`` (with ``mask`` = index list or split point, default ``d // 2``),
+    or a :class:`~densityflows_tpu_torch.data.DataArrays` (d and n
+    inferred). Defaults: 2 sublayers, hidden 32, relu, bias on. Conditioner
+    input width = ``len(axis_nn)``, output width = ``len(axis_af)``.
+
+    ``zero_init_final=True`` zero-initializes each conditioner's last dense
+    layer, so every coupling layer is the identity at init.
+    ``joint_conditioner=True`` (RNVP only) builds a
+    :class:`JointRNVPCouplingLayer`; the s/t hyperparameters must agree.
+    ``max_log_scale`` (RNVP only, default 0 = off) soft-clamps the
+    log-scale to (−M, M) via ``M·tanh(s/M)``.
+    """
+    from ..data import DataArrays  # local import to avoid a cycle
+
+    if isinstance(d_or_axes_or_data, CouplingAxes):
+        axes = d_or_axes_or_data
+    elif isinstance(d_or_axes_or_data, DataArrays):
+        data = d_or_axes_or_data
+        axes = coupling_axes(
+            data.num_dimensions, mask, n=data.num_conditions, reverse=reverse
+        )
+    else:
+        axes = coupling_axes(int(d_or_axes_or_data), mask, n=n, reverse=reverse)
+
+    device = resolve_device(device)
+    in_dim, out_dim = axes.nn_input_dim, axes.transform_dim
+
+    def net(out, n_sub, hidden, act):
+        return init_mlp(generator, in_dim, out, n_sub, hidden_dim=hidden,
+                        activation=act, bias=bias,
+                        zero_final=zero_init_final, device=device)
+
+    if joint_conditioner:
+        if kind is not RNVPCouplingLayer:
+            raise ValueError(
+                "joint_conditioner=True is an RNVP parameterization "
+                f"(got kind={kind.__name__})"
+            )
+        if (n_sublayers_s, hidden_dim_s, activation_s) != (
+            n_sublayers_t, hidden_dim_t, activation_t
+        ):
+            raise ValueError(
+                "joint_conditioner=True uses ONE net for both heads — "
+                "the s/t hyperparameters must agree "
+                f"(got s=({n_sublayers_s}, {hidden_dim_s}, {activation_s!r}) "
+                f"vs t=({n_sublayers_t}, {hidden_dim_t}, {activation_t!r}))"
+            )
+        st_net = net(2 * out_dim, n_sublayers_s, hidden_dim_s, activation_s)
+        return JointRNVPCouplingLayer(st_net, axes, float(max_log_scale))
+    if kind is NICECouplingLayer:
+        return NICECouplingLayer(
+            net(out_dim, n_sublayers_t, hidden_dim_t, activation_t), axes)
+    if kind is not RNVPCouplingLayer:
+        raise NotImplementedError(
+            f"coupling kind {getattr(kind, '__name__', kind)} is not ported "
+            "yet (ROADMAP A11: remaining layer families)")
+    s_net = net(out_dim, n_sublayers_s, hidden_dim_s, activation_s)
+    t_net = net(out_dim, n_sublayers_t, hidden_dim_t, activation_t)
+    return RNVPCouplingLayer(s_net, t_net, axes, float(max_log_scale))

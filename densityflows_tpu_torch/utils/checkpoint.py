@@ -1,0 +1,425 @@
+"""Checkpointing: declarative spec + arrays save/load for flows.
+
+PyTorch counterpart of ``densityflows_tpu/utils/checkpoint.py``. It reads
+and writes the JAX package's on-disk format, so a flow saved by either
+package loads in the other: per element a ``spec.json`` (architecture, axes,
+activation names, static config) plus one ``arrays.npz`` of parameter arrays
+named ``leaf_%05d`` in the JAX package's pytree-flatten order; per flow a
+``flow.json`` (metadata + loss histories) beside ``model/`` and ``base/``.
+
+The leaf order of an element is the field order of the JAX dataclass:
+``MLP``: all weights, then all biases; ``RNVPCouplingLayer``: ``s_net``,
+``t_net``; ``JointRNVPCouplingLayer``: ``st_net``; ``NICECouplingLayer``:
+``t_net``; ``NormalizationLayer``: ``x_min``, ``x_max``; ``ActNormLayer``:
+``bias``, ``log_scale``; ``InvertibleLinearLayer``: ``lower``, ``upper``,
+``log_s``; ``LogitLayer``: ``lo``, ``hi``; ``PermutationLayer`` and
+``StandardNormal``: none; containers: their children in order.
+
+Optimizer state is not handled here (training is not ported yet).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..axes import CouplingAxes
+from ..data import MetaData
+from ..models.blocks import CouplingBlock
+from ..models.chains import FlowChain
+from ..models.distributions import StandardNormal
+from ..models.flow import Flow
+from ..models.glow import ActNormLayer, InvertibleLinearLayer
+from ..models.layers import (
+    JointRNVPCouplingLayer,
+    NICECouplingLayer,
+    RNVPCouplingLayer,
+)
+from ..models.normalization import (
+    LogitLayer, NormalizationLayer, PermutationLayer,
+)
+from ..ops.mlp import MLP
+
+__all__ = [
+    "save_flow", "load_flow", "save_element", "load_element",
+    "element_spec", "element_from_spec", "element_leaves",
+    "set_element_leaves", "register_element",
+]
+
+_FORMAT_VERSION = 1
+
+# element types of the JAX package that this package does not hold yet
+_NOT_PORTED = {
+    "DiagNormal": "base distributions other than StandardNormal",
+    "GaussianMixture": "base distributions other than StandardNormal",
+    "BoxUniform": "base distributions other than StandardNormal",
+    "RQSCouplingLayer": "ROADMAP A11 (spline couplings)",
+    "MaskedMLP": "ROADMAP A11 (MAF/IAF)",
+    "MAFLayer": "ROADMAP A11 (MAF/IAF)",
+    "IAFLayer": "ROADMAP A11 (MAF/IAF)",
+    "EmbeddedChain": "ROADMAP A11 (condition embeddings)",
+}
+
+_TO_SPEC: dict[type, tuple] = {}
+_FROM_SPEC: dict[str, object] = {}
+
+
+def _default_children(el):
+    if isinstance(el, torch.nn.Module):
+        return list(el.parameters()) + list(el.buffers())
+    return []
+
+
+def register_element(cls, to_spec, from_spec, *, name: str | None = None,
+                     children=None):
+    """Register a flow element type for checkpointing.
+
+    - ``to_spec(el) -> dict``: JSON-able structural description (no arrays);
+    - ``from_spec(spec, device) -> element``: rebuild a skeleton whose array
+      values are overwritten afterwards;
+    - ``children(el) -> list``: the element's tensors and sub-elements in
+      leaf order (default: an ``nn.Module``'s parameters, then buffers).
+
+    ``name`` defaults to ``cls.__name__`` and is the ``"type"`` tag.
+    """
+    name = name or cls.__name__
+    _TO_SPEC[cls] = (name, to_spec, children or _default_children)
+    _FROM_SPEC[name] = from_spec
+
+
+def _entry(el):
+    entry = _TO_SPEC.get(type(el))
+    if entry is None:
+        raise TypeError(
+            f"don't know how to checkpoint {type(el).__name__}; register it "
+            "with register_element(cls, to_spec, from_spec)")
+    return entry
+
+
+def element_spec(el) -> dict:
+    """JSON-able structural description of a flow element (exact type
+    only)."""
+    name, fn, _ = _entry(el)
+    spec = dict(fn(el))
+    spec["type"] = name
+    return spec
+
+
+def element_from_spec(spec: dict, device=None):
+    """Rebuild a flow element skeleton (placeholder arrays) from its spec."""
+    device = resolve_device(device)
+    t = spec["type"]
+    fn = _FROM_SPEC.get(t)
+    if fn is None:
+        if t in _NOT_PORTED:
+            raise NotImplementedError(
+                f"element type {t} is not ported yet: {_NOT_PORTED[t]}")
+        raise ValueError(
+            f"unknown element type in checkpoint: {t} (custom layers must "
+            "be register_element'd before loading)")
+    return fn(spec, device)
+
+
+def element_leaves(el) -> list[torch.Tensor]:
+    """The element's arrays in the JAX package's pytree-flatten order."""
+    out = []
+    for child in _entry(el)[2](el):
+        if isinstance(child, torch.Tensor):
+            out.append(child)
+        else:
+            out.extend(element_leaves(child))
+    return out
+
+
+def set_element_leaves(el, arrays) -> None:
+    """Overwrite the element's arrays, in leaf order, with ``arrays``
+    (numpy arrays or tensors of matching shapes)."""
+    leaves = element_leaves(el)
+    arrays = list(arrays)
+    if len(arrays) != len(leaves):
+        raise ValueError(
+            f"element has {len(leaves)} leaves, got {len(arrays)} arrays")
+    with torch.no_grad():
+        for leaf, a in zip(leaves, arrays):
+            if not isinstance(a, torch.Tensor):
+                a = torch.as_tensor(np.array(a))  # a writable copy
+            if tuple(a.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"leaf shape {tuple(leaf.shape)} != array shape "
+                    f"{tuple(a.shape)}")
+            if a.dtype != torch.float32:
+                raise TypeError(
+                    f"checkpoint arrays must be float32, got {a.dtype} "
+                    "(bf16 conditioners are not ported yet, ROADMAP A13)")
+            leaf.copy_(a)
+
+
+# -- built-in registrations ---------------------------------------------------
+
+def _axes_spec(axes: CouplingAxes) -> dict:
+    return {"d": axes.d, "n": axes.n, "axis_id": list(axes.axis_id),
+            "axis_af": list(axes.axis_af), "axis_nn": list(axes.axis_nn)}
+
+
+def _axes_from_spec(s: dict) -> CouplingAxes:
+    return CouplingAxes(s["d"], s["n"], tuple(s["axis_id"]),
+                        tuple(s["axis_af"]), tuple(s["axis_nn"]))
+
+
+def _zeros(shape, device):
+    return torch.zeros(*shape, dtype=torch.float32, device=device) \
+        if len(shape) else torch.zeros((), device=device)
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _check_f32(s):
+    if s.get("dtype", "float32") != "float32":
+        raise NotImplementedError(
+            f"checkpoint dtype {s['dtype']} is not ported yet (float32 only; "
+            "ROADMAP A13: mixed precision)")
+
+
+def _mlp_from_spec(s, device):
+    _check_f32(s)
+    return MLP([_zeros(sh, device) for sh in s["weight_shapes"]],
+               [_zeros(sh, device) for sh in s["bias_shapes"]],
+               s["activation"])
+
+
+register_element(
+    MLP,
+    lambda el: {
+        "weight_shapes": [list(w.shape) for w in el.weights],
+        "bias_shapes": [list(b.shape) for b in el.biases],
+        "dtype": _dtype_name(el.weights[0]) if len(el.weights) else "float32",
+        "activation": el.activation,
+    },
+    _mlp_from_spec,
+    children=lambda el: list(el.weights) + list(el.biases),
+)
+
+register_element(
+    RNVPCouplingLayer,
+    lambda el: {
+        "s_net": element_spec(el.s_net),
+        "t_net": element_spec(el.t_net),
+        "axes": _axes_spec(el.axes),
+        "max_log_scale": float(el.max_log_scale),
+    },
+    lambda s, dev: RNVPCouplingLayer(
+        element_from_spec(s["s_net"], dev),
+        element_from_spec(s["t_net"], dev),
+        _axes_from_spec(s["axes"]),
+        float(s.get("max_log_scale", 0.0)),
+    ),
+    children=lambda el: [el.s_net, el.t_net],
+)
+
+register_element(
+    JointRNVPCouplingLayer,
+    lambda el: {
+        "st_net": element_spec(el.st_net),
+        "axes": _axes_spec(el.axes),
+        "max_log_scale": float(el.max_log_scale),
+    },
+    lambda s, dev: JointRNVPCouplingLayer(
+        element_from_spec(s["st_net"], dev),
+        _axes_from_spec(s["axes"]),
+        float(s.get("max_log_scale", 0.0)),
+    ),
+    children=lambda el: [el.st_net],
+)
+
+register_element(
+    NICECouplingLayer,
+    lambda el: {"t_net": element_spec(el.t_net), "axes": _axes_spec(el.axes)},
+    lambda s, dev: NICECouplingLayer(
+        element_from_spec(s["t_net"], dev), _axes_from_spec(s["axes"])),
+    children=lambda el: [el.t_net],
+)
+
+
+def _norm_from_spec(s, device):
+    _check_f32(s)
+    z = _zeros((s["d"],), device)
+    # skeleton x_max=1 keeps the placeholder valid (x_max > x_min)
+    return NormalizationLayer(z, z + 1, s["alpha"], s["beta"])
+
+
+register_element(
+    NormalizationLayer,
+    lambda el: {
+        "d": int(el.x_min.shape[0]),
+        "dtype": _dtype_name(el.x_min),
+        "alpha": float(el.alpha),
+        "beta": float(el.beta),
+    },
+    _norm_from_spec,
+    children=lambda el: [el.x_min, el.x_max],
+)
+
+register_element(
+    PermutationLayer,
+    lambda el: {"perm": list(el.perm)},
+    lambda s, dev: PermutationLayer(tuple(s["perm"])),
+    children=lambda el: [],
+)
+
+
+def _actnorm_from_spec(s, device):
+    _check_f32(s)
+    return ActNormLayer(_zeros((s["d"],), device), _zeros((s["d"],), device))
+
+
+register_element(
+    ActNormLayer,
+    lambda el: {"d": int(el.bias.shape[0]), "dtype": _dtype_name(el.bias)},
+    _actnorm_from_spec,
+    children=lambda el: [el.bias, el.log_scale],
+)
+
+
+def _invlinear_from_spec(s, device):
+    _check_f32(s)
+    d = s["d"]
+    return InvertibleLinearLayer(
+        _zeros((d, d), device), _zeros((d, d), device), _zeros((d,), device),
+        tuple(s["perm"]), tuple(s["sign"]))
+
+
+register_element(
+    InvertibleLinearLayer,
+    lambda el: {
+        "d": el.d,
+        "dtype": _dtype_name(el.log_s),
+        "perm": list(el.perm),
+        "sign": [float(v) for v in el.sign],
+    },
+    _invlinear_from_spec,
+    children=lambda el: [el.lower, el.upper, el.log_s],
+)
+
+register_element(
+    CouplingBlock,
+    lambda el: {"layer_1": element_spec(el.layer_1),
+                "layer_2": element_spec(el.layer_2)},
+    lambda s, dev: CouplingBlock(element_from_spec(s["layer_1"], dev),
+                                 element_from_spec(s["layer_2"], dev)),
+    children=lambda el: [el.layer_1, el.layer_2],
+)
+
+register_element(
+    FlowChain,
+    lambda el: {"layers": [element_spec(l) for l in el.layers]},
+    lambda s, dev: FlowChain(
+        [element_from_spec(v, dev) for v in s["layers"]]),
+    children=lambda el: list(el.layers),
+)
+
+
+def _logit_from_spec(s, device):
+    _check_f32(s)
+    z = _zeros((s["d"],), device)
+    return LogitLayer(z, z + 1, s["eps"])
+
+
+register_element(
+    LogitLayer,
+    lambda el: {"d": int(el.lo.shape[0]), "dtype": _dtype_name(el.lo),
+                "eps": float(el.eps)},
+    _logit_from_spec,
+    children=lambda el: [el.lo, el.hi],
+)
+
+register_element(
+    StandardNormal,
+    lambda el: {"d": el.d},
+    lambda s, dev: StandardNormal(s["d"]),
+    children=lambda el: [],
+)
+
+
+# -- element-level API ------------------------------------------------------------
+
+def _prepare_dir(directory: str, erase: bool) -> None:
+    if os.path.exists(directory):
+        if erase:
+            shutil.rmtree(directory)
+        elif os.listdir(directory):
+            raise FileExistsError(
+                f"{directory} exists and is not empty (pass erase=True)"
+            )
+    os.makedirs(directory, exist_ok=True)
+
+
+def save_element(directory: str, el, *, erase: bool = False) -> None:
+    """Persist one flow element."""
+    _prepare_dir(directory, erase)
+    with open(os.path.join(directory, "spec.json"), "w") as f:
+        json.dump({"format_version": _FORMAT_VERSION,
+                   "spec": element_spec(el)}, f, indent=1)
+    arrays = {f"leaf_{i:05d}": leaf.detach().cpu().numpy()
+              for i, leaf in enumerate(element_leaves(el))}
+    np.savez(os.path.join(directory, "arrays.npz"), **arrays)
+
+
+def load_element(directory: str, *, device=None):
+    """Load one flow element onto ``device``."""
+    device = resolve_device(device)
+    with open(os.path.join(directory, "spec.json")) as f:
+        payload = json.load(f)
+    el = element_from_spec(payload["spec"], device)
+    with np.load(os.path.join(directory, "arrays.npz")) as npz:
+        n = len(element_leaves(el))
+        set_element_leaves(el, [npz[f"leaf_{i:05d}"] for i in range(n)])
+    return el
+
+
+# -- flow-level API -------------------------------------------------------------------
+
+def save_flow(directory: str, flow: Flow, *, erase: bool = False) -> None:
+    """Persist a complete flow: model + base + metadata + loss histories."""
+    _prepare_dir(directory, erase)
+    save_element(os.path.join(directory, "model"), flow.model, erase=erase)
+    save_element(os.path.join(directory, "base"), flow.base, erase=erase)
+    meta = {
+        "format_version": _FORMAT_VERSION,
+        "metadata": {
+            "hash": flow.metadata.hash,
+            "d": flow.metadata.d,
+            "n": flow.metadata.n,
+            "theta_min": np.asarray(flow.metadata.theta_min).tolist(),
+            "theta_max": np.asarray(flow.metadata.theta_max).tolist(),
+        },
+        "train_loss": [float(v) for v in flow.train_loss],
+        "valid_loss": [float(v) for v in flow.valid_loss],
+        "has_opt_state": False,
+    }
+    with open(os.path.join(directory, "flow.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def load_flow(directory: str, *, device=None) -> Flow:
+    """Load a flow saved by :func:`save_flow` (of this package or of the JAX
+    package) onto ``device``."""
+    device = resolve_device(device)
+    with open(os.path.join(directory, "flow.json")) as f:
+        meta = json.load(f)
+    model = load_element(os.path.join(directory, "model"), device=device)
+    base = load_element(os.path.join(directory, "base"), device=device)
+    md = meta["metadata"]
+    metadata = MetaData(
+        md["hash"], md["d"], md["n"],
+        np.asarray(md["theta_min"], np.float32),
+        np.asarray(md["theta_max"], np.float32),
+    )
+    return Flow(model, metadata, base, meta["train_loss"], meta["valid_loss"],
+                device=device)

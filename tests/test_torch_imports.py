@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: it imports torch and numpy, never jax,
+optax or the JAX package; and it runs on a CUDA device unless the caller asks
+for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "optax", "densityflows_tpu", "flax", "orbax")
+
+_PROBE = r"""
+import sys
+import numpy as np
+import torch
+import densityflows_tpu_torch as dt
+
+g = torch.Generator().manual_seed(0)
+chain = dt.flow_chain(
+    dt.coupling_block(4, None, n=1, generator=g, device="cpu",
+                      hidden_dim_s=8, hidden_dim_t=8, zero_init_final=False),
+    dt.normalization_layer(np.linspace(-2, 2, 12, dtype=np.float32
+                                       ).reshape(3, 4), -1.0, 1.0,
+                           device="cpu"))
+flow = dt.Flow(chain, dt.MetaData("", 4, 1, np.zeros(1), np.ones(1)),
+               device="cpu")
+lp = flow.log_prob(np.zeros((5, 4), np.float32), (0.5,))
+assert lp.shape == (5,) and bool(torch.isfinite(lp).all())
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
+                              "flax", "orbax")]
+assert not bad, bad
+
+# device=None means "cuda": where there is no CUDA that raises
+if not torch.cuda.is_available():
+    for call in (
+        lambda: dt.Flow(chain, flow.metadata),
+        lambda: dt.coupling_layer(4, 2),
+        lambda: dt.init_mlp(g, 2, 2),
+        lambda: dt.normalization_layer(np.eye(3, dtype=np.float32) , 0., 1.),
+        lambda: dt.load_flow("/nonexistent"),
+        lambda: dt.resolve_device(None),
+    ):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "cuda" in str(e).lower(), e
+        else:
+            raise AssertionError("device=None ran without CUDA")
+print("PROBE_OK")
+"""
+
+
+def test_import_and_cpu_log_prob_without_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PROBE_OK" in proc.stdout
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT,
+                                               "densityflows_tpu_torch")):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 15
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_kernel_sources_are_package_data():
+    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
+                       "chain_kernels.cu")
+    with open(src) as f:
+        text = f.read()
+    for symbol in ("df_chain_apply", "df_chain_sample", "philox4x32_10",
+                   "chain_apply_kernel", "chain_sample_kernel"):
+        assert symbol in text
+    # the products are computed in the kernel's own body
+    for library in ("cublas", "cutlass", "torch/extension.h"):
+        assert library not in text.lower()
+
+
+def test_build_module_needs_no_compiler_to_import():
+    from densityflows_tpu_torch import _build
+
+    assert "-gencode" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.source_path("chain_kernels").endswith(
+        os.path.join("csrc", "chain_kernels.cu"))
+    assert os.path.basename(_build.build_dir()) == "build"
