@@ -4,14 +4,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``densityflows_tpu_torch`` from the sources in
-this checkout (into ``build/``), holds each kernel against its plain PyTorch
-version on the card, then drives the port's serving path at the full width
-of the flagship emulator config — d 32, n 8 conditions, 4 coupling blocks
-(8 RealNVP couplings) with hidden 256, a trailing normalization layer, 2^18
-rows — through the entry points a user calls: ``save_flow`` → ``load_flow``
-→ ``log_prob`` / ``sample`` / ``sample_sweep`` / ``forward`` / ``inverse``,
-for the split (s-net + t-net) and the joint-conditioner parameterization.
-Weights and data are random, from ``numpy.random.default_rng(seed)``.
+this checkout (into ``build/``, one ``nvcc`` per source, started together),
+holds each kernel against its plain PyTorch version on the card, then drives
+the port's two main paths through the entry points a user calls:
+
+- serving, at the full width of the flagship emulator config — d 32, n 8
+  conditions, 4 coupling blocks (8 RealNVP couplings) with hidden 256, a
+  trailing normalization layer, 2^18 rows: ``save_flow`` → ``load_flow`` →
+  ``log_prob`` / ``sample`` / ``sample_sweep`` / ``forward`` / ``inverse``,
+  for the split (s-net + t-net) and the joint-conditioner parameterization.
+  Weights and data are random, from ``numpy.random.default_rng(seed)``;
+- training, at the README / BASELINE config — the 5-D conditional
+  ``tests/fixtures/datatest.npz`` data, three RealNVP couplings of hidden 16
+  and a normalization layer, Adam 1e-3, batch 64, 50 epochs:
+  ``train(flow, data, epochs=50, generator=...)`` with default routing (the
+  whole-run ``train_run`` kernel), held against the plain program on the
+  same batch order, then ``evaluate``, ``save_flow`` with the optimizer
+  state → ``load_flow`` → 5 more epochs, and ``sample``. A training call on
+  the wide serving chain shows the visible decline to the plain program.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -23,11 +33,13 @@ roofline bound for the same work.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -35,7 +47,9 @@ import torch
 import densityflows_tpu_torch as dt
 from densityflows_tpu_torch import _build
 from densityflows_tpu_torch.models import fused_chain as fc
+from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
+from densityflows_tpu_torch.ops import train_kernels as tk
 
 SEED = 0
 D, N_COND, HIDDEN, N_BLOCKS, ROWS = 32, 8, 256, 4, 1 << 18
@@ -50,6 +64,12 @@ PEAK_F32_FLOPS = 67e12
 # against the library's f32 products (TF32 off), through up to 24 dense
 # layers and 8 exp() couplings
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# train_run vs its plain version after 4 epochs of Adam on 137 rows: the same
+# f32 arithmetic, summed in another order (the kernel loops over rows and
+# columns with fmaf, the plain version calls the library's products)
+TRAIN_TOL = dict(rtol=0.0, atol=1e-4)
+TRAIN_EPOCHS, TRAIN_BATCH = 50, 64
 
 
 def say(**fields):
@@ -380,6 +400,488 @@ def grid_log_prob(rng, device):
     return -(-64 * 64 * 40 // 65536)  # chunks = kernel launches
 
 
+# -- training: train_run against its plain version -----------------------------
+
+def put(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def small_train_data(rng, n_cond):
+    x = rng.normal(size=(137, 5)).astype(np.float32)
+    th = (rng.uniform(-1, 2, size=(137, n_cond)).astype(np.float32)
+          if n_cond else None)
+    return dt.DataArrays.make(x, th, rng=0), x
+
+
+def small_train_chains(data, x, device):
+    """The kernel's op set at test size: every coupling kind, activation,
+    clamp, bias-free nets, 2- to 4-layer nets, ActNorm, a permutation."""
+    h16 = dict(hidden_dim_s=16, hidden_dim_t=16, device=device)
+    h12 = dict(hidden_dim_s=12, hidden_dim_t=12, device=device)
+    norm = lambda: dt.normalization_layer(x, -1.0, 1.0, device=device)  # noqa: E731
+    layer = lambda mask, **kw: dt.coupling_layer(data, mask, **kw)      # noqa: E731
+    return {
+        "reference": [layer([0, 1, 2], **h16), layer([2, 3, 4], **h16),
+                      layer([4, 0, 1], **h16), norm()],
+        "nice": [layer([0, 1, 2], kind=dt.NICECouplingLayer, **h16),
+                 layer([2, 3, 4], kind=dt.NICECouplingLayer, **h16), norm()],
+        "joint": [layer([0, 1, 2], joint_conditioner=True, **h16),
+                  layer([2, 3, 4], joint_conditioner=True, **h16), norm()],
+        "nobias_tanh": [dt.coupling_block(
+            data, [0, 2, 4], activation_s="tanh", activation_t="tanh",
+            bias=False, **h12), norm()],
+        "sigmoid_deep": [layer([0, 1, 2], activation_s="sigmoid",
+                               activation_t="sigmoid", n_sublayers_s=3,
+                               n_sublayers_t=1, **h12), norm()],
+        "clamp": [layer([0, 1, 2], max_log_scale=0.1, **h16),
+                  layer([2, 3, 4], max_log_scale=0.5, joint_conditioner=True,
+                        **h16), norm()],
+        "actnorm_permutation": [
+            layer([0, 1, 2], **h12), dt.permutation_layer([3, 1, 4, 0, 2]),
+            dt.actnorm_layer(x, device=device),
+            layer([1, 2, 3], joint_conditioner=True, **h12), norm()],
+    }
+
+
+class TrainCase:
+    """A folded chain on the card with its data split and a batch order."""
+
+    def __init__(self, layers, data, device, rng, epochs=4,
+                 batchsize=32):
+        self.chain = numpy_weights_(dt.flow_chain(*layers), rng, 0.3)
+        flow = dt.Flow(self.chain, data, device=device)
+        (self.plan, _tc, self.tparams, self.masks, self.slots, self.cparams,
+         _fold, _unfold) = ft.chain_train_fold(self.chain)
+        xt, tht = data.normalized_training_data(flow.metadata)
+        xv, thv = data.normalized_validation_data(flow.metadata)
+        n_cond = tht.shape[1]
+        self.arrays = (put(xt, device), put(tht, device) if n_cond else None,
+                       put(xv, device), put(thv, device) if n_cond else None)
+        self.n_rows, self.batchsize = xt.shape[0], batchsize
+        self.perms = np.stack([rng.permutation(self.n_rows)
+                               for _ in range(epochs)])
+        self.w = put(rng.uniform(0.3, 2.0, size=xt.shape[0]), device)
+        self.wv = put(rng.uniform(0.3, 2.0, size=xv.shape[0]), device)
+        self.zeros = [torch.zeros_like(p) for p in self.tparams]
+
+    def run(self, fn, perms=None, state=None, **kw):
+        tparams, mu, nu = state or (self.tparams, self.zeros, self.zeros)
+        out = fn(self.plan, tparams, self.masks, self.slots, self.cparams,
+                 mu, nu, *self.arrays,
+                 self.perms if perms is None else perms,
+                 batchsize=self.batchsize, **kw)
+        torch.cuda.synchronize()
+        return out
+
+
+def require_runs_close(got, want, what, tol):
+    """params, mu, nu, both histories, best snapshot, skips."""
+    worst = 0.0
+    for i, name in ((0, "params"), (1, "mu"), (2, "nu")):
+        for k, (a, b) in enumerate(zip(got[i], want[i])):
+            worst = max(worst, require_close(a, b, f"{what}: {name}[{k}]",
+                                             **tol))
+    for i, name in ((3, "train history"), (4, "valid history")):
+        worst = max(worst, require_close(got[i], want[i], f"{what}: {name}",
+                                         **tol))
+    if (got[5] is None) != (want[5] is None):
+        fail(f"{what}: best snapshot on one side only")
+    if got[5] is not None:
+        for k, (a, b) in enumerate(zip(got[5], want[5])):
+            worst = max(worst, require_close(a, b, f"{what}: best[{k}]",
+                                             **tol))
+    if (got[6] is None) != (want[6] is None):
+        fail(f"{what}: skips on one side only")
+    if got[6] is not None and got[6].tolist() != want[6].tolist():
+        fail(f"{what}: skips {got[6].tolist()} != {want[6].tolist()}")
+    return worst
+
+
+def check_train_small(rng, device):
+    """train_run against fused_train_plain on the card, small runs: 4 epochs,
+    137 rows (123 training rows: a ragged last batch), batch 32."""
+    data, x = small_train_data(rng, 1)
+    errs = {}
+    for name, layers in small_train_chains(data, x, device).items():
+        case = TrainCase(layers, data, device, rng)
+        errs[name] = require_runs_close(
+            case.run(tk.run_fused_train), case.run(tk.fused_train_plain),
+            f"train_run {name}", TRAIN_TOL)
+
+    data0, x0 = small_train_data(rng, 0)
+    case = TrainCase(
+        [dt.coupling_layer(data0, [0, 1, 2], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device),
+         dt.coupling_layer(data0, [2, 3, 4], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device,
+                           kind=dt.NICECouplingLayer),
+         dt.normalization_layer(x0, -1.0, 1.0, device=device)],
+        data0, device, rng)
+    errs["n0"] = require_runs_close(
+        case.run(tk.run_fused_train), case.run(tk.fused_train_plain),
+        "train_run n = 0", TRAIN_TOL)
+
+    ref = small_train_chains(data, x, device)["reference"]
+    case = TrainCase(ref, data, device, rng, epochs=5)
+    kw = dict(w=case.w, w_valid=case.wv, track_best=True, lr=3e-3, b1=0.85)
+    one = case.run(tk.run_fused_train, **kw)
+    errs["weighted_track_best"] = require_runs_close(
+        one, case.run(tk.fused_train_plain, **kw),
+        "train_run weighted + track_best", TRAIN_TOL)
+
+    # two calls with carried state against one call, bit for bit
+    n_batches = -(-case.n_rows // case.batchsize)
+    a = case.run(tk.run_fused_train, perms=case.perms[:2], **kw)
+    b = case.run(tk.run_fused_train, perms=case.perms[2:], state=a[:3],
+                 count0=2 * n_batches, **kw)
+    for i in (0, 1, 2):
+        for u, v in zip(one[i], b[i]):
+            if not torch.equal(u, v):
+                fail("train_run: two calls with carried state differ from "
+                     "one call")
+    if not (torch.equal(one[3], torch.cat([a[3], b[3]]))
+            and torch.equal(one[4], torch.cat([a[4], b[4]]))):
+        fail("train_run: histories of two calls differ from one call")
+
+    # the guard. NaN rows poison the batches that gather them: equal skips,
+    # equal finite parameters, NaN full-split histories on both sides
+    arrays = list(case.arrays)
+    arrays[0] = arrays[0].clone()
+    arrays[0][[5, 40, 77], 1] = float("nan")
+    case.arrays = tuple(arrays)
+    got = case.run(tk.run_fused_train, guard_nonfinite=True)
+    want = case.run(tk.fused_train_plain, guard_nonfinite=True)
+    skipped = int(got[6].sum())
+    if skipped == 0 or got[6].tolist() != want[6].tolist():
+        fail(f"train_run guard: skips {got[6].tolist()} vs plain "
+             f"{want[6].tolist()}")
+    for i in (0, 1, 2):
+        for u, v in zip(got[i], want[i]):
+            require_close(u, v, "train_run guard (NaN rows)", **TRAIN_TOL)
+    if not bool(torch.isnan(got[3]).all()):
+        fail("train_run guard: full-split NLL over NaN rows must be NaN")
+
+    # the guard with an exploding learning rate: the first steps throw the
+    # parameters far enough for exp(s) to overflow, every later batch is
+    # skipped, and the parameters stay finite
+    case = TrainCase(ref, data, device, rng)
+    got = case.run(tk.run_fused_train, guard_nonfinite=True, lr=100.0)
+    want = case.run(tk.fused_train_plain, guard_nonfinite=True, lr=100.0)
+    exploded = int(got[6].sum())
+    if exploded == 0 or got[6].tolist() != want[6].tolist():
+        fail(f"train_run guard (lr 100): skips {got[6].tolist()} vs plain "
+             f"{want[6].tolist()}")
+    for p in got[0] + got[1] + got[2]:
+        if not bool(torch.isfinite(p).all()):
+            fail("train_run guard (lr 100): non-finite parameters")
+    return errs, {"nan_rows": skipped, "lr_100": exploded}
+
+
+# -- training: the main path ------------------------------------------------------
+
+def baseline_data():
+    here = os.path.dirname(os.path.abspath(__file__))
+    dat = np.load(os.path.join(here, "tests", "fixtures", "datatest.npz"))
+    return dt.DataArrays.make(dat["x"], dat["theta"], rng=0), dat
+
+
+def baseline_flow(data, dat, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(hidden_dim_s=16, hidden_dim_t=16, generator=g, device=device)
+    return dt.Flow(dt.flow_chain(
+        dt.coupling_layer(data, [0, 1, 2], **kw),
+        dt.coupling_layer(data, [2, 3, 4], **kw),
+        dt.coupling_layer(data, [4, 0, 1], **kw),
+        dt.normalization_layer(dat["x"], -1.0, 1.0, device=device)),
+        data, device=device)
+
+
+def drive_training(device, tmp):
+    """README / BASELINE config through train → evaluate → save_flow /
+    load_flow with the optimizer state → 5 more epochs → sample."""
+    data, dat = baseline_data()
+    n_train = len(data.partition.training)
+    n_batches = -(-n_train // TRAIN_BATCH)
+    flow = baseline_flow(data, dat, device, SEED)
+
+    tk.run_fused_train.launches = 0
+    t0 = time.time()
+    state = dt.train(flow, data, epochs=TRAIN_EPOCHS, batchsize=TRAIN_BATCH,
+                     verbose=False,
+                     generator=torch.Generator().manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    train_seconds = time.time() - t0
+    launches = tk.run_fused_train.launches
+    if flow.trained_path != "fused" or flow.fused_kernel_mode != "resident" \
+            or flow.fused_decline_reason is not None:
+        fail(f"train did not take the kernel: path {flow.trained_path}, "
+             f"reason {flow.fused_decline_reason}")
+    if launches != 1:
+        fail(f"train launched train_run {launches} times, expected 1")
+    tl, vl = np.asarray(flow.train_loss), np.asarray(flow.valid_loss)
+    if tl.shape != (TRAIN_EPOCHS,) or vl.shape != (TRAIN_EPOCHS,) or \
+            not (np.isfinite(tl).all() and np.isfinite(vl).all()):
+        fail("train: histories are not 50 finite entries")
+    if not vl[-1] < vl[0] or vl[-1] > 3.3:
+        fail(f"train: valid NLL {vl[0]} -> {vl[-1]}, expected a decrease to "
+             "at most 3.3")
+    if state.count != TRAIN_EPOCHS * n_batches:
+        fail(f"train: Adam count {state.count}")
+
+    # the same run on the plain program, same weights, same batch order
+    # (the permutations train_fused drew from that generator)
+    perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED + 1),
+                                TRAIN_EPOCHS, n_train)
+    plain = baseline_flow(data, dat, device, SEED)
+    t0 = time.time()
+    state_p = dt.train(plain, data, epochs=TRAIN_EPOCHS,
+                       batchsize=TRAIN_BATCH, verbose=False,
+                       fused_kernel=False, _epoch_perms=perms)
+    torch.cuda.synchronize()
+    program_seconds = time.time() - t0
+    if plain.trained_path != "torch" or state_p.count != state.count:
+        fail("plain program: wrong path or Adam count")
+    vlp = np.asarray(plain.valid_loss)
+    tlp = np.asarray(plain.train_loss)
+    # Two f32 trajectories (hand-derived backward in the kernel, autograd in
+    # the program) agree to rounding at first and drift apart over 750 Adam
+    # steps, which amplify rounding where a gradient is near 0. The gate is
+    # therefore a short run of both paths from the same weights (4 epochs,
+    # 60 steps): histories within 1e-4, parameters within 1e-3. Of the 50
+    # epochs the first 3 history entries are held to 1e-4 and the NLL of all
+    # 50 to 5e-2; the parameters' drift after 50 epochs is reported only.
+    short = {}
+    for name, fused in (("fused", True), ("torch", False)):
+        f = baseline_flow(data, dat, device, SEED)
+        dt.train(f, data, epochs=4, batchsize=TRAIN_BATCH, verbose=False,
+                 fused_kernel=fused, _epoch_perms=perms[:4])
+        if f.trained_path != name:
+            fail(f"4-epoch run took {f.trained_path}, expected {name}")
+        short[name] = f
+    launches_short = tk.run_fused_train.launches - launches
+    short_hist = float(max(
+        np.abs(np.asarray(short["fused"].valid_loss)
+               - np.asarray(short["torch"].valid_loss)).max(),
+        np.abs(np.asarray(short["fused"].train_loss)
+               - np.asarray(short["torch"].train_loss)).max()))
+    short_leaf = max(float((a.detach() - b.detach()).abs().max())
+                     for a, b in zip(ft.trainable_leaves(short["fused"].model),
+                                     ft.trainable_leaves(short["torch"].model)))
+    hist_early = float(max(np.abs(vl[:3] - vlp[:3]).max(),
+                           np.abs(tl[:3] - tlp[:3]).max()))
+    hist_all = float(max(np.abs(vl - vlp).max(), np.abs(tl - tlp).max()))
+    leaf_err = max(float((a.detach() - b.detach()).abs().max())
+                   for a, b in zip(ft.trainable_leaves(flow.model),
+                                   ft.trainable_leaves(plain.model)))
+    if short_hist > 1e-4 or short_leaf > 1e-3 or hist_early > 1e-4 \
+            or hist_all > 5e-2:
+        fail(f"kernel and plain program disagree: 4 epochs histories "
+             f"{short_hist}, parameters {short_leaf}; 50 epochs histories "
+             f"{hist_early} (first 3) / {hist_all} (all)")
+
+    # evaluate: the validation split reproduces the last history entry; a
+    # data object with a test split gives a finite held-out NLL
+    ev_valid = dt.evaluate(flow, data, "validation")
+    if abs(ev_valid - vl[-1]) > 1e-4:
+        fail(f"evaluate(validation) {ev_valid} != last valid NLL {vl[-1]}")
+    split3 = dt.DataArrays.make(dat["x"], dat["theta"], f_training=0.6,
+                                f_validation=0.1, rng=1)
+    ev_test = dt.evaluate(flow, split3, "testing")
+    if not np.isfinite(ev_test) or ev_test > 3.5:
+        fail(f"evaluate(testing) = {ev_test}")
+
+    # checkpoint with the optimizer state, resume for 5 epochs
+    path = f"{tmp}/trained"
+    dt.save_flow(path, flow, state)
+    loaded, state_l = dt.load_flow(path, dt.adam(), device=device)
+    if state_l.count != state.count or \
+            loaded.train_loss != flow.train_loss:
+        fail("load_flow did not restore the optimizer count or histories")
+    for a, b in zip(state_l.mu + state_l.nu, state.mu + state.nu):
+        if not torch.equal(a, b):
+            fail("load_flow did not restore the Adam moments")
+    state_c = dt.train(loaded, data, dt.adam(), state_l, epochs=5,
+                       batchsize=TRAIN_BATCH, verbose=False,
+                       generator=torch.Generator().manual_seed(SEED + 2))
+    torch.cuda.synchronize()
+    if loaded.trained_path != "fused" or \
+            tk.run_fused_train.launches != launches + launches_short + 1:
+        fail("the resumed run did not take the kernel")
+    if state_c.count != state.count + 5 * n_batches or \
+            len(loaded.valid_loss) != TRAIN_EPOCHS + 5 or \
+            not np.isfinite(loaded.valid_loss[-5:]).all() or \
+            loaded.valid_loss[-1] > vl[-1] + 0.05:
+        fail(f"resumed run: count {state_c.count}, valid NLL "
+             f"{loaded.valid_loss[-5:]}")
+
+    # sample at θ = −1 through chain_sample: per-dim moments against the data
+    # rows with θ = −1 (a flow at NLL ≈ 3.0 to 3.2 after 55 epochs; gates:
+    # mean within 0.25 data-std, std within a factor 1.25)
+    before = ck.run_chain_sample.launches
+    with torch.no_grad():
+        s = loaded.sample((50_000,), (-1.0,),
+                          generator=torch.Generator().manual_seed(SEED + 3))
+    torch.cuda.synchronize()
+    if ck.run_chain_sample.launches != before + 1:
+        fail("sample did not go through chain_sample")
+    rows = dat["x"][dat["theta"][:, 0] == -1.0]
+    s = s.double().cpu().numpy()
+    dmean = np.abs(s.mean(0) - rows.mean(0)) / rows.std(0)
+    ratio = s.std(0) / rows.std(0)
+    if not np.isfinite(s).all() or dmean.max() > 0.25 or \
+            ratio.max() > 1.25 or ratio.min() < 1 / 1.25:
+        fail(f"sample moments at theta = -1: mean off by {dmean.tolist()} "
+             f"data-std, std ratios {ratio.tolist()}")
+
+    report = dict(
+        train_seconds=train_seconds, program_seconds=program_seconds,
+        valid_nll_first=float(vl[0]), valid_nll_last=float(vl[-1]),
+        valid_nll_last_plain=float(vlp[-1]), adam_count=state.count,
+        history_err_4_epoch_runs=short_hist,
+        parameter_err_4_epoch_runs=short_leaf,
+        history_err_first_3_epochs=hist_early, history_err_50_epochs=hist_all,
+        parameter_drift_50_epochs=leaf_err, evaluate_validation=ev_valid,
+        evaluate_testing=ev_test, resumed_valid_nll=loaded.valid_loss[-1],
+        resumed_adam_count=state_c.count,
+        sample_mean_err_in_data_std=dmean.tolist(),
+        sample_std_ratio=ratio.tolist())
+    return launches, report, (baseline_flow(data, dat, device, SEED), data,
+                              perms)
+
+
+def wide_decline(rng, device):
+    """train() on the wide serving chain: outside the kernel's envelope, so
+    the default routing declines by name and the plain program runs."""
+    rows, batch = 4096, 256
+    x, th01 = data(rng, rows, D, N_COND, "cpu")
+    arrays = dt.DataArrays.make(x.numpy(), th01.numpy(), rng=0)
+    flow = dt.Flow(wide_chain(False, rng, device), arrays, device=device)
+    tk.run_fused_train.launches = 0
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dt.train(flow, arrays, epochs=2, batchsize=batch, verbose=False,
+                 generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    reason = flow.fused_decline_reason or ""
+    if not any(issubclass(c.category, RuntimeWarning) and reason
+               and reason in str(c.message) for c in caught):
+        fail("wide chain: the decline raised no warning naming its reason")
+    if flow.trained_path != "torch" or tk.run_fused_train.launches != 0:
+        fail("wide chain: train did not decline to the plain program")
+    if "bytes of shared memory" not in reason or \
+            str(tk.MAX_SHARED_BYTES) not in reason:
+        fail(f"wide chain: decline reason does not name the bytes: {reason}")
+    if not np.isfinite(flow.valid_loss).all() or len(flow.valid_loss) != 2:
+        fail("wide chain: plain program histories")
+    steps = 2 * -(-len(arrays.partition.training) // batch)
+    return dict(reason=reason, plain_program_ms_per_step=1e3 * seconds / steps,
+                steps=steps, rows=rows, batchsize=batch)
+
+
+def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
+    """The {"kernels": ...} entry of train_run at the main path's shapes:
+    ``flow`` holds the weights the main path started from, ``perms`` its
+    batch order. The kernel is held against its plain version there, then
+    timed beside it and beside the plain program."""
+    chain = flow.model
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(chain)
+    xt, tht = dataset.normalized_training_data(flow.metadata)
+    xv, thv = dataset.normalized_validation_data(flow.metadata)
+    arrays = (put(xt, device), put(tht, device), put(xv, device),
+              put(thv, device))
+    d, n_cond = xt.shape[1], tht.shape[1]
+    n_train, n_valid = xt.shape[0], xv.shape[0]
+    # the plan and, through the wrapper, the thread count that train() uses
+    packed = tk.pack_train_plan(plan, tparams, masks, slots, cparams, d,
+                                n_cond, TRAIN_BATCH)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros)
+    kw = dict(batchsize=TRAIN_BATCH, guard_nonfinite=True)
+
+    def both(p):
+        got = tk.run_fused_train(*head, *arrays, p, packed=packed, **kw)
+        want = tk.fused_train_plain(*head, *arrays, p, **kw)
+        torch.cuda.synchronize()
+        return got, want
+
+    # the gate: 4 epochs (60 Adam steps), where the two differ by the order
+    # of their sums only; parameters, moments, both histories, skip counts
+    err_main = require_runs_close(*both(perms[:4]),
+                                  "train_run at the main path's shape",
+                                  TRAIN_TOL)
+    # reported, not gated: how far that rounding has grown after all epochs
+    got, want = both(perms)
+    drift = {name: max(float((a - b).abs().max())
+                       for a, b in zip(got[i], want[i]))
+             for i, name in ((0, "params"), (1, "mu"), (2, "nu"))}
+    drift["train_history"] = float((got[3] - want[3]).abs().max())
+    drift["valid_history"] = float((got[4] - want[4]).abs().max())
+    if got[6].tolist() != want[6].tolist():
+        fail("train_run at the main path's shape: skip counts differ")
+
+    del kw["guard_nonfinite"]
+    ms = time_ms(lambda: tk.run_fused_train(
+        *head, *arrays, perms, packed=packed, **kw), warmup=1, runs=5)
+    full = dict(kw, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                track_best=False, w=None, w_valid=None, guard_nonfinite=False,
+                packed=packed)
+    by_threads = {t: time_ms(lambda: tk._launch_train_run(
+        *head, *arrays, perms, threads=t, **full), warmup=0, runs=3)
+        for t in (256, 512, 1024)}
+    plain = time_ms(lambda: tk.fused_train_plain(
+        *head, *arrays, perms, **kw), warmup=0, runs=3)
+
+    epochs = perms.shape[0]
+
+    def program():
+        f = baseline_flow(dataset, {"x": dataset.x}, device, SEED)
+        dt.train(f, dataset, epochs=epochs, batchsize=TRAIN_BATCH,
+                 verbose=False, fused_kernel=False, _epoch_perms=perms)
+    program_ms = time_ms(program, warmup=0, runs=3)
+
+    # the bound: every product the run needs — per training row the forward
+    # and two backward products per layer, per evaluated row the forward —
+    # at the layers' own shapes, over the f32 rate; against every input read
+    # once and every output written once
+    fwd = needed_flops_per_row(chain)
+    flops = epochs * (3 * n_train + (n_train + n_valid)) * fwd
+    n_pad = -(-n_train // TRAIN_BATCH) * TRAIN_BATCH
+    nbytes = 4 * ((n_train + n_valid) * (d + n_cond) + epochs * n_pad
+                  + 7 * packed.n_params + packed.flat_consts.numel()
+                  + packed.prog.numel() + 3 * epochs)
+    b_ms, by = bound_ms(flops, nbytes)
+    say(phase="train_times", card=card, epochs=epochs,
+        train_run_ms=ms, train_run_ms_per_epoch=ms / epochs,
+        train_run_ms_by_threads=by_threads,
+        default_threads=tk._block_threads(packed),
+        plain_version_ms=plain, plain_program_ms=program_ms,
+        plain_program_ms_per_epoch=program_ms / epochs,
+        shared_bytes=packed.shared_bytes, folded_parameters=packed.n_params,
+        max_abs_err_4_epochs_vs_plain_version=err_main,
+        drift_50_epochs_vs_plain_version=drift)
+    return {
+        "name": "train_run", "route": "cuda",
+        "source": "densityflows_tpu_torch/csrc/train_kernels.cu",
+        "replaces": "densityflows_tpu/ops/pallas_train.py:514",
+        "launches": launches, "max_abs_err": max(err_main, err_small),
+        "max_abs_err_main_shape_4_epochs": err_main,
+        "max_abs_err_small_cases": err_small, "tolerance": TRAIN_TOL,
+        "shape": f"{epochs} epochs x {n_pad // TRAIN_BATCH} batches of "
+                 f"{TRAIN_BATCH}, {n_train} training + {n_valid} validation "
+                 f"rows, d {d}, theta {n_cond}, 3 split couplings hidden 16 "
+                 f"+ affine ({packed.n_params} folded parameters); held "
+                 f"against the plain version over the first 4 epochs",
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None, "program_ms": program_ms,
+        "needed_flops": flops, "needed_bytes": nbytes,
+        "ms_per_epoch": ms / epochs,
+        "program_ms_per_epoch": program_ms / epochs,
+    }
+
+
 # -- phase 5: times and bounds ---------------------------------------------------
 
 def needed_flops_per_row(chain):
@@ -505,10 +1007,11 @@ def main():
         cuda=torch.version.cuda)
 
     t0 = time.time()
-    _build.load_library("chain_kernels")
-    summary = {"build_seconds": time.time() - t0}
+    by_source = _build.load_libraries(["chain_kernels", "train_kernels"])
+    summary = {"build_seconds": time.time() - t0,
+               "build_seconds_by_source": by_source}
     say(phase="build", seconds=summary["build_seconds"],
-        build_dir=_build.build_dir())
+        seconds_by_source=by_source, build_dir=_build.build_dir())
 
     rng = np.random.default_rng(SEED)
 
@@ -542,7 +1045,14 @@ def main():
         summary[f"base_draw_z_joint={joint}"] = z
         del chain, x_w, th_w
 
-    # phase 4: the main path; launch counts are taken around the driven
+    # phase 3d: train_run against its plain version, small runs
+    train_errs, train_skips = check_train_small(rng, device)
+    errs["train_run"] = max(train_errs.values())
+    say(phase="train_kernel_small", max_abs_err_by_case=train_errs,
+        skipped_updates=train_skips, tolerance=TRAIN_TOL,
+        two_calls_equal_one_call="bit for bit")
+
+    # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
     with tempfile.TemporaryDirectory() as tmp:
         ck.reset_launch_counts()
@@ -568,6 +1078,17 @@ def main():
             log_prob_median=float(lp.median()), sample_moment_z_by_seed=zs)
         summary[f"sample_moment_z_by_seed_{name}"] = zs
 
+    # phase 4b: the training main path and the visible decline
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, train_report, trained = drive_training(device, tmp)
+    say(phase="train_main_path", card=card, epochs=TRAIN_EPOCHS,
+        batchsize=TRAIN_BATCH, train_run_launches=train_launches,
+        **train_report)
+    summary["train_main_path"] = train_report
+    declined = wide_decline(rng, device)
+    say(phase="train_decline", card=card, **declined)
+    summary["train_decline"] = declined
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -576,6 +1097,8 @@ def main():
                                                     theta_tuple, name, card)
     flow, x, theta, _, _ = driven[False]
     kernels = kernel_rows(flow, x, theta, errs, launches)
+    kernels.append(train_kernel_row(*trained, train_launches,
+                                    errs["train_run"], device, card))
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

@@ -12,12 +12,19 @@ available.
 Ported so far: the serving path — ``load_flow`` → ``log_prob`` / ``sample``
 / ``sample_sweep`` / ``forward`` / ``inverse`` — on the hand-written
 whole-chain kernels ``chain_apply`` and ``chain_sample``
-(``csrc/chain_kernels.cu``). Training is not ported yet.
+(``csrc/chain_kernels.cu``), and single-device training — ``train`` →
+``train_fused`` on the whole-run kernel ``train_run``
+(``csrc/train_kernels.cu``), with the plain multi-epoch program beside it.
 """
 
 from ._device import resolve_device
 from .axes import CouplingAxes, coupling_axes, is_reverse, reverse_axes
-from .convert import chain_from_spec_and_leaves, flow_from_jax_numpy
+from .convert import (
+    adam_state_from_jax_leaves,
+    adam_state_to_jax_leaves,
+    chain_from_spec_and_leaves,
+    flow_from_jax_numpy,
+)
 from .data import (
     DataArrays,
     DataPartition,
@@ -34,6 +41,11 @@ from .models.blocks import CouplingBlock, coupling_block
 from .models.chains import FlowChain, concatenate, flow_chain
 from .models.distributions import StandardNormal
 from .models.flow import Flow, nll_loss
+from .models.fused_train import (
+    UnsupportedFusedTrain,
+    chain_train_fold,
+    train_fused,
+)
 from .models.glow import (
     ActNormLayer,
     InvertibleLinearLayer,
@@ -62,6 +74,17 @@ from .ops.coupling import (
     rnvp_forward,
 )
 from .ops.mlp import MLP, apply_mlp, init_mlp
+from .train import (
+    Adam,
+    AdamState,
+    adam,
+    batch_iterator,
+    evaluate,
+    make_train_program,
+    make_train_step,
+    masked_nll_loss,
+    train,
+)
 from .utils.checkpoint import (
     load_element,
     load_flow,
@@ -101,4 +124,8 @@ __all__ = [
     "save_flow", "load_flow", "save_element", "load_element",
     "register_element",
     "chain_from_spec_and_leaves", "flow_from_jax_numpy",
+    "adam_state_from_jax_leaves", "adam_state_to_jax_leaves",
+    "train", "evaluate", "make_train_step", "make_train_program",
+    "batch_iterator", "masked_nll_loss", "Adam", "AdamState", "adam",
+    "UnsupportedFusedTrain", "chain_train_fold", "train_fused",
 ]

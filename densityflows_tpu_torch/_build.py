@@ -20,7 +20,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load_library", "build_dir", "source_path", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "build_dir", "source_path",
+           "NVCC_FLAGS"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,7 +30,8 @@ NVCC_FLAGS = (
 
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                      # guards _BUILD_LOCKS
+_BUILD_LOCKS: dict[str, threading.Lock] = {}  # one build at a time per source
 
 
 def build_dir() -> str:
@@ -57,6 +59,8 @@ def _nvcc() -> str:
 def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
     with _LOCK:
+        build_lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -83,3 +87,19 @@ def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib
         return lib
+
+
+def load_libraries(names, *, verbose: bool = False) -> dict:
+    """Build and load several sources at once, one ``nvcc`` for each, all
+    started together. Returns ``{name: seconds it took}``."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.time()
+        load_library(name, verbose=verbose)
+        return time.time() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(one, names)))

@@ -6,6 +6,14 @@ modules from such a spec and the leaves as numpy arrays (in pytree-flatten
 order, which is the field order listed in ``utils/checkpoint.py``). Nothing
 here imports JAX: the caller takes the spec and the leaves from the JAX
 side. ``utils.checkpoint.load_flow`` is the same thing from disk.
+
+Optimizer state crosses the same way: ``adam_state_from_jax_leaves`` takes
+the leaves of the JAX package's ``optax.adam`` state as numpy arrays (in
+``jax.tree_util.tree_leaves`` order, which is also the order of
+``opt_state.npz``) and ``adam_state_to_jax_leaves`` gives them back. The JAX
+state has a (zero) moment for every pytree leaf, the non-trainable
+``NormalizationLayer.x_min`` / ``x_max`` included; here those are buffers
+with no moments, so they are dropped one way and filled with zeros the other.
 """
 
 from __future__ import annotations
@@ -15,9 +23,15 @@ import numpy as np
 from ._device import resolve_device
 from .data import MetaData
 from .models.flow import Flow
-from .utils.checkpoint import element_from_spec, set_element_leaves
+from .utils.checkpoint import (
+    adam_state_from_leaves,
+    adam_state_to_leaves,
+    element_from_spec,
+    set_element_leaves,
+)
 
-__all__ = ["chain_from_spec_and_leaves", "flow_from_jax_numpy"]
+__all__ = ["chain_from_spec_and_leaves", "flow_from_jax_numpy",
+           "adam_state_from_jax_leaves", "adam_state_to_jax_leaves"]
 
 
 def chain_from_spec_and_leaves(spec: dict, leaves, device=None):
@@ -46,3 +60,16 @@ def flow_from_jax_numpy(model_spec, model_leaves, base_spec, base_leaves,
     model = chain_from_spec_and_leaves(model_spec, model_leaves, device)
     base = chain_from_spec_and_leaves(base_spec, base_leaves, device)
     return Flow(model, metadata, base, train_loss, valid_loss, device=device)
+
+
+def adam_state_from_jax_leaves(model, leaves):
+    """This package's Adam state for ``model`` from the leaves of the JAX
+    package's Adam state (numpy arrays: count, then mu and nu over every
+    model leaf)."""
+    return adam_state_from_leaves(model, leaves)
+
+
+def adam_state_to_jax_leaves(model, opt_state) -> list:
+    """The leaves of the JAX package's Adam state (numpy arrays, in
+    ``tree_leaves`` order) from this package's state for ``model``."""
+    return adam_state_to_leaves(model, opt_state)

@@ -85,6 +85,16 @@ class Flow:
         self.base = base if base is not None else StandardNormal(metadata.d)
         self.train_loss: list[float] = list(train_loss or [])
         self.valid_loss: list[float] = list(valid_loss or [])
+        # per-epoch counts of batch updates skipped as non-finite
+        # (populated by train(skip_nonfinite=True))
+        self.skipped_updates: list[int] = []
+        # which path the most recent train() call ran ("fused" = the
+        # whole-run train kernel, "torch" = the plain program) and, when the
+        # kernel declined, the envelope/surface item that blocked it
+        self.trained_path: str | None = None
+        self.fused_decline_reason: str | None = None
+        # which mode the last train_fused run used ("resident")
+        self.fused_kernel_mode: str | None = None
         # device-resident θ bounds for boundary normalization
         self._theta_min = torch.as_tensor(
             np.asarray(metadata.theta_min, np.float32)).to(self.device)

@@ -1,0 +1,742 @@
+"""NLL training: the plain multi-epoch program and the routing to the
+whole-run kernel.
+
+PyTorch counterpart of ``densityflows_tpu/train.py`` (single device). Two
+paths run a ``train`` call:
+
+- the **plain program** (:func:`make_train_program`): an eager loop on the
+  flow's device — per epoch a fresh row permutation drawn on the host, per
+  batch gather → inverse pass → masked NLL → autograd → optimizer update,
+  then the full-split train and validation NLL. It handles every optimizer
+  and every layer, and it is the reference the kernel is held against;
+- the **whole-run kernel** (``models/fused_train.py``): the same run as one
+  ``train_run`` launch, for chains and configs inside its envelope.
+
+DataLoader semantics: fresh shuffle each epoch, final partial batch kept —
+as padded gather indices (row 0) plus a loss mask. Loss histories are
+appended to ``flow.train_loss`` / ``flow.valid_loss`` after the run. The
+model's parameters are updated in place.
+
+Randomness is an explicit ``torch.Generator`` (``generator=``); the
+permutations are drawn on the host from it. The chunked loops (checkpoints,
+early stopping, ``debug``) derive each chunk's generator from one draw of the
+caller's generator and the chunk's position, so a resumed run replays the
+shuffle sequence of an uninterrupted one.
+
+Not ported yet (the arguments exist and raise ``NotImplementedError``):
+``mesh=`` (ROADMAP A9 / B4), ``remat`` and ``mixed_precision`` (A13).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import time
+import warnings
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .data import DataArrays, normalize_input
+from .models.flow import Flow, _chain_eval
+from .models.fused_train import (
+    UnsupportedFusedTrain,
+    draw_epoch_perms,
+    load_leaves_,
+    train_fused,
+    trainable_leaves,
+)
+
+__all__ = [
+    "train", "evaluate", "make_train_step", "make_train_program",
+    "batch_iterator", "Adam", "AdamState", "adam", "masked_nll_loss",
+]
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's state: the number of applied updates and the two moment lists,
+    aligned with ``trainable_leaves(model)``. It holds what
+    ``optax.adam``'s state holds (``utils/checkpoint.py`` writes it in that
+    layout)."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+class Adam:
+    """Adam with introspectable hyperparameters, equal to ``optax.adam``:
+    bias-corrected moments, ``eps`` outside the square root, ``eps_root`` 0,
+    then a step of ``-learning_rate``.
+
+    ``init(params)`` / ``update(grads, state, params=None)`` work on lists of
+    tensors and return new tensors; any object with these two methods is an
+    optimizer for the plain program. Only this exact class rides the
+    whole-run kernel, which implements its update.
+    """
+
+    def __init__(self, learning_rate: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.learning_rate = float(learning_rate)
+        self.b1 = float(b1)
+        self.b2 = float(b2)
+        self.eps = float(eps)
+
+    def init(self, params) -> AdamState:
+        params = list(params)
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    def update(self, grads, state: AdamState, params=None):
+        count = state.count + 1
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
+        mu = [self.b1 * m + (1.0 - self.b1) * g
+              for m, g in zip(state.mu, grads)]
+        nu = [self.b2 * v + (1.0 - self.b2) * (g * g)
+              for v, g in zip(state.nu, grads)]
+        updates = [-self.learning_rate * ((m / bc1)
+                                          / (torch.sqrt(v / bc2) + self.eps))
+                   for m, v in zip(mu, nu)]
+        return updates, AdamState(count, mu, nu)
+
+    def __repr__(self):
+        return (f"adam(learning_rate={self.learning_rate}, b1={self.b1}, "
+                f"b2={self.b2}, eps={self.eps})")
+
+
+def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Adam:
+    """Kernel-routable Adam (see :class:`Adam`)."""
+    return Adam(learning_rate, b1=b1, b2=b2, eps=eps)
+
+
+def _not_ported(mesh=None, remat=False, mixed_precision=False):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= training is not ported yet (ROADMAP A9 / B4: data-parallel "
+            "training on torch.distributed with the step kernel)")
+    if remat or mixed_precision:
+        raise NotImplementedError(
+            "remat / mixed_precision are not ported yet (ROADMAP A13)")
+
+
+def _write_metrics(metrics_log, flow, epochs):
+    """Append the last ``epochs`` history entries to the JSONL metrics log
+    (shared by the plain program and the kernel path)."""
+    from .utils.logging import MetricsLogger
+
+    logger = MetricsLogger(metrics_log)
+    epoch0 = len(flow.train_loss) - epochs
+    # slice from an explicit start: [-0:] would re-log the whole history
+    for e, (tl, vl) in enumerate(zip(flow.train_loss[epoch0:],
+                                     flow.valid_loss[epoch0:])):
+        logger.write(epoch=epoch0 + e + 1, train_nll=float(tl),
+                     valid_nll=float(vl), trained_path=flow.trained_path)
+
+
+def masked_nll_loss(model, base, x, theta, mask, *, remat: bool = False,
+                    mixed_precision: bool = False):
+    """NLL over valid rows only; ``mask`` zeroes padded rows so partial
+    batches keep their shape.
+
+    ``mask`` generalizes to per-row importance WEIGHTS: the loss is
+    −Σ mᵢ·log p(xᵢ|θᵢ) / max(Σ mᵢ, 1e-12), so non-0/1 masks give the
+    importance-weighted NLL and the all-ones mask the plain one. The epsilon
+    only guards the all-padded batch, whose numerator is exactly 0.
+    """
+    _not_ported(None, remat, mixed_precision)
+    z, ldj = model.inverse(x, theta)
+    per_sample = base.log_prob(z) + ldj
+    denom = torch.clamp(mask.sum(), min=1e-12)
+    return -(per_sample * mask).sum() / denom
+
+
+def _eval_nll(model, base, x, theta):
+    """Full-array NLL without gradients; a fusable chain on a CUDA device
+    goes through the ``chain_apply`` kernel."""
+    with torch.no_grad():
+        z, ldj = _chain_eval(model, x, theta, "inv")
+        return -(base.log_prob(z) + ldj).mean()
+
+
+def _loss_and_grads(model, base, x, theta, mask):
+    leaves = trainable_leaves(model)
+    wrt = [p for p in leaves if p.numel()]
+    with torch.enable_grad():
+        loss = masked_nll_loss(model, base, x, theta, mask)
+        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = [(next(got) if p.numel() else None) for p in leaves]
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), leaves, grads
+
+
+def _all_finite(loss, grads) -> bool:
+    return bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+
+
+def make_train_step(optimizer, *, remat: bool = False,
+                    mixed_precision: bool = False):
+    """Single-batch step (loss + gradients + update) for callers that feed
+    batches from their own pipeline: ``step(model, opt_state, base, x,
+    theta, mask) → (model, opt_state, loss)``. The model is updated in
+    place."""
+    _not_ported(None, remat, mixed_precision)
+
+    def train_step(model, opt_state, base, x, theta, mask):
+        loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask)
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
+        with torch.no_grad():
+            for p, u in zip(leaves, updates):
+                p.add_(u)
+        return model, opt_state, loss
+
+    return train_step
+
+
+def make_train_program(
+    optimizer,
+    batchsize: int,
+    epochs: int,
+    shuffle: bool = True,
+    *,
+    remat: bool = False,
+    mixed_precision: bool = False,
+    weighted: bool = False,
+    track_best: bool = False,
+    guard_nonfinite: bool = False,
+):
+    """Build the plain multi-epoch training program.
+
+    Returns ``fn(model, opt_state, base, x, theta, x_valid, theta_valid,
+    generator, *, epoch_perms=None) → (model, opt_state, train_losses,
+    valid_losses)``; the losses are per-epoch full-split NLLs (numpy
+    float32), taken after the epoch's last batch. ``x`` / ``theta`` and the
+    validation arrays are tensors on the model's device. The model is updated
+    in place and returned. ``epoch_perms`` ``(epochs, n)`` replaces the
+    permutations drawn from ``generator``. Extensions:
+
+    - ``weighted=True``: the program takes per-row importance weights —
+      ``fn(model, opt_state, base, x, theta, w, x_valid, theta_valid,
+      w_valid, generator)`` — and every batch loss and both full-split epoch
+      evaluations become the weighted NLL.
+    - ``track_best=True``: appends ``best_model`` to the outputs, a copy of
+      the model at the epoch with the lowest validation NLL.
+    - ``guard_nonfinite=True``: appends ``skips`` (per-epoch int counts) —
+      each batch update is applied only if the loss and every gradient are
+      finite; a skipped step leaves parameters and optimizer state as they
+      are.
+    """
+    _not_ported(None, remat, mixed_precision)
+
+    def body(model, opt_state, base, x, theta, w, x_valid, theta_valid,
+             w_valid, generator, epoch_perms):
+        n, nv = x.shape[0], x_valid.shape[0]
+        n_batches = -(-n // batchsize)
+        n_pad = n_batches * batchsize
+        perms = (draw_epoch_perms(generator, epochs, n, shuffle)
+                 if epoch_perms is None else np.asarray(epoch_perms))
+        if perms.shape != (epochs, n):
+            raise ValueError(
+                f"epoch_perms must have shape {(epochs, n)}, got "
+                f"{perms.shape}")
+        idx = np.zeros((epochs, n_pad), np.int64)
+        idx[:, :n] = perms
+        idx = torch.as_tensor(idx, device=x.device)
+        pad_mask = (torch.arange(n_pad, device=x.device) < n).to(x.dtype)
+        ones_t, ones_v = x.new_ones(n), x.new_ones(nv)
+        tls, vls, skips = [], [], []
+        best_vl = float("inf")
+        best_values = ([p.detach().clone() for p in trainable_leaves(model)]
+                       if track_best else None)
+        for e in range(epochs):
+            e_skips = 0
+            for b in range(n_batches):
+                sl = slice(b * batchsize, (b + 1) * batchsize)
+                rows = idx[e, sl]
+                m = pad_mask[sl]
+                if weighted:
+                    m = m * w[rows]
+                loss, leaves, grads = _loss_and_grads(
+                    model, base, x[rows], theta[rows], m)
+                if guard_nonfinite and not _all_finite(loss, grads):
+                    e_skips += 1
+                    continue
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      leaves)
+                with torch.no_grad():
+                    for p, u in zip(leaves, updates):
+                        p.add_(u)
+            with torch.no_grad():
+                tl = float(masked_nll_loss(model, base, x, theta,
+                                           w if weighted else ones_t))
+                vl = float(masked_nll_loss(model, base, x_valid, theta_valid,
+                                           w_valid if weighted else ones_v))
+            if track_best and vl < best_vl:   # false on NaN
+                best_vl = vl
+                best_values = [p.detach().clone()
+                               for p in trainable_leaves(model)]
+            tls.append(tl)
+            vls.append(vl)
+            skips.append(e_skips)
+        out = [model, opt_state, np.asarray(tls, np.float32),
+               np.asarray(vls, np.float32)]
+        if track_best:
+            best_model = copy.deepcopy(model)
+            load_leaves_(best_model, best_values)
+            out.append(best_model)
+        if guard_nonfinite:
+            out.append(np.asarray(skips, np.int32))
+        return tuple(out)
+
+    if weighted:
+        def train_program(model, opt_state, base, x, theta, w, x_valid,
+                          theta_valid, w_valid, generator, *,
+                          epoch_perms=None):
+            return body(model, opt_state, base, x, theta, w, x_valid,
+                        theta_valid, w_valid, generator, epoch_perms)
+    else:
+        def train_program(model, opt_state, base, x, theta, x_valid,
+                          theta_valid, generator, *, epoch_perms=None):
+            return body(model, opt_state, base, x, theta, None, x_valid,
+                        theta_valid, None, generator, epoch_perms)
+    return train_program
+
+
+# -- chunked loops ------------------------------------------------------------
+
+def _chunk_seed(generator) -> int:
+    """One draw of the caller's generator: the seed every chunk's generator
+    is derived from."""
+    if generator is None:
+        generator = torch.Generator()
+        generator.seed()
+    return int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device, dtype=torch.int64))
+
+
+def _chunk_generator(seed: int, done: int) -> torch.Generator:
+    """The generator of the chunk that starts after ``done`` epochs: a
+    function of (seed, done) only, never of call order."""
+    return torch.Generator().manual_seed(
+        (seed + 0x9E3779B97F4A7C15 * (done + 1)) % (2**63 - 1))
+
+
+def _chunk_perms(epoch_perms, done, chunk):
+    return None if epoch_perms is None else \
+        np.asarray(epoch_perms)[done:done + chunk]
+
+
+def _train_with_checkpoints(
+    flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
+    generator, debug, checkpoint_dir, checkpoint_every, resume,
+    metrics_log=None, weights=None, skip_nonfinite=False, epoch_perms=None,
+):
+    """Chunked training with checkpoint-restart recovery: chunks of
+    ``checkpoint_every`` epochs with a full checkpoint (model + optimizer
+    state + histories) written between them."""
+    from .utils.checkpoint import load_flow, save_flow
+
+    # the chunk train() calls receive the USER's optimizer (None when
+    # unspecified) so plain-surface chunks may route through the kernel
+    seed = _chunk_seed(generator)
+    done = 0
+    if resume and os.path.exists(os.path.join(checkpoint_dir, "flow.json")):
+        restored = load_flow(checkpoint_dir,
+                             optimizer if optimizer is not None else Adam(),
+                             device=flow.device)
+        if isinstance(restored, tuple):
+            restored_flow, opt_state = restored
+        else:
+            restored_flow, opt_state = restored, None
+        flow.model = restored_flow.model
+        flow.train_loss[:] = restored_flow.train_loss
+        flow.valid_loss[:] = restored_flow.valid_loss
+        done = len(flow.train_loss)
+        if verbose and done:
+            print(f"[resumed from {checkpoint_dir} at epoch {done}]")
+
+    target = max(epochs, done)
+    # per-chunk generators derived from position so a resumed run replays
+    # the exact shuffle sequence of an uninterrupted one
+    while done < target:
+        chunk = min(checkpoint_every, target - done)
+        opt_state = train(
+            flow, data, optimizer, opt_state, epochs=chunk,
+            batchsize=batchsize, shuffle=shuffle, verbose=verbose,
+            generator=_chunk_generator(seed, done), debug=debug,
+            metrics_log=metrics_log, weights=weights,
+            skip_nonfinite=skip_nonfinite,
+            _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
+        done += chunk
+        save_flow(checkpoint_dir, flow, opt_state, erase=True)
+    return opt_state
+
+
+def _train_early_stopping(
+    flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
+    generator, debug, patience, min_delta, check_every, restore_best,
+    metrics_log, weights=None, skip_nonfinite=False, epoch_perms=None,
+):
+    """Chunked training with validation-based early stopping. Between chunks
+    of ``check_every`` epochs the host inspects the validation-loss tail and
+    stops once the best validation NLL has not improved by ``min_delta`` for
+    ``patience`` consecutive epochs; with ``restore_best`` the model is
+    rolled back to the EXACT best-epoch parameters (each chunk tracks its
+    best epoch, so the restore is epoch-exact whatever ``check_every``)."""
+    seed = _chunk_seed(generator)
+    best = float("inf")
+    best_restore = float("inf")
+    best_model = None
+    best_epoch = 0
+    done = 0
+    while done < epochs:
+        chunk = min(check_every, epochs - done)
+        res = train(
+            flow, data, optimizer, opt_state, epochs=chunk,
+            batchsize=batchsize, shuffle=shuffle, verbose=verbose,
+            generator=_chunk_generator(seed, done), debug=debug,
+            metrics_log=metrics_log, weights=weights,
+            skip_nonfinite=skip_nonfinite, _track_best=restore_best,
+            _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
+        opt_state, chunk_best = res if restore_best else (res, None)
+        done += chunk
+        tail = flow.valid_loss[-chunk:]
+        if restore_best and min(tail) < best_restore:
+            # chunk_best is the model at the chunk's argmin epoch
+            best_restore = min(tail)
+            best_model = chunk_best
+        if min(tail) < best - min_delta:
+            i_rel = int(np.argmin(tail))
+            best = tail[i_rel]
+            best_epoch = done - chunk + i_rel + 1
+        no_improve_for = done - best_epoch
+        if no_improve_for >= patience:
+            if verbose:
+                print(f"[early stop at epoch {done}: no valid improvement "
+                      f"> {min_delta} for {no_improve_for} epochs; best "
+                      f"{best:.6f} @ epoch {best_epoch}]")
+            break
+    if restore_best and best_model is not None:
+        flow.model = best_model
+    return opt_state
+
+
+def evaluate(flow: Flow, data: DataArrays, split: str = "testing") -> float:
+    """Full-split NLL on ``'training'`` / ``'validation'`` / ``'testing'``."""
+    getter = {
+        "training": data.normalized_training_data,
+        "validation": data.normalized_validation_data,
+    }.get(split)
+    if getter is not None:
+        x, th = getter(flow.metadata)
+    elif split == "testing":
+        x, th = data.testing_data()
+        th = normalize_input(th, flow.metadata.theta_min,
+                             flow.metadata.theta_max)
+    else:
+        raise ValueError(f"unknown split {split!r}")
+    if x.shape[0] == 0:
+        raise ValueError(f"split {split!r} is empty")
+    return float(_eval_nll(flow.model, flow.base, _put(x, flow.device),
+                           _put(th, flow.device)))
+
+
+def batch_iterator(
+    x: np.ndarray,
+    theta: np.ndarray,
+    batchsize: int,
+    *,
+    shuffle: bool = True,
+    rng: np.random.Generator | None = None,
+) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Host-side batcher for callers of :func:`make_train_step`: yields
+    (x_batch, theta_batch, mask) with fixed shapes; the final partial batch
+    is padded with row 0 and masked."""
+    n = x.shape[0]
+    if rng is None:
+        rng = np.random.default_rng()
+    order = rng.permutation(n) if shuffle else np.arange(n)
+    for start in range(0, n, batchsize):
+        idx = order[start:start + batchsize]
+        k = len(idx)
+        mask = np.zeros((batchsize,), np.float32)
+        mask[:k] = 1.0
+        if k < batchsize:
+            idx = np.concatenate([idx, np.zeros((batchsize - k,), idx.dtype)])
+        yield x[idx], theta[idx], mask
+
+
+def _put(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+_DEBUG_CHUNK = 10
+_PLAIN = "torch"   # flow.trained_path of the plain program
+
+
+def train(
+    flow: Flow,
+    data: DataArrays,
+    optimizer=None,
+    opt_state=None,
+    *,
+    epochs: int = 100,
+    batchsize: int = 64,
+    shuffle: bool = True,
+    verbose: bool = True,
+    generator=None,
+    mesh=None,
+    debug: bool = False,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 10,
+    resume: bool = False,
+    metrics_log: str | None = None,
+    early_stopping_patience: int | None = None,
+    early_stopping_min_delta: float = 0.0,
+    early_stopping_check_every: int | None = None,
+    restore_best: bool = True,
+    remat: bool = False,
+    mixed_precision: bool = False,
+    weights=None,
+    skip_nonfinite: bool = False,
+    fused_kernel: bool | str = "auto",
+    _track_best: bool = False,
+    _epoch_perms=None,
+):
+    """Train the flow by NLL, on the flow's device.
+
+    Defaults: epochs=100, batchsize=64, shuffle=True, Adam(1e-3). θ is
+    normalized once through the flow's metadata. ``generator``: the
+    ``torch.Generator`` the per-epoch shuffles are drawn from (None: a fresh
+    non-deterministic one).
+
+    Fault tolerance: with ``checkpoint_dir`` set, the run is chunked into
+    ``checkpoint_every`` epochs with a full checkpoint (model + optimizer
+    state + histories) written between chunks; ``resume=True`` restarts from
+    the last checkpoint, skipping the epochs already done.
+
+    Early stopping: ``early_stopping_patience=p`` stops once the validation
+    NLL has not improved by ``early_stopping_min_delta`` for ``p`` epochs
+    (checked every ``early_stopping_check_every`` epochs, default
+    ``min(p, 10)``); ``restore_best`` rolls the model back to the exact
+    best-validation epoch's parameters.
+
+    ``weights``: per-row importance weights aligned with the RAW ``data``
+    rows — batch losses and both per-epoch full-split evaluations become the
+    weighted NLL −Σwᵢ·log pᵢ / Σwᵢ.
+
+    ``skip_nonfinite=True``: each batch update is applied only when the loss
+    and all gradients are finite; skipped steps leave the state untouched and
+    are counted in ``flow.skipped_updates`` (one entry per epoch).
+    ``debug=True`` chunks the run into 10-epoch pieces so a non-finite epoch
+    loss raises ``FloatingPointError`` within about 10 epochs.
+
+    Returns ``opt_state`` so training can be continued exactly.
+
+    ``fused_kernel`` selects the whole-run kernel (``models/fused_train.py``):
+    every epoch in ONE launch with the parameters and Adam moments kept on
+    chip. Supported surface: RNVP / joint / NICE couplings (incl.
+    ``max_log_scale`` clamps) + ActNorm / Normalization / Permutation layers,
+    StandardNormal base, Adam (the default or ``adam(lr, b1, b2, eps)``),
+    ``weights=``, ``skip_nonfinite``, ``metrics_log`` and best-epoch
+    tracking. Same batch order as the plain program (losses agree to float
+    accumulation order); the returned state continues on either path.
+
+    - ``"auto"`` (default): route through the kernel when the flow is on a
+      CUDA device, the call is on the plain training surface and the
+      chain/config is inside the kernel's envelope; otherwise run the plain
+      program. Every decline is recorded in ``flow.fused_decline_reason``
+      (and printed with ``verbose``); a chain or config outside the envelope
+      on a CUDA flow also raises a ``RuntimeWarning``. A CPU flow never
+      auto-routes.
+    - ``True``: force the kernel path (on a CPU flow: the kernel's plain
+      version); raises ``ValueError`` / ``UnsupportedFusedTrain`` outside
+      the supported surface.
+    - ``False``: always the plain program.
+
+    ``flow.trained_path`` is ``"fused"`` or ``"torch"`` after the call. A
+    kernel that fails to build or launch raises; nothing turns such a
+    failure into a run on the other path.
+    """
+    _not_ported(mesh, remat, mixed_precision)
+    # Adam hyperparameters the kernel can honor: None → Adam(1e-3); an
+    # adam(...) → its lr/b1/b2/eps. Exact-type check: an Adam SUBCLASS may
+    # override update() with semantics the kernel does not implement
+    kernel_hp = {}
+    if type(optimizer) is Adam:
+        kernel_hp = dict(lr=optimizer.learning_rate, b1=optimizer.b1,
+                         b2=optimizer.b2, eps=optimizer.eps)
+
+    def fused_call():
+        out = train_fused(
+            flow, data, epochs=epochs, batchsize=batchsize, shuffle=shuffle,
+            verbose=verbose, generator=generator, opt_state=opt_state,
+            track_best=_track_best, weights=weights,
+            skip_nonfinite=skip_nonfinite, _epoch_perms=_epoch_perms,
+            **kernel_hp)
+        flow.trained_path = "fused"
+        flow.fused_decline_reason = None
+        if metrics_log is not None:
+            _write_metrics(metrics_log, flow, epochs)
+        return out
+
+    def note_decline(reason, warn=False):
+        flow.fused_decline_reason = reason
+        if warn:
+            warnings.warn(
+                f"train: the whole-run kernel declined this run ({reason}); "
+                "the plain program trains it, one launch per operation. Pass "
+                "fused_kernel=False to choose that path without this warning",
+                RuntimeWarning, stacklevel=3)
+        if verbose:
+            print(f"[fused-train kernel not used — {reason}; using the "
+                  f"plain program]")
+
+    if fused_kernel == "auto":
+        chunked_loop = (early_stopping_patience is not None
+                          or checkpoint_dir is not None)
+        blocked = [name for name, flag in (
+            ("debug", debug),
+            ("optimizer other than adam(...)",
+             optimizer is not None and type(optimizer) is not Adam),
+        ) if flag]
+        if flow.device.type != "cuda":
+            # recorded but not printed: there is no kernel to lose here
+            flow.fused_decline_reason = f"non-CUDA device ({flow.device.type})"
+        elif chunked_loop:
+            pass  # the chunk loop's inner train() calls decide per chunk
+        elif blocked:
+            note_decline("off-kernel training surface: " + ", ".join(blocked))
+        else:
+            try:
+                return fused_call()
+            except UnsupportedFusedTrain as e:
+                # outside the envelope — the plain program handles it, and
+                # the caller, who did not choose that, is told
+                note_decline(f"outside the kernel envelope: {e}", warn=True)
+        fused_kernel = False
+    if fused_kernel:
+        if (debug or checkpoint_dir is not None
+                or early_stopping_patience is not None):
+            raise ValueError(
+                "fused_kernel=True supports the plain training surface only "
+                "(no debug/checkpointing/early stopping) — drop fused_kernel "
+                "to use the plain program")
+        if optimizer is not None and type(optimizer) is not Adam:
+            raise ValueError(
+                "fused_kernel=True uses the built-in Adam update; pass an "
+                "adam(lr, b1, b2, eps) (its hyperparameters are "
+                "introspectable) instead of another optimizer or an Adam "
+                "subclass")
+        return fused_call()
+    if early_stopping_patience is not None:
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "early stopping and checkpoint_dir are separate chunked "
+                "loops — use one or the other")
+        return _train_early_stopping(
+            flow, data, optimizer, opt_state, epochs=epochs,
+            batchsize=batchsize, shuffle=shuffle, verbose=verbose,
+            generator=generator, debug=debug,
+            patience=early_stopping_patience,
+            min_delta=early_stopping_min_delta,
+            check_every=(early_stopping_check_every
+                         or min(early_stopping_patience, 10)),
+            restore_best=restore_best, metrics_log=metrics_log,
+            weights=weights, skip_nonfinite=skip_nonfinite,
+            epoch_perms=_epoch_perms)
+    if checkpoint_dir is not None:
+        return _train_with_checkpoints(
+            flow, data, optimizer, opt_state, epochs=epochs,
+            batchsize=batchsize, shuffle=shuffle, verbose=verbose,
+            generator=generator, debug=debug, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            metrics_log=metrics_log, weights=weights,
+            skip_nonfinite=skip_nonfinite, epoch_perms=_epoch_perms)
+    if optimizer is None:
+        optimizer = Adam()
+
+    if debug and epochs > _DEBUG_CHUNK and not _track_best:
+        # chunked execution so a non-finite epoch loss raises within about
+        # _DEBUG_CHUNK epochs, not after the whole run
+        seed = _chunk_seed(generator)
+        done = 0
+        while done < epochs:
+            chunk = min(_DEBUG_CHUNK, epochs - done)
+            opt_state = train(
+                flow, data, optimizer, opt_state, epochs=chunk,
+                batchsize=batchsize, shuffle=shuffle, verbose=verbose,
+                generator=_chunk_generator(seed, done), debug=True,
+                metrics_log=metrics_log, weights=weights,
+                skip_nonfinite=skip_nonfinite, fused_kernel=False,
+                _epoch_perms=_chunk_perms(_epoch_perms, done, chunk))
+            done += chunk
+        return opt_state
+
+    x_train, th_train = data.normalized_training_data(flow.metadata)
+    x_valid, th_valid = data.normalized_validation_data(flow.metadata)
+    n_train = x_train.shape[0]
+
+    w_train = w_valid = None
+    if weights is not None:
+        w = np.asarray(weights, np.float32).reshape(-1)
+        if w.shape[0] != data.x.shape[0]:
+            raise ValueError(
+                f"weights must have one entry per data row "
+                f"({data.x.shape[0]}), got {w.shape[0]}")
+        w_train = _put(w[np.asarray(data.partition.training)], flow.device)
+        w_valid = _put(w[np.asarray(data.partition.validation)], flow.device)
+
+    dev = flow.device
+    xt, tht = _put(x_train, dev), _put(th_train, dev)
+    xv, thv = _put(x_valid, dev), _put(th_valid, dev)
+    model = flow.model
+    if opt_state is None:
+        opt_state = optimizer.init(trainable_leaves(model))
+
+    program = make_train_program(
+        optimizer, batchsize, epochs, shuffle, weighted=weights is not None,
+        track_best=_track_best, guard_nonfinite=skip_nonfinite)
+    t0 = time.perf_counter()
+    if weights is not None:
+        out = program(model, opt_state, flow.base, xt, tht, w_train, xv, thv,
+                      w_valid, generator, epoch_perms=_epoch_perms)
+    else:
+        out = program(model, opt_state, flow.base, xt, tht, xv, thv,
+                      generator, epoch_perms=_epoch_perms)
+    model, opt_state, tls, vls = out[:4]
+    rest = list(out[4:])
+    best_model = rest.pop(0) if _track_best else None
+    skips = rest.pop(0) if skip_nonfinite else None
+    elapsed = time.perf_counter() - t0
+    flow.model = model
+    flow.trained_path = _PLAIN
+    flow.train_loss.extend(float(v) for v in tls)
+    flow.valid_loss.extend(float(v) for v in vls)
+    if skips is not None:
+        flow.skipped_updates.extend(int(v) for v in skips)
+        if verbose and skips.sum():
+            print(f"[skipped {int(skips.sum())} non-finite updates]")
+
+    if metrics_log is not None:
+        _write_metrics(metrics_log, flow, epochs)
+
+    if debug and (not np.all(np.isfinite(tls)) or not np.all(np.isfinite(vls))):
+        raise FloatingPointError(
+            "non-finite epoch loss encountered "
+            f"(train={tls.tolist()}, valid={vls.tolist()})")
+    if verbose:
+        for e, (tl, vl) in enumerate(zip(tls, vls)):
+            print(f"epoch: {len(flow.train_loss) - epochs + e + 1} | "
+                  f"train_loss = {tl}, valid_loss = {vl}")
+        sps = epochs * n_train / elapsed if elapsed > 0 else float("inf")
+        print(f"[{elapsed:.2f}s | {sps:,.0f} samples/s]")
+    if _track_best:
+        return opt_state, best_model
+    return opt_state

@@ -15,7 +15,13 @@ The leaf order of an element is the field order of the JAX dataclass:
 ``log_s``; ``LogitLayer``: ``lo``, ``hi``; ``PermutationLayer`` and
 ``StandardNormal``: none; containers: their children in order.
 
-Optimizer state is not handled here (training is not ported yet).
+Optimizer state: ``save_flow(dir, flow, opt_state)`` writes ``opt_state.npz``
+in the leaf order of the JAX package's ``optax.adam`` state — the int32
+count, then one first-moment array per model leaf, then one second-moment
+array per model leaf — so a run saved by either package resumes in the other.
+Leaves that are buffers here (``NormalizationLayer.x_min`` / ``x_max``,
+``LogitLayer.lo`` / ``hi``) carry zero moments in that file and none in this
+package's :class:`~densityflows_tpu_torch.train.AdamState`.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ __all__ = [
     "save_flow", "load_flow", "save_element", "load_element",
     "element_spec", "element_from_spec", "element_leaves",
     "set_element_leaves", "register_element",
+    "adam_state_to_leaves", "adam_state_from_leaves",
 ]
 
 _FORMAT_VERSION = 1
@@ -383,10 +390,78 @@ def load_element(directory: str, *, device=None):
     return el
 
 
+# -- optimizer state ------------------------------------------------------------
+
+def _is_trainable(t) -> bool:
+    return isinstance(t, torch.nn.Parameter)
+
+
+def adam_state_to_leaves(model, opt_state) -> list[np.ndarray]:
+    """An :class:`~densityflows_tpu_torch.train.AdamState` as numpy arrays in
+    the leaf order of the JAX package's ``optax.adam`` state for the same
+    model: count, a first moment per model leaf, a second moment per model
+    leaf (zeros for the leaves this package holds as buffers)."""
+    leaves = element_leaves(model)
+    n_train = sum(_is_trainable(t) for t in leaves)
+    if not all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        raise TypeError(
+            "only an Adam state (count, mu, nu) can be written to a "
+            f"checkpoint, got {type(opt_state).__name__}")
+    if len(opt_state.mu) != n_train or len(opt_state.nu) != n_train:
+        raise ValueError(
+            f"the model has {n_train} trainable leaves, the optimizer state "
+            f"{len(opt_state.mu)} / {len(opt_state.nu)} moments")
+    out = [np.asarray(int(opt_state.count), np.int32)]
+    for moments in (opt_state.mu, opt_state.nu):
+        it = iter(moments)
+        for t in leaves:
+            m = next(it) if _is_trainable(t) else torch.zeros_like(t)
+            if tuple(m.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"moment shape {tuple(m.shape)} != leaf shape "
+                    f"{tuple(t.shape)}")
+            out.append(m.detach().cpu().numpy())
+    return out
+
+
+def adam_state_from_leaves(model, arrays):
+    """The inverse of :func:`adam_state_to_leaves`: build the state for
+    ``model`` (moments on the model's device) from the arrays of an
+    ``optax.adam`` state in ``jax.tree_util.tree_leaves`` order, which is the
+    order of ``opt_state.npz``."""
+    from ..train import AdamState
+
+    leaves = element_leaves(model)
+    arrays = [np.asarray(a) for a in arrays]
+    if len(arrays) != 1 + 2 * len(leaves):
+        raise ValueError(
+            f"an Adam state of this model has {1 + 2 * len(leaves)} leaves "
+            f"(count, mu, nu), got {len(arrays)}: only Adam-family optimizer "
+            "state can be carried across")
+    if arrays[0].shape != () or not np.issubdtype(arrays[0].dtype,
+                                                  np.integer):
+        raise ValueError("the first leaf of an Adam state is its int count")
+    moments = []
+    for part in (arrays[1:1 + len(leaves)], arrays[1 + len(leaves):]):
+        vals = []
+        for t, a in zip(leaves, part):
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"moment shape {tuple(a.shape)} != leaf shape "
+                    f"{tuple(t.shape)}")
+            if _is_trainable(t):
+                vals.append(torch.as_tensor(np.array(a, np.float32))
+                            .to(t.device))
+        moments.append(vals)
+    return AdamState(int(arrays[0]), moments[0], moments[1])
+
+
 # -- flow-level API -------------------------------------------------------------------
 
-def save_flow(directory: str, flow: Flow, *, erase: bool = False) -> None:
-    """Persist a complete flow: model + base + metadata + loss histories."""
+def save_flow(directory: str, flow: Flow, opt_state=None, *,
+              erase: bool = False) -> None:
+    """Persist a complete flow: model + base + metadata + loss histories
+    (+ optionally the Adam state ``train`` returned)."""
     _prepare_dir(directory, erase)
     save_element(os.path.join(directory, "model"), flow.model, erase=erase)
     save_element(os.path.join(directory, "base"), flow.base, erase=erase)
@@ -401,15 +476,23 @@ def save_flow(directory: str, flow: Flow, *, erase: bool = False) -> None:
         },
         "train_loss": [float(v) for v in flow.train_loss],
         "valid_loss": [float(v) for v in flow.valid_loss],
-        "has_opt_state": False,
+        "has_opt_state": opt_state is not None,
     }
     with open(os.path.join(directory, "flow.json"), "w") as f:
         json.dump(meta, f, indent=1)
+    if opt_state is not None:
+        arrays = adam_state_to_leaves(flow.model, opt_state)
+        np.savez(os.path.join(directory, "opt_state.npz"),
+                 **{f"leaf_{i:05d}": a for i, a in enumerate(arrays)})
 
 
-def load_flow(directory: str, *, device=None) -> Flow:
+def load_flow(directory: str, optimizer=None, *, device=None):
     """Load a flow saved by :func:`save_flow` (of this package or of the JAX
-    package) onto ``device``."""
+    package) onto ``device``.
+
+    If ``optimizer`` (an :class:`~densityflows_tpu_torch.train.Adam`) is
+    given and the checkpoint holds optimizer state, returns ``(flow,
+    opt_state)``; otherwise returns just the flow."""
     device = resolve_device(device)
     with open(os.path.join(directory, "flow.json")) as f:
         meta = json.load(f)
@@ -421,5 +504,10 @@ def load_flow(directory: str, *, device=None) -> Flow:
         np.asarray(md["theta_min"], np.float32),
         np.asarray(md["theta_max"], np.float32),
     )
-    return Flow(model, metadata, base, meta["train_loss"], meta["valid_loss"],
-                device=device)
+    flow = Flow(model, metadata, base, meta["train_loss"],
+                meta["valid_loss"], device=device)
+    if optimizer is not None and meta.get("has_opt_state"):
+        with np.load(os.path.join(directory, "opt_state.npz")) as npz:
+            arrays = [npz[f"leaf_{i:05d}"] for i in range(len(npz.files))]
+        return flow, adam_state_from_leaves(flow.model, arrays)
+    return flow

@@ -1,5 +1,5 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA chain
-kernels against their plain versions. They skip where there is no card; run
+kernels and the whole-run train kernel against their plain versions. They skip where there is no card; run
 them on a machine with one with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -12,7 +12,9 @@ import torch
 
 import densityflows_tpu_torch as dt
 from densityflows_tpu_torch.models import fused_chain as TF
+from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.ops import chain_kernels as CK
+from densityflows_tpu_torch.ops import train_kernels as TK
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +70,74 @@ def test_chain_sample_kernel_matches_plain_fold_of_its_noise(cuda):
     np.testing.assert_allclose(r.cpu().numpy(),
                                CK.philox_normal_reference(7, 4097, 7),
                                atol=1e-5)
+
+
+def _train_case(device, weighted):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(137, 5)).astype(np.float32)
+    th = rng.uniform(-1, 2, size=(137, 1)).astype(np.float32)
+    data = dt.DataArrays.make(x, th, rng=0)
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g, device=device, zero_init_final=False,
+              hidden_dim_s=16, hidden_dim_t=16)
+    chain = dt.flow_chain(
+        dt.coupling_layer(data, [0, 1, 2], **kw),
+        dt.actnorm_layer(x, device=device),
+        dt.coupling_layer(data, [2, 3, 4], joint_conditioner=True,
+                          max_log_scale=0.5, **kw),
+        dt.permutation_layer([4, 2, 0, 3, 1]),
+        dt.coupling_layer(data, [4, 0, 1], kind=dt.NICECouplingLayer, **kw),
+        dt.normalization_layer(x, -1.0, 1.0, device=device))
+    flow = dt.Flow(chain, data, device=device)
+    fold = FT.chain_train_fold(chain)
+    xt, tht = data.normalized_training_data(flow.metadata)
+    xv, thv = data.normalized_validation_data(flow.metadata)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
+
+    arrays = (put(xt), put(tht), put(xv), put(thv))
+    perms = np.stack([rng.permutation(xt.shape[0]) for _ in range(4)])
+    kw = dict(batchsize=32, track_best=True, guard_nonfinite=True)
+    if weighted:
+        kw.update(w=put(rng.uniform(0.3, 2.0, size=xt.shape[0])),
+                  w_valid=put(rng.uniform(0.3, 2.0, size=xv.shape[0])))
+    return fold, arrays, perms, kw
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_train_run_kernel_matches_plain(cuda, weighted):
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), arrays, perms, kw = \
+        _train_case(cuda, weighted)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros)
+    before = TK.run_fused_train.launches
+    got = TK.run_fused_train(*head, *arrays, perms, **kw)
+    torch.cuda.synchronize()
+    assert TK.run_fused_train.launches == before + 1
+    want = TK.fused_train_plain(*head, *arrays, perms, **kw)
+    # the same f32 arithmetic in another summation order, 4 epochs of Adam
+    for i in (0, 1, 2, 5):
+        for a, b in zip(got[i], want[i]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-4)
+    assert got[6].tolist() == want[6].tolist() == [0, 0, 0, 0]
+
+
+def test_train_run_kernel_two_calls_equal_one(cuda):
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), arrays, perms, kw = \
+        _train_case(cuda, True)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    one = TK.run_fused_train(plan, tparams, masks, slots, cparams, zeros,
+                             zeros, *arrays, perms, **kw)
+    a = TK.run_fused_train(plan, tparams, masks, slots, cparams, zeros, zeros,
+                           *arrays, perms[:2], **kw)
+    n_batches = -(-arrays[0].shape[0] // 32)
+    b = TK.run_fused_train(plan, a[0], masks, slots, cparams, a[1], a[2],
+                           *arrays, perms[2:], count0=2 * n_batches, **kw)
+    torch.cuda.synchronize()
+    for i in (0, 1, 2):
+        for u, v in zip(one[i], b[i]):
+            assert torch.equal(u, v)
+    assert torch.equal(one[3], torch.cat([a[3], b[3]]))

@@ -27,6 +27,21 @@ flow = dt.Flow(chain, dt.MetaData("", 4, 1, np.zeros(1), np.ones(1)),
                device="cpu")
 lp = flow.log_prob(np.zeros((5, 4), np.float32), (0.5,))
 assert lp.shape == (5,) and bool(torch.isfinite(lp).all())
+
+# training on the CPU: the plain program and the kernel's plain version
+rng = np.random.default_rng(0)
+data = dt.DataArrays.make(rng.normal(size=(60, 4)).astype(np.float32),
+                          rng.uniform(size=(60, 1)).astype(np.float32), rng=0)
+tflow = dt.Flow(chain, data, device="cpu")
+for fused in (False, True):
+    state = dt.train(tflow, data, epochs=1, batchsize=16, verbose=False,
+                     generator=g, fused_kernel=fused)
+assert state.count == 4 and tflow.trained_path == "fused"
+assert len(tflow.train_loss) == 2 and np.isfinite(tflow.train_loss).all()
+from densityflows_tpu_torch.ops import train_kernels
+from densityflows_tpu_torch.models import fused_train
+from densityflows_tpu_torch.utils import logging as port_logging
+assert train_kernels.run_fused_train.launches == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
                               "flax", "orbax")]
@@ -70,7 +85,12 @@ def _port_sources():
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     sources = _port_sources()
-    assert len(sources) > 15
+    assert len(sources) > 19
+    names = {os.path.relpath(p, ROOT) for p in sources}
+    for module in ("train.py", "models/fused_train.py",
+                   "ops/train_kernels.py", "utils/logging.py", "convert.py",
+                   "utils/checkpoint.py"):
+        assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -97,6 +117,22 @@ def test_kernel_sources_are_package_data():
         assert library not in text.lower()
 
 
+def test_train_kernel_source_is_package_data():
+    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
+                       "train_kernels.cu")
+    with open(src) as f:
+        text = f.read()
+    for symbol in ("df_train_run", "train_run_kernel", "__global__"):
+        assert symbol in text
+    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h"):
+        assert library not in text.lower()
+    # the emulation header is a file of the tests, which hand it to the
+    # compiler themselves: the package's source names no file outside csrc/
+    assert os.path.exists(os.path.join(ROOT, "tests",
+                                       "cuda_host_emulation.h"))
+    assert "#include \"" not in text
+
+
 def test_build_module_needs_no_compiler_to_import():
     from densityflows_tpu_torch import _build
 
@@ -104,4 +140,7 @@ def test_build_module_needs_no_compiler_to_import():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.source_path("chain_kernels").endswith(
         os.path.join("csrc", "chain_kernels.cu"))
+    assert _build.source_path("train_kernels").endswith(
+        os.path.join("csrc", "train_kernels.cu"))
+    assert os.path.exists(_build.source_path("train_kernels"))
     assert os.path.basename(_build.build_dir()) == "build"

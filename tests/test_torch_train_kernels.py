@@ -1,0 +1,383 @@
+"""``ops/train_kernels.py`` on the CPU: the kernel's plain version
+(``fused_train_plain``) against autograd, the lowering of a plan to the
+kernel's program (``pack_train_plan`` + ``packed_train_reference``) against
+the plain version, and the CUDA source itself, compiled with the host
+compiler in its emulation mode (``-DDF_HOST_EMULATION``) and run against the
+plain version.
+
+The plain version, the lowered program and the kernel do the same f32
+arithmetic in another summation order; tolerance 1e-4 absolute on
+parameters, moments and histories after 3 epochs (in practice ~1e-6), the
+bar ``chip_smoke.py`` holds the kernel to on the card.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import densityflows_tpu as df
+import densityflows_tpu_torch as dt
+from densityflows_tpu_torch.models import fused_train as FT
+from densityflows_tpu_torch.models.fused_train import trainable_leaves
+from densityflows_tpu_torch.ops import train_kernels as TK
+
+from _torch_parity import TRAIN_CHAINS as CHAINS
+from _torch_parity import cond_data, randomize, to_torch
+
+ATOL = 1e-4
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32))
+
+
+class Case:
+    """A folded chain, its data split and a batch order."""
+
+    def __init__(self, variant, epochs=3, bs=32, n_cond=1, seed=5):
+        if n_cond:
+            jd, td, x = cond_data()
+            jchain = CHAINS[variant](jd, x)
+        else:
+            jd, td, x = cond_data(rows=90, d=4, n=0, seed=4)
+            jchain = df.flow_chain(
+                df.coupling_layer(jd, [0, 1], key=jax.random.key(0),
+                                  hidden_dim_s=8, hidden_dim_t=8),
+                df.actnorm_layer(x),
+                df.coupling_layer(jd, [2, 3], key=jax.random.key(1),
+                                  hidden_dim_s=8, hidden_dim_t=8,
+                                  kind=df.NICECouplingLayer),
+                df.normalization_layer(x, -1.0, 1.0))
+        self.chain = to_torch(randomize(jchain, seed))
+        self.flow = dt.Flow(self.chain, td, device="cpu")
+        (self.plan, self.tcounts, self.tparams, self.masks, self.slots,
+         self.cparams, self.fold_state, self.unfold) = \
+            FT.chain_train_fold(self.chain)
+        xt, tht = td.normalized_training_data(self.flow.metadata)
+        xv, thv = td.normalized_validation_data(self.flow.metadata)
+        self.d, self.n, self.bs = xt.shape[1], tht.shape[1], bs
+        self.data = (_t(xt), _t(tht) if self.n else None, _t(xv),
+                     _t(thv) if self.n else None)
+        rng = np.random.default_rng(seed)
+        self.perms = np.stack([rng.permutation(xt.shape[0])
+                               for _ in range(epochs)])
+        self.w = _t(rng.uniform(0.3, 2.0, size=xt.shape[0]))
+        self.wv = _t(rng.uniform(0.3, 2.0, size=xv.shape[0]))
+        self.zeros = [torch.zeros_like(p) for p in self.tparams]
+        self.packed = TK.pack_train_plan(self.plan, self.tparams, self.masks,
+                                         self.slots, self.cparams, self.d,
+                                         self.n, bs)
+
+    def head(self):
+        return (self.plan, self.tparams, self.masks, self.slots, self.cparams)
+
+    def plain(self, mu=None, nu=None, perms=None, tparams=None, **kw):
+        return TK.fused_train_plain(
+            self.plan, tparams or self.tparams, self.masks, self.slots,
+            self.cparams, mu or self.zeros, nu or self.zeros, *self.data,
+            self.perms if perms is None else perms, batchsize=self.bs, **kw)
+
+
+def _assert_runs_close(a, b, atol=ATOL):
+    for i in (0, 1, 2):
+        for u, v in zip(a[i], b[i]):
+            torch.testing.assert_close(u, v, rtol=0, atol=atol)
+    for i in (3, 4):
+        torch.testing.assert_close(a[i], b[i], rtol=0, atol=atol,
+                                   equal_nan=True)
+    assert (a[5] is None) == (b[5] is None)
+    if a[5] is not None:
+        for u, v in zip(a[5], b[5]):
+            torch.testing.assert_close(u, v, rtol=0, atol=atol)
+    assert (a[6] is None) == (b[6] is None)
+    if a[6] is not None:
+        assert a[6].tolist() == b[6].tolist()
+
+
+MODES = {
+    "plain": {},
+    "weighted_best": dict(weighted=True, track_best=True),
+    "guard_tagged": dict(guard_nonfinite=True, lr=3e-3, b1=0.85, count0=7),
+}
+
+
+def _mode_kwargs(case, mode):
+    kw = dict(MODES[mode])
+    if kw.pop("weighted", False):
+        kw.update(w=case.w, w_valid=case.wv)
+    return kw
+
+
+# -- the hand-derived backward against autograd ------------------------------------
+
+@pytest.mark.parametrize("variant", sorted(CHAINS) + ["unconditional"])
+def test_folded_gradients_equal_autograd(variant):
+    """One batch: the folded gradients, masked and unfolded, equal
+    ``torch.autograd.grad`` of ``masked_nll_loss`` through the per-layer
+    path. Covers the −j̄ coupling into s̄, the clamp factor, ActNorm, NICE,
+    joint heads, bias-free nets, permutation folding and n = 0."""
+    case = Case(variant if variant != "unconditional" else "reference",
+                n_cond=variant != "unconditional")
+    rng = np.random.default_rng(1)
+    xb = _t(rng.normal(size=(24, case.d)) * 0.7)
+    thb = _t(rng.uniform(size=(24, case.n))) if case.n else None
+    mask = _t(rng.uniform(0.0, 2.0, size=24) * (np.arange(24) < 20))
+    loss, grads = TK.folded_batch_grads(case.plan, case.tparams, case.cparams,
+                                        xb, thb, mask)
+    grads = [g if s is None else torch.where(case.masks[s] > 0.5, g,
+                                             torch.zeros_like(g))
+             for g, s in zip(grads, case.slots)]
+    th_in = thb if thb is not None else xb.new_zeros(24, 0)
+    want = dt.masked_nll_loss(case.chain, dt.StandardNormal(case.d), xb,
+                              th_in, mask)
+    np.testing.assert_allclose(float(loss), float(want.detach()), rtol=1e-5)
+    leaves = [p for p in trainable_leaves(case.chain) if p.numel()]
+    auto = torch.autograd.grad(want, leaves)
+    got = [g for g, p in zip(case.unfold(grads), trainable_leaves(case.chain))
+           if p.numel()]
+    assert len(got) == len(auto)
+    for a, b in zip(got, auto):
+        scale = float(b.abs().max()) + 1.0
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * scale)
+
+
+def test_grad_mask_is_a_select_not_a_multiply():
+    """An off-support gradient that overflowed must become 0, not inf·0 =
+    NaN: the folded zero pattern survives a step with an inf in it."""
+    case = Case("reference")
+    xt, tht, xv, thv = case.data
+    xt = xt.clone()
+    xt[case.perms[0][0], 0] = 3e38     # overflows products with it
+    out = TK.fused_train_plain(*case.head(), case.zeros, case.zeros, xt, tht,
+                               xv, thv, case.perms[:1], batchsize=case.bs)
+    for p, slot in zip(out[0], case.slots):
+        if slot is not None:
+            off = case.masks[slot] == 0
+            assert bool((p[off] == 0).all())
+
+
+# -- (h) the lowered program against the plain version -----------------------------
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("variant", ["reference", "joint", "nice", "actnorm",
+                                     "permutation", "clamped", "deep",
+                                     "nobias_tanh", "unconditional"])
+def test_lowered_program_equals_plain_version(variant, mode):
+    case = Case(variant if variant != "unconditional" else "reference",
+                n_cond=variant != "unconditional")
+    kw = _mode_kwargs(case, mode)
+    want = case.plain(**kw)
+    got = TK.packed_train_reference(case.packed, case.tparams, case.zeros,
+                                    case.zeros, *case.data, case.perms, **kw)
+    _assert_runs_close(got, want)
+    assert bool(torch.isfinite(want[3]).all())
+
+
+def test_lowered_batch_gradients_cover_every_entry():
+    """Every entry of the flat gradient is written by the backward program
+    (it starts as NaN), and equals the plain version's."""
+    case = Case("actnorm")
+    xt, tht, _xv, _thv = case.data
+    rows = torch.as_tensor(case.perms[0][:case.bs])
+    mask = torch.ones(case.bs)
+    loss, flat_g = TK.packed_batch_grads(
+        case.packed, case.packed.flatten(case.tparams), xt[rows], tht[rows],
+        mask)
+    assert bool(torch.isfinite(flat_g).all())
+    want_loss, want = TK.folded_batch_grads(case.plan, case.tparams,
+                                            case.cparams, xt[rows], tht[rows],
+                                            mask)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    for a, b in zip(case.packed.unflatten(flat_g), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_packed_plan_layout():
+    case = Case("reference", bs=64)
+    pk = case.packed
+    assert pk.prog.dtype == torch.int32
+    assert pk.prog.numel() == TK._HEADER_WORDS + TK._INSTR_WORDS * (
+        pk.n_fwd + pk.n_bwd)
+    words = pk.prog.tolist()
+    assert words[TK._H_NP] == pk.n_params == 2814
+    assert words[TK._H_B] == 64 and words[TK._H_D] == 5 and words[TK._H_N] == 1
+    assert words[TK._H_TOTAL] == pk.total_floats
+    assert pk.shared_bytes == 4 * pk.total_floats
+    # parameters, both moments and gradients, then the caches
+    assert pk.total_floats == 4 * pk.n_params + pk.flat_consts.numel() \
+        + pk.cache_floats
+    # three couplings of two three-layer nets: 6 dense + 1 couple each, + affine
+    assert pk.n_fwd == 3 * 7 + 1
+    # backward: per coupling 1 couple + 2 nets x (2 layers + 2 first-layer
+    # blocks), + affine
+    assert pk.n_bwd == 3 * 9 + 1
+    # every buffer offset an instruction names lies inside the block's memory
+    body = np.asarray(words[TK._HEADER_WORDS:]).reshape(-1, TK._INSTR_WORDS)
+    assert body.max() < 2**31 and body[:, 0].max() <= TK._B_AFFINE
+    assert pk.flat_mask.shape == (pk.n_params,)
+    assert 0 < int(pk.flat_mask.sum()) < pk.n_params
+    flat = pk.flatten(case.tparams)
+    for a, b in zip(pk.unflatten(flat), case.tparams):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="folded tensors"):
+        pk.flatten(case.tparams[:-1])
+
+
+def test_pad_epoch_perms_and_wrapper_errors():
+    idx = TK.pad_epoch_perms(np.array([[2, 0, 1, 3, 4]] * 2), 5, 4)
+    assert idx.dtype == np.int32 and idx.shape == (2, 8)
+    assert idx[0].tolist() == [2, 0, 1, 3, 4, 0, 0, 0]
+    with pytest.raises(ValueError, match="shape"):
+        TK.pad_epoch_perms(np.zeros((2, 4), int), 5, 4)
+    with pytest.raises(ValueError, match="out of range"):
+        TK.pad_epoch_perms(np.full((1, 5), 5), 5, 4)
+    case = Case("reference")
+    # on CPU tensors the wrapper runs the plain version and launches nothing
+    before = TK.run_fused_train.launches
+    got = TK.run_fused_train(*case.head(), case.zeros, case.zeros, *case.data,
+                             case.perms, batchsize=case.bs)
+    assert TK.run_fused_train.launches == before
+    _assert_runs_close(got, case.plain(), atol=0.0)
+    with pytest.raises(ValueError, match="consumes"):
+        TK.fused_train_plain(case.plan, case.tparams[:-1], case.masks,
+                             case.slots, case.cparams, case.zeros, case.zeros,
+                             *case.data, case.perms, batchsize=case.bs)
+    with pytest.raises(ValueError, match="does not support op"):
+        TK.train_op_param_count(("linear",))
+
+
+def test_continuation_of_the_plain_version_is_exact():
+    case = Case("actnorm", epochs=5)
+    kw = dict(guard_nonfinite=True, w=case.w, w_valid=case.wv)
+    one = case.plain(**kw)
+    a = case.plain(perms=case.perms[:2], **kw)
+    n_batches = -(-case.data[0].shape[0] // case.bs)
+    b = case.plain(tparams=a[0], mu=a[1], nu=a[2], perms=case.perms[2:],
+                   count0=2 * n_batches - int(a[6].sum()), **kw)
+    for i in (0, 1, 2):
+        for u, v in zip(one[i], b[i]):
+            assert torch.equal(u, v)
+    assert torch.equal(one[3], torch.cat([a[3], b[3]]))
+    assert torch.equal(one[4], torch.cat([a[4], b[4]]))
+
+
+# -- the CUDA source under host emulation ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``csrc/train_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
+    mode, with tests/cuda_host_emulation.h standing in for the CUDA
+    builtins): ``launch(threads, reverse)`` gives a launcher for
+    ``ops.train_kernels._train_run`` that runs the kernel's body on CPU
+    tensors, the threads of each phase one after another."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    out = str(tmp_path_factory.mktemp("emu") / "libtrain_emulated.so")
+    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
+                       "train_kernels.cu")
+    # -ffp-contract=off: fmaf() stays the only fused multiply-add, as written
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-x", "c++", "-DDF_HOST_EMULATION", "-include",
+         os.path.join(ROOT, "tests", "cuda_host_emulation.h"), "-o", out,
+         src],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(out)
+    lib.df_train_run_emulated.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]
+    lib.df_train_run_emulated.restype = ctypes.c_int
+
+    def launch(threads, reverse):
+        return lambda ptrs, iargs, fargs, _threads, shared_bytes: \
+            lib.df_train_run_emulated(ptrs, iargs, fargs, threads,
+                                      shared_bytes, reverse)
+
+    return launch
+
+
+def _emulate(case, launch, perms=None, tparams=None, mu=None, nu=None, **kw):
+    full = dict(count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                track_best=False, w=None, w_valid=None, guard_nonfinite=False)
+    full.update(kw)
+    return TK._train_run(
+        launch, case.plan, tparams or case.tparams, case.masks, case.slots,
+        case.cparams, mu or case.zeros, nu or case.zeros, *case.data,
+        case.perms if perms is None else perms, batchsize=case.bs,
+        packed=case.packed, threads=None, **full)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("variant", ["reference", "joint", "nice", "actnorm",
+                                     "permutation", "clamped", "deep",
+                                     "nobias_tanh", "sigmoid",
+                                     "unconditional"])
+def test_cuda_source_emulated_equals_plain_version(emulated, variant, mode):
+    case = Case(variant if variant != "unconditional" else "reference",
+                n_cond=variant != "unconditional")
+    kw = _mode_kwargs(case, mode)
+    got = _emulate(case, emulated(96, 0), **kw)
+    _assert_runs_close(got, case.plain(**kw))
+
+
+def test_cuda_source_emulated_is_independent_of_thread_order(emulated):
+    """Within a phase no thread reads what another writes: ascending and
+    descending thread order, and another thread count, give the same bits."""
+    case = Case("actnorm")
+    kw = dict(track_best=True, guard_nonfinite=True, w=case.w,
+              w_valid=case.wv)
+    runs = [_emulate(case, emulated(nt, rev), **kw)
+            for nt, rev in ((96, 0), (96, 1), (1024, 1), (32, 0))]
+    for other in runs[1:]:
+        _assert_runs_close(other, runs[0], atol=0.0)
+
+
+def test_cuda_source_emulated_guard_and_continuation(emulated):
+    """NaN rows: the skipped batches, the applied-update count and the finite
+    parameters equal the plain version's; two calls with carried state equal
+    one call bit for bit."""
+    case = Case("reference", epochs=5, bs=16)
+    xt = case.data[0].clone()
+    xt[[5, 40, 77], 1] = float("nan")
+    case.data = (xt,) + case.data[1:]
+    kw = dict(guard_nonfinite=True, track_best=True)
+    launch = emulated(64, 0)
+    one = _emulate(case, launch, **kw)
+    want = case.plain(**kw)
+    assert int(want[6].sum()) > 0 and one[6].tolist() == want[6].tolist()
+    for i in (0, 1, 2, 5):
+        for u, v in zip(one[i], want[i]):
+            torch.testing.assert_close(u, v, rtol=0, atol=ATOL)
+            assert bool(torch.isfinite(u).all())
+    assert bool(torch.isnan(one[3]).all())      # NaN rows in the eval sets
+    a = _emulate(case, launch, perms=case.perms[:2], **kw)
+    n_batches = -(-xt.shape[0] // case.bs)
+    b = _emulate(case, launch, perms=case.perms[2:], tparams=a[0], mu=a[1],
+                 nu=a[2], count0=2 * n_batches - int(a[6].sum()), **kw)
+    for i in (0, 1, 2):
+        for u, v in zip(one[i], b[i]):
+            assert torch.equal(u, v)
+    assert one[6].tolist() == a[6].tolist() + b[6].tolist()
+
+
+def test_kernel_source_is_hand_written():
+    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
+                       "train_kernels.cu")
+    with open(src) as f:
+        text = f.read()
+    for symbol in ("df_train_run", "train_run_kernel", "__global__",
+                   "b_dense", "adam_update", "mask_and_check",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+        assert symbol in text
+    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h"):
+        assert library not in text.lower()
