@@ -6,7 +6,7 @@
 Builds the CUDA kernels of ``densityflows_tpu_torch`` from the sources in
 this checkout (into ``build/``, one ``nvcc`` per source, started together),
 holds each kernel against its plain PyTorch version on the card, then drives
-the port's two main paths through the entry points a user calls:
+the port's main paths through the entry points a user calls:
 
 - serving, at the full width of the flagship emulator config — d 32, n 8
   conditions, 4 coupling blocks (8 RealNVP couplings) with hidden 256, a
@@ -21,7 +21,17 @@ the port's two main paths through the entry points a user calls:
   whole-run ``train_run`` kernel), held against the plain program on the
   same batch order, then ``evaluate``, ``save_flow`` with the optimizer
   state → ``load_flow`` → 5 more epochs, and ``sample``. A training call on
-  the wide serving chain shows the visible decline to the plain program.
+  the wide serving chain shows the visible decline to the plain program;
+- streaming training, at the widest recorded step-kernel config — d 16, n 4,
+  three RealNVP couplings of hidden 64 and a normalization layer, Adam 1e-3,
+  batch 1024, streamed from 2^20 host rows for 3 epochs (3,072 steps) with
+  2^14 validation rows: ``train_streaming(flow, x, theta, ...)`` through the
+  native loader and the grads-only ``step_grads`` kernel, held against the
+  plain step on the same batches; then the README / BASELINE config from
+  50,000 host rows for 2 epochs;
+- data-parallel training on a one-rank NCCL process group:
+  ``train(flow, data, mesh=make_mesh())`` at the README / BASELINE config on
+  the step-kernel program, held against the single-device plain program.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -45,11 +55,17 @@ import numpy as np
 import torch
 
 import densityflows_tpu_torch as dt
-from densityflows_tpu_torch import _build
+from densityflows_tpu_torch import _build, native
 from densityflows_tpu_torch.models import fused_chain as fc
 from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
+from densityflows_tpu_torch.ops import step_kernels as sk
 from densityflows_tpu_torch.ops import train_kernels as tk
+from densityflows_tpu_torch.train import (
+    _fold_adam_state,
+    _folded_adam_,
+    _loss_and_grads,
+)
 
 SEED = 0
 D, N_COND, HIDDEN, N_BLOCKS, ROWS = 32, 8, 256, 4, 1 << 18
@@ -70,6 +86,18 @@ KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # columns with fmaf, the plain version calls the library's products)
 TRAIN_TOL = dict(rtol=0.0, atol=1e-4)
 TRAIN_EPOCHS, TRAIN_BATCH = 50, 64
+
+# step_grads vs its plain version on one batch: the same f32 arithmetic,
+# summed over rows and tiles in another order
+STEP_TOL = dict(rtol=0.0, atol=1e-4)
+# the streaming main path: the widest config the repo records for the step
+# kernel (benchmarks/step_kernel_probe.py "med"), not cut
+MED = dict(d=16, n=4, hidden=64, batch=1024, rows=1 << 20, valid=1 << 14,
+           epochs=3)
+# the README / BASELINE model streamed from 50,000 rows
+# (benchmarks/stream_crossover.py)
+STREAM50K = dict(rows=50_000, batch=TRAIN_BATCH, epochs=2, valid=5_000)
+MESH_EPOCHS = 4
 
 
 def say(**fields):
@@ -451,7 +479,7 @@ class TrainCase:
         self.chain = numpy_weights_(dt.flow_chain(*layers), rng, 0.3)
         flow = dt.Flow(self.chain, data, device=device)
         (self.plan, _tc, self.tparams, self.masks, self.slots, self.cparams,
-         _fold, _unfold) = ft.chain_train_fold(self.chain)
+         _fold, self.unfold) = ft.chain_train_fold(self.chain)
         xt, tht = data.normalized_training_data(flow.metadata)
         xv, thv = data.normalized_validation_data(flow.metadata)
         n_cond = tht.shape[1]
@@ -882,6 +910,580 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
     }
 
 
+# -- step_grads against its plain version ------------------------------------------
+
+def step_plan_of(case, d, n):
+    return sk.StepPlan(case.plan, case.tparams, case.masks, case.slots,
+                       case.cparams, d, n)
+
+
+def require_step_close(got, want, what):
+    """Packed (gradient, loss) buffers: 1e-4 absolute on every entry."""
+    return require_close(got, want, what, **STEP_TOL)
+
+
+def plain_packed(sp, tparams, x, th, mask, denom=None):
+    loss, grads = sk.step_grads_plain(sp.plan, tparams, sp.masks,
+                                      sp.mask_slots, sp.cparams, x, th, mask,
+                                      denom=denom)
+    return torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+
+
+def check_step_case(case, name, rng, device):
+    """One folded chain: a weighted batch of an odd row count with padded
+    rows and a fully masked tile, at several tiles and block counts, against
+    the plain version; two launches bit for bit; an explicit denominator;
+    off-support gradient entries exactly 0; a NaN row; and the gradients
+    against autograd of the per-layer path."""
+    x, th = case.arrays[0], case.arrays[1]
+    rows, d = x.shape
+    n = th.shape[1] if th is not None else 0
+    sp = step_plan_of(case, d, n)
+    flat = sp.flatten(case.tparams)
+    w = rng.uniform(0.2, 2.0, size=rows) * (np.arange(rows) < rows - 5)
+    w[8:16] = 0.0                      # a whole tile of 8 rows masked out
+    mask = put(w, device)
+    want = plain_packed(sp, case.tparams, x, th, mask)
+    worst = 0.0
+    runs = {}
+    for tile, n_blocks in ((None, None), (8, 3), (16, None), (64, None),
+                           (1, None)):
+        got = sp.loss_and_grads(flat, x, th, mask, tile=tile,
+                                n_blocks=n_blocks)
+        again = sp.loss_and_grads(flat, x, th, mask, tile=tile,
+                                  n_blocks=n_blocks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"step_grads {name}: two launches differ (tile {tile})")
+        worst = max(worst, require_step_close(
+            got, want, f"step_grads {name} tile {tile} blocks {n_blocks}"))
+        runs[tile] = got
+    dense = torch.cat([(torch.ones_like(p) if s is None else sp.masks[s]
+                        ).reshape(-1) for p, s in
+                       zip(case.tparams, sp.mask_slots)])
+    if bool((runs[None][:-1][dense == 0] != 0).any()):
+        fail(f"step_grads {name}: a masked gradient entry is not 0")
+    denom = 2.5 * float(mask.sum())
+    worst = max(worst, require_step_close(
+        sp.loss_and_grads(flat, x, th, mask, denom=denom),
+        plain_packed(sp, case.tparams, x, th, mask, denom=denom),
+        f"step_grads {name} explicit denominator"))
+
+    # autograd of the per-layer path on the same batch, leaf by leaf
+    loss_a, _leaves, grads_a = _loss_and_grads(
+        case.chain, dt.StandardNormal(d), x,
+        th if th is not None else x.new_zeros(rows, 0), mask)
+    unfolded = case.unfold(sp.unflatten(runs[None][:-1]))
+    worst = max(worst, require_close(
+        runs[None][-1], loss_a, f"step_grads {name}: loss vs autograd",
+        **STEP_TOL))
+    for k, (a, b) in enumerate(zip(unfolded, grads_a)):
+        if b.numel():
+            worst = max(worst, require_close(
+                a, b, f"step_grads {name}: leaf {k} vs autograd",
+                **STEP_TOL))
+
+    # a NaN row poisons the loss on both sides, in the same entries, and
+    # the masked entries stay exactly 0 (a select, not a product)
+    xn = x.clone()
+    xn[3, 1] = float("nan")
+    got = sp.loss_and_grads(flat, xn, th, mask)
+    want_n = plain_packed(sp, case.tparams, xn, th, mask)
+    torch.cuda.synchronize()
+    if not bool(torch.isnan(got[-1])) or not bool(torch.isnan(want_n[-1])):
+        fail(f"step_grads {name}: a NaN row must give a NaN loss")
+    if not torch.equal(torch.isnan(got), torch.isnan(want_n)):
+        fail(f"step_grads {name}: NaN entries differ from the plain version")
+    if bool((got[:-1][dense == 0] != 0).any()):
+        fail(f"step_grads {name}: NaN row: a masked entry is not 0")
+    return worst
+
+
+def check_step_small(rng, device):
+    """step_grads against step_grads_plain on the card, the small chains of
+    the train smoke (123 rows: no multiple of any tile)."""
+    data, x = small_train_data(rng, 1)
+    errs = {}
+    for name, layers in small_train_chains(data, x, device).items():
+        errs[name] = check_step_case(TrainCase(layers, data, device, rng),
+                                     name, rng, device)
+    data0, x0 = small_train_data(rng, 0)
+    case = TrainCase(
+        [dt.coupling_layer(data0, [0, 1, 2], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device),
+         dt.actnorm_layer(x0, device=device),
+         dt.coupling_layer(data0, [2, 3, 4], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device,
+                           kind=dt.NICECouplingLayer),
+         dt.normalization_layer(x0, -1.0, 1.0, device=device)],
+        data0, device, rng)
+    errs["n0_actnorm"] = check_step_case(case, "n = 0", rng, device)
+    return errs
+
+
+# -- streaming: the main path of the step kernel ---------------------------------
+
+def med_data(rng):
+    """2^20 training rows and 2^14 validation rows whose law depends on the
+    conditions: x = z * (0.5 + theta.A) + theta.B, z ~ N(0, I)."""
+    d, n = MED["d"], MED["n"]
+    a = rng.uniform(0.0, 0.5, size=(n, d)).astype(np.float32)
+    b = rng.normal(size=(n, d)).astype(np.float32)
+
+    def draw(rows):
+        th = rng.uniform(-1.0, 2.0, size=(rows, n)).astype(np.float32)
+        z = rng.standard_normal(size=(rows, d), dtype=np.float32)
+        return z * (0.5 + np.abs(th) @ a) + th @ b, th
+
+    (x, th), (xv, thv) = draw(MED["rows"]), draw(MED["valid"])
+    return x, th, xv, thv
+
+
+def med_flow(x_ref, th, device, seed):
+    """benchmarks/step_kernel_probe.py "med": d 16, n 4, three couplings on
+    range(8) / range(8, 16) / range(8) with hidden 64, a normalization
+    layer; weights from numpy_weights_."""
+    d, n, h = MED["d"], MED["n"], MED["hidden"]
+    kw = dict(n=n, hidden_dim_s=h, hidden_dim_t=h, device=device)
+    chain = dt.flow_chain(
+        dt.coupling_layer(d, list(range(d // 2)), **kw),
+        dt.coupling_layer(d, list(range(d // 2, d)), **kw),
+        dt.coupling_layer(d, list(range(d // 2)), **kw),
+        dt.normalization_layer(x_ref, -1.0, 1.0, device=device))
+    numpy_weights_(chain, np.random.default_rng(seed), 0.1)
+    meta = dt.MetaData("med", d, n, th.min(0), th.max(0))
+    return dt.Flow(chain, meta, device=device)
+
+
+def stream50k_rows(rng):
+    """50,000 training rows and 5,000 validation rows drawn apart."""
+    def draw(rows):
+        return (rng.normal(size=(rows, 5)).astype(np.float32),
+                rng.uniform(-1, 2, size=(rows, 1)).astype(np.float32))
+
+    (x, th), (xv, thv) = draw(STREAM50K["rows"]), draw(STREAM50K["valid"])
+    return x, th, xv, thv
+
+
+def first_steps_against_plain(make_flow, x, th, batch, steps, device):
+    """The first ``steps`` batches of the loader through the step kernel +
+    folded Adam and through the plain step (autograd + Adam), from the same
+    weights: per-step losses at 1e-4, parameters at 1e-3."""
+    fused, plain = make_flow(), make_flow()
+    md = fused.metadata
+    folded = ft.fold_for_step(fused)
+    sp = folded.step_plan
+    flat_p = sp.flatten(folded.tparams)
+    fstate = _fold_adam_state(folded, None)
+    step_k = dt.make_fused_step_fn(None, sp)
+    optimizer = dt.adam()
+    step_p = dt.make_train_step(optimizer)
+    state_p = optimizer.init(ft.trainable_leaves(plain.model))
+    losses = [[], []]
+    loader = dt.StreamingLoader(x, th, batchsize=batch, seed=SEED)
+    batches = loader.epoch(0)
+    for _ in range(steps):
+        xb, thb, mask = next(batches)
+        thb = dt.normalize_input(thb, np.asarray(md.theta_min, np.float32),
+                                 np.asarray(md.theta_max, np.float32))
+        xb, thb, mask = put(xb, device), put(thb, device), put(mask, device)
+        flat_p, fstate, loss = step_k(flat_p, fstate, xb, thb, mask)
+        losses[0].append(loss)
+        _, state_p, loss = step_p(plain.model, state_p, plain.base, xb, thb,
+                                  mask)
+        losses[1].append(loss)
+    batches.close()
+    torch.cuda.synchronize()
+    loss_err = require_close(torch.stack(losses[0]), torch.stack(losses[1]),
+                             "first steps: losses vs the plain step", 0.0,
+                             1e-4)
+    leaf_err = 0.0
+    for k, (a, b) in enumerate(zip(folded.unfold(sp.unflatten(flat_p)),
+                                   ft.trainable_leaves(plain.model))):
+        leaf_err = max(leaf_err, require_close(
+            a, b.detach(), f"first steps: leaf {k} vs the plain step", 0.0,
+            1e-3))
+    if fstate.count != steps or state_p.count != steps:
+        fail("first steps: Adam counts")
+    return loss_err, leaf_err
+
+
+def drive_streaming(name, make_flow, x, th, xv, thv, cfg, device):
+    """``train_streaming`` on the step kernel: native loader, launch count,
+    falling train NLL, the final validation NLL against ``flow.log_prob``,
+    the first 32 steps against the plain step; then the plain step on the
+    same loader for one epoch, for its rate."""
+    if not native.native_available():
+        fail("the native host loader did not build")
+    batch, epochs = cfg["batch"], cfg["epochs"]
+    n_batches = -(-x.shape[0] // batch)
+    flow = make_flow()
+    sk.run_fused_grads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)  # a decline warns
+        state = dt.train_streaming(flow, x, th, epochs=epochs,
+                                   batchsize=batch, seed=SEED,
+                                   valid_data=(xv, thv), verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = sk.run_fused_grads.launches
+    if flow.trained_path != "fused-step" or flow.fused_decline_reason:
+        fail(f"{name}: train_streaming took {flow.trained_path} "
+             f"({flow.fused_decline_reason})")
+    if launches != n_batches * epochs:
+        fail(f"{name}: {launches} step_grads launches, expected "
+             f"{n_batches} batches x {epochs} epochs")
+    if state.count != launches:
+        fail(f"{name}: Adam count {state.count}")
+    tl, vl = np.asarray(flow.train_loss), np.asarray(flow.valid_loss)
+    if tl.shape != (epochs,) or vl.shape != (epochs,) or \
+            not (np.isfinite(tl).all() and np.isfinite(vl).all()):
+        fail(f"{name}: histories {tl} / {vl}")
+    if not bool((np.diff(tl) < 0).all()):
+        fail(f"{name}: train NLL does not fall epoch over epoch: {tl}")
+    with torch.no_grad():
+        lp = flow.log_prob(put(xv, device), put(thv, device))
+    nll = float(-lp.mean())
+    if abs(nll - vl[-1]) > 1e-4:
+        fail(f"{name}: final validation NLL {vl[-1]} != -mean log_prob "
+             f"{nll}")
+    for p in flow.model.parameters():
+        if not bool(torch.isfinite(p).all()):
+            fail(f"{name}: non-finite parameters after streaming")
+
+    loss_err, leaf_err = first_steps_against_plain(make_flow, x, th, batch,
+                                                   32, device)
+
+    plain = make_flow()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dt.train_streaming(plain, x, th, epochs=1, batchsize=batch, seed=SEED,
+                       verbose=False, fused_kernel=False)
+    torch.cuda.synchronize()
+    plain_seconds = time.time() - t0
+    if plain.trained_path != "torch" or \
+            sk.run_fused_grads.launches != launches + 32:
+        fail(f"{name}: the plain streaming run took {plain.trained_path}")
+    # two f32 trajectories over a whole epoch of Adam steps: the gate of the
+    # 50-epoch train_run comparison
+    if abs(plain.train_loss[0] - tl[0]) > 5e-2:
+        fail(f"{name}: first-epoch train NLL {tl[0]} vs the plain step's "
+             f"{plain.train_loss[0]}")
+    steps = launches
+    report = dict(
+        rows=int(x.shape[0]), batchsize=batch, epochs=epochs, steps=steps,
+        seconds=seconds, steps_per_s=steps / seconds,
+        rows_per_s=epochs * x.shape[0] / seconds,
+        ms_per_step=1e3 * seconds / steps,
+        train_nll=tl.tolist(), valid_nll=vl.tolist(),
+        valid_nll_vs_log_prob=abs(nll - float(vl[-1])),
+        first_32_steps_loss_err=loss_err, first_32_steps_param_err=leaf_err,
+        plain_step_seconds_one_epoch=plain_seconds,
+        plain_step_steps_per_s=n_batches / plain_seconds,
+        plain_step_rows_per_s=x.shape[0] / plain_seconds,
+        plain_step_ms_per_step=1e3 * plain_seconds / n_batches,
+        plain_step_first_epoch_train_nll=plain.train_loss[0])
+    return launches, report, flow
+
+
+def step_time_split(make_flow, x, th, cfg, step_ms, device):
+    """Where a streaming step's time goes, each piece timed alone at the
+    path's shapes: the loader (host), the staging copy, the two kernels of
+    ``step_grads``, the denominator and Adam; what is left of the measured
+    step is the host's gap."""
+    from densityflows_tpu_torch.data_stream import _Stager
+
+    batch = cfg["batch"]
+    flow = make_flow()
+    folded = ft.fold_for_step(flow)
+    sp = folded.step_plan
+    flat_p = sp.flatten(folded.tparams)
+    fstate = _fold_adam_state(folded, None)
+    loader = dt.StreamingLoader(x, th, batchsize=batch, seed=SEED)
+    n_probe = min(256, loader.batches_per_epoch)
+    t0 = time.time()
+    batches = loader.epoch(0)
+    host = [next(batches) for _ in range(n_probe)]
+    loader_ms = 1e3 * (time.time() - t0) / n_probe
+    batches.close()
+
+    stage = _Stager(device, batch, x.shape[1], th.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for xb, thb, mask in host:
+        staged = stage(xb, thb, mask)
+    stage_host_ms = 1e3 * (time.time() - t0) / n_probe
+    torch.cuda.synchronize()
+    xb, thb, mask = staged
+    copy_ms = time_ms(lambda: stage(*host[0]), runs=15)
+
+    tile = sp.pick_tile(batch)
+    n_blocks = sp.grid(batch, tile)
+    partial = torch.empty(n_blocks * (sp.n_params + 1), device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(*a):
+        return sk._library().df_step_grads(*a, stream)
+
+    def phase(which):
+        return lambda: sk._step_grads(launch, sp, flat_p, xb, thb, mask,
+                                      phases=which, partial=partial)
+
+    kernel_ms = time_ms(lambda: sp.loss_and_grads(flat_p, xb, thb, mask),
+                        runs=15)
+    tiles_ms = time_ms(phase(1), runs=15)
+    reduce_ms = time_ms(phase(2), runs=15)
+    out = sp.loss_and_grads(flat_p, xb, thb, mask)
+    denom_ms = time_ms(lambda: mask.sum(), runs=15)
+    adam_ms = time_ms(lambda: _folded_adam_(
+        flat_p, fstate, out[:sp.n_params],
+        dict(lr=0.0, b1=0.9, b2=0.999, eps=1e-8)), runs=15)
+
+    # the device's side of a step alone: kernel + Adam on a resident batch
+    step = dt.make_fused_step_fn(None, sp, lr=0.0)
+
+    def many():
+        for _ in range(100):
+            step(flat_p, fstate, xb, thb, mask)
+    device_step_ms = time_ms(many, warmup=1, runs=5) / 100
+    device_ms = copy_ms + kernel_ms + denom_ms + adam_ms
+    return dict(
+        tile_rows=tile, blocks=n_blocks, threads=sp.threads(tile),
+        shared_bytes=sp.shared_bytes(tile), folded_parameters=sp.n_params,
+        partial_bytes=4 * partial.numel(),
+        loader_ms_per_batch=loader_ms, staging_host_ms=stage_host_ms,
+        copy_ms=copy_ms, kernel_ms=kernel_ms, kernel_tiles_ms=tiles_ms,
+        kernel_reduction_ms=reduce_ms, denominator_ms=denom_ms,
+        adam_ms=adam_ms, device_sum_ms=device_ms,
+        resident_batch_step_ms=device_step_ms,
+        measured_step_ms=step_ms, host_gap_ms=step_ms - device_ms,
+        kernel_share_of_step=kernel_ms / step_ms)
+
+
+def drive_mesh(device, tmp):
+    """``train(mesh=...)`` on a one-rank NCCL group at the README / BASELINE
+    config: the step-kernel program, held against the single-device plain
+    program on the same batch order (histories 1e-4)."""
+    import torch.distributed as dist
+
+    dt.distributed_init(f"file://{tmp}/rendezvous", 1, 0, backend="nccl")
+    try:
+        mesh = dt.make_mesh()
+        if mesh.group is None or mesh.size != 1:
+            fail(f"mesh: {mesh}")
+        data, dat = baseline_data()
+        n_train = len(data.partition.training)
+        n_batches = -(-n_train // TRAIN_BATCH)
+        perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED + 5),
+                                    MESH_EPOCHS, n_train)
+        flow = baseline_flow(data, dat, device, SEED)
+        sk.run_fused_grads.launches = 0
+        t0 = time.time()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            state = dt.train(flow, data, epochs=MESH_EPOCHS,
+                             batchsize=TRAIN_BATCH, verbose=False, mesh=mesh,
+                             _epoch_perms=perms)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = sk.run_fused_grads.launches
+        if flow.trained_path != "fused-step-mesh":
+            fail(f"train(mesh=...) took {flow.trained_path} "
+                 f"({flow.fused_decline_reason})")
+        if launches != MESH_EPOCHS * n_batches or state.count != launches:
+            fail(f"train(mesh=...): {launches} launches, Adam count "
+                 f"{state.count}")
+        # once more, now that the first collectives have set the
+        # communicator up: the steady time of a step (with the per-epoch
+        # evaluations, fold and unfold of the call in it)
+        again = baseline_flow(data, dat, device, SEED)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dt.train(again, data, epochs=MESH_EPOCHS, batchsize=TRAIN_BATCH,
+                 verbose=False, mesh=mesh, _epoch_perms=perms)
+        torch.cuda.synchronize()
+        steady_seconds = time.time() - t0
+        if again.train_loss != flow.train_loss:
+            fail("train(mesh=...): two runs from the same weights differ")
+        # the plain data-parallel program on the same group
+        dp = baseline_flow(data, dat, device, SEED)
+        t0 = time.time()
+        dt.train(dp, data, epochs=MESH_EPOCHS, batchsize=TRAIN_BATCH,
+                 verbose=False, mesh=mesh, fused_kernel=False,
+                 _epoch_perms=perms)
+        torch.cuda.synchronize()
+        dp_seconds = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    plain = baseline_flow(data, dat, device, SEED)
+    dt.train(plain, data, epochs=MESH_EPOCHS, batchsize=TRAIN_BATCH,
+             verbose=False, fused_kernel=False, _epoch_perms=perms)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, other in (("step_kernel_program", flow),
+                        ("plain_dp_program", dp)):
+        errs[name] = float(max(
+            np.abs(np.asarray(other.train_loss)
+                   - np.asarray(plain.train_loss)).max(),
+            np.abs(np.asarray(other.valid_loss)
+                   - np.asarray(plain.valid_loss)).max()))
+        if errs[name] > 1e-4:
+            fail(f"train(mesh=...) {name}: histories differ from the "
+                 f"single-device plain program by {errs[name]}")
+    if dp.trained_path != "torch":
+        fail("the plain data-parallel program: wrong path")
+    leaf_err = max(float((a.detach() - b.detach()).abs().max())
+                   for a, b in zip(ft.trainable_leaves(flow.model),
+                                   ft.trainable_leaves(plain.model)))
+    if leaf_err > 1e-3:
+        fail(f"train(mesh=...): parameters differ from the single-device "
+             f"plain program by {leaf_err}")
+    return launches, dict(
+        epochs=MESH_EPOCHS, batchsize=TRAIN_BATCH, backend="nccl",
+        world_size=1, first_call_seconds=seconds,
+        steady_call_seconds=steady_seconds,
+        steady_ms_per_step=1e3 * steady_seconds / launches,
+        plain_dp_program_ms_per_step=1e3 * dp_seconds / launches,
+        history_err_vs_single_device_plain=errs,
+        parameter_err_vs_single_device_plain=leaf_err,
+        valid_nll=flow.valid_loss)
+
+
+def step_tile_sweep(sp, flat, d, n, batches, device):
+    """``step_grads`` timed over row tiles and grids at several batch sizes:
+    per ``batch`` and ``tile x blocks`` the two kernels together, the tile
+    kernel alone and the reduction alone (ms, CUDA events). Grids: one block
+    per tile, and fewer blocks that take several tiles each in turn. Every
+    tiling must give the first one's result (1e-4 absolute + relative)."""
+    rng = np.random.default_rng(SEED + 11)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(*a):
+        return sk._library().df_step_grads(*a, stream)
+
+    out = {}
+    for batch in batches:
+        x, th = data(rng, batch, d, n, device)
+        mask = torch.ones(batch, device=device)
+        first, by_tiling = None, {}
+        for tile in (4, 8, 16, 32, 64):
+            if tile > batch or sp.shared_bytes(tile) > sk.MAX_SHARED_BYTES:
+                continue
+            n_tiles = -(-batch // tile)
+            for n_blocks in sorted({n_tiles, max(1, n_tiles // 2),
+                                    max(1, n_tiles // 4),
+                                    min(n_tiles, 528), min(n_tiles, 132)},
+                                   reverse=True):
+                partial = torch.empty(n_blocks * (sp.n_params + 1),
+                                      device=device)
+                kw = dict(tile=tile, n_blocks=n_blocks, partial=partial)
+                got = sk._step_grads(launch, sp, flat, x, th, mask, **kw)
+                torch.cuda.synchronize()
+                if first is None:
+                    first = got
+                # sums of up to 65,536 rows in another order: relative too
+                require_close(got, first, f"step_grads batch {batch} tile "
+                              f"{tile} blocks {n_blocks}", 1e-4, 1e-4)
+                by_tiling[f"{tile}x{n_blocks}"] = [
+                    time_ms(lambda: sk._step_grads(
+                        launch, sp, flat, x, th, mask, phases=ph, **kw),
+                        runs=15) for ph in (3, 1, 2)]
+        tile = sp.pick_tile(batch)
+        out[str(batch)] = dict(
+            ms_all_tiles_reduction_by_tile_x_blocks=by_tiling,
+            default=f"{tile}x{sp.grid(batch, tile)}")
+    return out
+
+
+def step_kernel_row(flows, launches, err_small, device, card):
+    """The {"kernels": ...} entry of step_grads: held against its plain
+    version and timed at the streaming path's shape (batch 1024 of the d 16 /
+    hidden 64 chain) and at the README / BASELINE shape (batch 64)."""
+    rng = np.random.default_rng(SEED + 9)
+    out = {}
+    for name, flow, batch in (("med", flows["med"], MED["batch"]),
+                              ("baseline", flows["stream50k"], TRAIN_BATCH)):
+        d, n = flow.metadata.d, flow.metadata.n
+        folded = ft.fold_for_step(flow)
+        sp = folded.step_plan
+        flat = sp.flatten(folded.tparams)
+        x, th = data(rng, batch, d, n, device)
+        mask = torch.ones(batch, device=device)
+        got = sp.loss_and_grads(flat, x, th, mask)
+        want = plain_packed(sp, folded.tparams, x, th, mask)
+        err = require_step_close(got, want, f"step_grads at the {name} shape")
+        # the denominator contract: two shards with the GLOBAL denominator
+        # sum to the whole batch in one launch
+        half = batch // 2
+        denom = mask.sum()
+        parts = [sp.loss_and_grads(flat, x[s], th[s], mask[s], denom=denom)
+                 for s in (slice(0, half), slice(half, batch))]
+        shard_err = require_close(parts[0] + parts[1], got,
+                                  f"step_grads {name}: shards with the "
+                                  "global denominator", 1e-5, 1e-5)
+        own = [sp.loss_and_grads(flat, x[s], th[s], mask[s])
+               for s in (slice(0, half), slice(half, batch))]
+        torch.cuda.synchronize()
+        # with each shard's own denominator the sum is the batch's doubled
+        if abs(float(own[0][-1] + own[1][-1]) - 2 * float(got[-1])) > 1e-3:
+            fail(f"step_grads {name}: shard losses with their own "
+                 "denominators should sum to twice the batch's")
+        ms = time_ms(lambda: sp.loss_and_grads(flat, x, th, mask), runs=25)
+        plain = time_ms(lambda: plain_packed(sp, folded.tparams, x, th,
+                                             mask), runs=7)
+        fwd = needed_flops_per_row(flow.model)
+        flops = 3 * batch * fwd
+        pk = sp.packed(sp.pick_tile(batch))
+        nbytes = 4 * (batch * (d + n + 1) + 1 + 2 * sp.n_params
+                      + pk.flat_consts.numel() + pk.prog.numel()
+                      + sp.n_params + 1)
+        b_ms, by = bound_ms(flops, nbytes)
+        out[name] = dict(batch=batch, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=by, max_abs_err=err,
+                         shard_sum_max_abs_err=shard_err, needed_flops=flops,
+                         needed_bytes=nbytes, folded_parameters=sp.n_params,
+                         tile_rows=sp.pick_tile(batch),
+                         blocks=sp.grid(batch, sp.pick_tile(batch)),
+                         shared_bytes=sp.shared_bytes(sp.pick_tile(batch)))
+    say(phase="step_kernel_times", card=card, **out)
+    for name, flow, batches in (
+            ("med", flows["med"], (MED["batch"], 8192, 65536)),
+            ("baseline", flows["stream50k"], (TRAIN_BATCH, 1024, 8192))):
+        folded = ft.fold_for_step(flow)
+        sp = folded.step_plan
+        say(phase="step_tile_sweep", card=card, config=name,
+            **step_tile_sweep(sp, sp.flatten(folded.tparams),
+                              flow.metadata.d, flow.metadata.n, batches,
+                              device))
+    med, base = out["med"], out["baseline"]
+    return {
+        "name": "step_grads", "route": "cuda",
+        "source": "densityflows_tpu_torch/csrc/step_kernels.cu",
+        "replaces": "densityflows_tpu/ops/pallas_step.py:48",
+        "launches": launches["med"],
+        "launches_stream50k": launches["stream50k"],
+        "launches_mesh": launches["mesh"],
+        "max_abs_err": max(err_small, med["max_abs_err"],
+                           base["max_abs_err"]),
+        "max_abs_err_small_cases": err_small, "tolerance": STEP_TOL,
+        "shape": f"one batch of {med['batch']} rows, d {MED['d']}, theta "
+                 f"{MED['n']}, 3 split couplings hidden {MED['hidden']} + "
+                 f"affine ({med['folded_parameters']} folded parameters), "
+                 f"{med['blocks']} blocks of {med['tile_rows']} rows",
+        "ms": med["ms"], "plain_ms": med["plain_ms"],
+        "bound_ms": med["bound_ms"], "bound_by": med["bound_by"],
+        "library_ms": None, "needed_flops": med["needed_flops"],
+        "needed_bytes": med["needed_bytes"],
+        "ms_batch64": base["ms"], "plain_ms_batch64": base["plain_ms"],
+        "bound_ms_batch64": base["bound_ms"],
+        "bound_by_batch64": base["bound_by"],
+        "shard_sum_max_abs_err": max(med["shard_sum_max_abs_err"],
+                                     base["shard_sum_max_abs_err"]),
+    }
+
+
 # -- phase 5: times and bounds ---------------------------------------------------
 
 def needed_flops_per_row(chain):
@@ -1007,7 +1609,8 @@ def main():
         cuda=torch.version.cuda)
 
     t0 = time.time()
-    by_source = _build.load_libraries(["chain_kernels", "train_kernels"])
+    by_source = _build.load_libraries(["chain_kernels", "train_kernels",
+                                       "step_kernels"])
     summary = {"build_seconds": time.time() - t0,
                "build_seconds_by_source": by_source}
     say(phase="build", seconds=summary["build_seconds"],
@@ -1052,6 +1655,12 @@ def main():
         skipped_updates=train_skips, tolerance=TRAIN_TOL,
         two_calls_equal_one_call="bit for bit")
 
+    # phase 3e: step_grads against its plain version, small chains
+    step_errs = check_step_small(rng, device)
+    errs["step_grads"] = max(step_errs.values())
+    say(phase="step_kernel_small", max_abs_err_by_case=step_errs,
+        tolerance=STEP_TOL, two_launches_equal="bit for bit")
+
     # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1089,6 +1698,42 @@ def main():
     say(phase="train_decline", card=card, **declined)
     summary["train_decline"] = declined
 
+    # phase 4c: the streaming main path at the "med" width, then the README /
+    # BASELINE model from 50,000 rows; phase 4d: the data-parallel step
+    step_launches, step_flows = {}, {}
+    x_m, th_m, xv_m, thv_m = med_data(np.random.default_rng(SEED))
+    make_med = lambda: med_flow(x_m[:256], th_m, device, SEED)  # noqa: E731
+    step_launches["med"], report, step_flows["med"] = drive_streaming(
+        "streaming d16 h64", make_med, x_m, th_m, xv_m, thv_m, MED, device)
+    split = step_time_split(make_med, x_m, th_m, MED, report["ms_per_step"],
+                            device)
+    say(phase="stream_main_path", card=card, config="d16 n4 h64 b1024",
+        step_grads_launches=step_launches["med"], **report)
+    say(phase="stream_step_split", card=card, config="d16 n4 h64 b1024",
+        **split)
+    summary["stream_med"] = dict(report, split=split)
+    del x_m, th_m
+
+    x_b, th_b, xv_b, thv_b = stream50k_rows(np.random.default_rng(SEED))
+    data_b = dt.DataArrays.make(x_b, th_b, rng=0)
+    make_b = lambda: baseline_flow(data_b, {"x": x_b}, device, SEED)  # noqa: E731
+    step_launches["stream50k"], report, step_flows["stream50k"] = \
+        drive_streaming("streaming BASELINE 50k", make_b, x_b, th_b,
+                        xv_b, thv_b, STREAM50K, device)
+    split = step_time_split(make_b, x_b, th_b, STREAM50K,
+                            report["ms_per_step"], device)
+    say(phase="stream_main_path", card=card, config="BASELINE 50k b64",
+        step_grads_launches=step_launches["stream50k"], **report)
+    say(phase="stream_step_split", card=card, config="BASELINE 50k b64",
+        **split)
+    summary["stream_50k"] = dict(report, split=split)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        step_launches["mesh"], mesh_report = drive_mesh(device, tmp)
+    say(phase="mesh_main_path", card=card,
+        step_grads_launches=step_launches["mesh"], **mesh_report)
+    summary["mesh"] = mesh_report
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -1099,6 +1744,8 @@ def main():
     kernels = kernel_rows(flow, x, theta, errs, launches)
     kernels.append(train_kernel_row(*trained, train_launches,
                                     errs["train_run"], device, card))
+    kernels.append(step_kernel_row(step_flows, step_launches,
+                                   errs["step_grads"], device, card))
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

@@ -14,7 +14,11 @@ Ported so far: the serving path — ``load_flow`` → ``log_prob`` / ``sample``
 whole-chain kernels ``chain_apply`` and ``chain_sample``
 (``csrc/chain_kernels.cu``), and single-device training — ``train`` →
 ``train_fused`` on the whole-run kernel ``train_run``
-(``csrc/train_kernels.cu``), with the plain multi-epoch program beside it.
+(``csrc/train_kernels.cu``), with the plain multi-epoch program beside it,
+and the streaming trainer and the data-parallel step — ``train_streaming``,
+``train(mesh=...)`` — on the grads-only step kernel ``step_grads``
+(``csrc/step_kernels.cu``), fed by the native host loader
+(``csrc/loader.cpp``).
 """
 
 from ._device import resolve_device
@@ -25,6 +29,7 @@ from .convert import (
     chain_from_spec_and_leaves,
     flow_from_jax_numpy,
 )
+from . import native
 from .data import (
     DataArrays,
     DataPartition,
@@ -37,6 +42,7 @@ from .data import (
     number_dimensions,
     resize_output,
 )
+from .data_stream import StreamingLoader, train_streaming
 from .models.blocks import CouplingBlock, coupling_block
 from .models.chains import FlowChain, concatenate, flow_chain
 from .models.distributions import StandardNormal
@@ -74,12 +80,23 @@ from .ops.coupling import (
     rnvp_forward,
 )
 from .ops.mlp import MLP, apply_mlp, init_mlp
+from .parallel.mesh import (
+    Mesh,
+    distributed_init,
+    host_local_rows,
+    host_local_slice,
+    make_mesh,
+    put_replicated,
+    shard_batch,
+)
 from .train import (
     Adam,
     AdamState,
     adam,
     batch_iterator,
     evaluate,
+    make_fused_step_fn,
+    make_fused_step_mesh_program,
     make_train_program,
     make_train_step,
     masked_nll_loss,
@@ -128,4 +145,8 @@ __all__ = [
     "train", "evaluate", "make_train_step", "make_train_program",
     "batch_iterator", "masked_nll_loss", "Adam", "AdamState", "adam",
     "UnsupportedFusedTrain", "chain_train_fold", "train_fused",
+    "make_fused_step_fn", "make_fused_step_mesh_program",
+    "native", "StreamingLoader", "train_streaming",
+    "Mesh", "make_mesh", "distributed_init", "host_local_rows",
+    "host_local_slice", "shard_batch", "put_replicated",
 ]

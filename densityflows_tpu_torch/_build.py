@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library name carries a hash of the
-source, so an edited source rebuilds. Libraries go to ``build/`` at the root
-of the checkout.
+source and of the headers beside it (``csrc/*.cuh``), so an edited source
+rebuilds. Libraries go to ``build/`` at the root of the checkout. The host
+loader (``csrc/loader.cpp``) is built the same way with the host compiler
+(:func:`load_host_library`).
 
 This module is imported lazily by the kernel wrappers: importing the package
 on a machine without ``nvcc`` works, and a failing build raises where the
@@ -20,13 +22,15 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load_library", "load_libraries", "build_dir", "source_path",
-           "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "load_host_library", "build_dir",
+           "source_path", "NVCC_FLAGS", "HOST_FLAGS"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -38,8 +42,34 @@ def build_dir() -> str:
     return os.path.join(os.path.dirname(_PACKAGE_DIR), "build")
 
 
-def source_path(name: str) -> str:
-    return os.path.join(_PACKAGE_DIR, "csrc", name + ".cu")
+def source_path(name: str, ext: str = ".cu") -> str:
+    return os.path.join(_PACKAGE_DIR, "csrc", name + ext)
+
+
+def _digest(src: str, flags) -> str:
+    """Hash of a source, of the headers it may include and of the flags."""
+    h = hashlib.sha256()
+    csrc = os.path.dirname(src)
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(csrc, f) for f in headers
+                         if src.endswith(".cu")]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(cmd, src, out):
+    """Run a compiler that writes ``out`` (through a temporary name, so a
+    concurrent process never loads a half-written library)."""
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{cmd[0]} failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
 
 
 def _nvcc() -> str:
@@ -65,27 +95,45 @@ def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = source_path(name)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        out = os.path.join(out_dir, f"lib{name}_{digest}.so")
+        out = os.path.join(out_dir,
+                           f"lib{name}_{_digest(src, NVCC_FLAGS)}.so")
         if not os.path.exists(out):
-            tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS]
             if verbose:
                 cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+            log = _compile(cmd, src, out)
             if verbose:
-                print(proc.stdout + proc.stderr, flush=True)
-            os.replace(tmp, out)
+                print(log, flush=True)
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib
+        return lib
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler if its library
+    is missing, and load it. Raises ``RuntimeError`` where there is no
+    compiler or the build fails."""
+    key = name + ".cpp"
+    with _LOCK:
+        build_lock = _BUILD_LOCKS.setdefault(key, threading.Lock())
+    with build_lock:
+        lib = _LIBS.get(key)
+        if lib is not None:
+            return lib
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (g++ / c++) found")
+        src = source_path(name, ".cpp")
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir,
+                           f"lib{name}_{_digest(src, HOST_FLAGS)}.so")
+        if not os.path.exists(out):
+            _compile([cxx, *HOST_FLAGS], src, out)
+        lib = ctypes.CDLL(out)
+        _LIBS[key] = lib
         return lib
 
 

@@ -17,6 +17,10 @@ Entry points:
   ``train(..., fused_kernel=True)`` or by the default routing on a CUDA
   flow): same batch order, same histories, returns the same Adam state, so a
   fused run can be continued by the plain program and the other way round.
+- :func:`fold_for_step` / :func:`fused_step_reason` /
+  :func:`fused_step_mesh_reason` — the same fold lowered for the grads-only
+  step kernel (``ops/step_kernels.py``) that the streaming trainer and the
+  data-parallel programs run per batch, and the reason it cannot take a run.
 
 Supported: a FlowChain of RNVP / joint-RNVP / NICE couplings (activations
 relu / tanh / sigmoid / identity, ``max_log_scale`` clamps included) +
@@ -63,7 +67,10 @@ from .layers import (
 from .normalization import NormalizationLayer, PermutationLayer
 
 __all__ = ["UnsupportedFusedTrain", "chain_train_fold", "train_fused",
-           "trainable_leaves", "load_leaves_", "draw_epoch_perms"]
+           "trainable_leaves", "load_leaves_", "draw_epoch_perms",
+           "FoldedStep", "fold_for_step", "fold_for_step_mesh",
+           "fused_step_reason",
+           "fused_step_mesh_reason"]
 
 
 class UnsupportedFusedTrain(ValueError):
@@ -470,6 +477,72 @@ def _check_budget(packed):
             f"scratch) and a block has {MAX_SHARED_BYTES}: model or batch "
             "too large for the whole-run kernel, which has no mode that "
             "streams its parameters (ROADMAP B5)")
+
+
+# -- the grads-only step kernel's envelope ------------------------------------
+
+class FoldedStep:
+    """A flow folded for the step kernel (``ops/step_kernels.py``): the
+    lowered :class:`~..ops.step_kernels.StepPlan`, the folded tensors and the
+    two maps between Adam moments on the model's leaves and on the folded
+    tensors."""
+
+    def __init__(self, step_plan, tparams, fold_state, unfold):
+        self.step_plan, self.tparams = step_plan, tparams
+        self.fold_state, self.unfold = fold_state, unfold
+
+
+def fold_for_step(flow) -> FoldedStep:
+    """Fold ``flow`` for the step kernel or raise
+    :class:`UnsupportedFusedTrain`. The envelope is what the kernel can hold:
+    a foldable chain, a StandardNormal base, and the activation caches of
+    ONE row within a block's shared memory (the exact bytes, from the
+    lowered plan; parameters and gradients stay in device memory, so their
+    size does not count)."""
+    from ..ops.step_kernels import StepPlan
+
+    if not isinstance(flow.base, StandardNormal):
+        raise UnsupportedFusedTrain("the step kernel supports the "
+                                    "StandardNormal base only")
+    (plan, tcounts, tparams, masks, mask_slots, cparams, fold_state,
+     unfold) = chain_train_fold(flow.model)
+    sp = StepPlan(plan, tparams, masks, mask_slots, cparams, flow.metadata.d,
+                  flow.metadata.n, tcounts)
+    try:
+        sp.min_tile()
+    except ValueError as e:
+        raise UnsupportedFusedTrain(str(e)) from None
+    return FoldedStep(sp, tparams, fold_state, unfold)
+
+
+def fused_step_reason(flow):
+    """``None`` when the step kernel can run ``flow``, else the reason it
+    cannot (surfaced through ``flow.fused_decline_reason``)."""
+    try:
+        fold_for_step(flow)
+    except UnsupportedFusedTrain as e:
+        return str(e)
+    return None
+
+
+def fold_for_step_mesh(flow, batchsize, mesh) -> FoldedStep:
+    """:func:`fold_for_step` for the data-parallel step-kernel program, which
+    also needs a batch that the ranks of ``mesh`` divide evenly."""
+    ndev = int(mesh.shape.get("data", 1))
+    if batchsize % ndev:
+        raise UnsupportedFusedTrain(
+            f"batchsize {batchsize} not divisible by the data axis ({ndev})")
+    return fold_for_step(flow)
+
+
+def fused_step_mesh_reason(flow, batchsize, mesh):
+    """``None`` when the data-parallel step-kernel program applies, else the
+    reason it does not."""
+    try:
+        fold_for_step_mesh(flow, batchsize, mesh)
+    except UnsupportedFusedTrain as e:
+        return str(e)
+    return None
 
 
 def load_leaves_(model, values) -> None:

@@ -741,11 +741,17 @@ def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
 
 
 def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
-                    batchsize: int) -> PackedTrainPlan:
+                    batchsize: int, *,
+                    state_in_shared: bool = True) -> PackedTrainPlan:
     """Lower a training plan into the kernel's forward and backward programs
     and lay out the block's shared memory for batches of ``batchsize`` rows.
     Depends on the shapes of ``tparams`` and on the values of the masks and
-    constants."""
+    constants.
+
+    ``state_in_shared=False`` is the layout of the step kernel
+    (``ops/step_kernels.py``): parameters, gradients and constants stay in
+    device memory, the header names no offset for them (-1), and the shared
+    array holds one tile's rows, caches and scratch only."""
     device = tparams[0].device
     shapes = [tuple(int(s) for s in p.shape) for p in tparams]
     if any(len(s) != 2 for s in shapes):
@@ -757,9 +763,12 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
     n_params = o
     hmax = max([s[1] for s in shapes] + [d])
     pk = _TrainPacker(d, n, batchsize, shapes, offs)
-    hdr = {name: pk.alloc(n_params) for name in ("P", "MU", "NU", "G")}
     n_consts = sum(int(c.numel()) for c in cparams)
-    hdr["C"] = pk.alloc(n_consts)
+    if state_in_shared:
+        hdr = {name: pk.alloc(n_params) for name in ("P", "MU", "NU", "G")}
+        hdr["C"] = pk.alloc(n_consts)
+    else:
+        hdr = dict.fromkeys(("P", "MU", "NU", "G", "C"), -1)
     cache0 = pk.top
     pk.th_off = hdr["TH"] = pk.rows(n) if n else -1
     x_in = hdr["X0"] = pk.rows(d)

@@ -1,8 +1,8 @@
-"""NLL training: the plain multi-epoch program and the routing to the
-whole-run kernel.
+"""NLL training: the plain multi-epoch program, the routing to the
+whole-run kernel, and the data-parallel programs.
 
-PyTorch counterpart of ``densityflows_tpu/train.py`` (single device). Two
-paths run a ``train`` call:
+PyTorch counterpart of ``densityflows_tpu/train.py``. Two paths run a
+single-device ``train`` call:
 
 - the **plain program** (:func:`make_train_program`): an eager loop on the
   flow's device — per epoch a fresh row permutation drawn on the host, per
@@ -23,8 +23,22 @@ early stopping, ``debug``) derive each chunk's generator from one draw of the
 caller's generator and the chunk's position, so a resumed run replays the
 shuffle sequence of an uninterrupted one.
 
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh`` around a
+``torch.distributed`` group): every rank holds the data set and the model,
+works on ITS rows of each batch with the GLOBAL loss denominator, and the
+ranks sum loss and gradients before the update, so a run equals the
+single-device one batch for batch. Two programs do that:
+
+- the **step-kernel program** (:func:`make_fused_step_mesh_program`): per
+  batch the grads-only kernel ``step_grads`` (``ops/step_kernels.py``) on
+  folded parameters, one all-reduce of the packed gradient and loss, then
+  Adam over the flat folded buffer in plain tensor operations
+  (``flow.trained_path == "fused-step-mesh"``);
+- the **plain program** with an all-reduce of the autograd gradients, for
+  runs outside the kernel's envelope.
+
 Not ported yet (the arguments exist and raise ``NotImplementedError``):
-``mesh=`` (ROADMAP A9 / B4), ``remat`` and ``mixed_precision`` (A13).
+``remat`` and ``mixed_precision`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -44,15 +58,24 @@ from .models.flow import Flow, _chain_eval
 from .models.fused_train import (
     UnsupportedFusedTrain,
     draw_epoch_perms,
+    fold_for_step_mesh,
     load_leaves_,
     train_fused,
     trainable_leaves,
 )
+from .ops.step_kernels import folded_nll
 
 __all__ = [
     "train", "evaluate", "make_train_step", "make_train_program",
+    "make_fused_step_fn", "make_fused_step_mesh_program",
     "batch_iterator", "Adam", "AdamState", "adam", "masked_nll_loss",
 ]
+
+
+def _bias_corrections(b1, b2, count):
+    """``1 − bᵗ`` for both moments, in float32 like ``optax.adam``."""
+    return (float(np.float32(1.0) - np.float32(b1) ** np.float32(count)),
+            float(np.float32(1.0) - np.float32(b2) ** np.float32(count)))
 
 
 @dataclasses.dataclass
@@ -92,8 +115,7 @@ class Adam:
 
     def update(self, grads, state: AdamState, params=None):
         count = state.count + 1
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
+        bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
         mu = [self.b1 * m + (1.0 - self.b1) * g
               for m, g in zip(state.mu, grads)]
         nu = [self.b2 * v + (1.0 - self.b2) * (g * g)
@@ -114,11 +136,15 @@ def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return Adam(learning_rate, b1=b1, b2=b2, eps=eps)
 
 
-def _not_ported(mesh=None, remat=False, mixed_precision=False):
+def _not_ported(remat=False, mixed_precision=False, mesh=None):
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= training is not ported yet (ROADMAP A9 / B4: data-parallel "
-            "training on torch.distributed with the step kernel)")
+        from .parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise NotImplementedError(
+                "mesh= takes the data-parallel Mesh of parallel.mesh."
+                "make_mesh(); any other mesh (a 'model' axis, tensor "
+                "parallelism: ROADMAP A9) is not ported")
     if remat or mixed_precision:
         raise NotImplementedError(
             "remat / mixed_precision are not ported yet (ROADMAP A13)")
@@ -148,7 +174,7 @@ def masked_nll_loss(model, base, x, theta, mask, *, remat: bool = False,
     importance-weighted NLL and the all-ones mask the plain one. The epsilon
     only guards the all-padded batch, whose numerator is exactly 0.
     """
-    _not_ported(None, remat, mixed_precision)
+    _not_ported(remat, mixed_precision)
     z, ldj = model.inverse(x, theta)
     per_sample = base.log_prob(z) + ldj
     denom = torch.clamp(mask.sum(), min=1e-12)
@@ -163,16 +189,44 @@ def _eval_nll(model, base, x, theta):
         return -(base.log_prob(z) + ldj).mean()
 
 
-def _loss_and_grads(model, base, x, theta, mask):
+def _global_denominator(mask, mesh, denom=None):
+    """``Σ mask`` over the GLOBAL batch: this rank's sum, summed over the
+    ranks of ``mesh``; a ``denom`` handed in is taken as global already."""
+    if denom is None:
+        denom = mask.sum()
+        if mesh is not None:
+            mesh.all_reduce_(denom)
+    return denom
+
+
+def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None):
+    """Loss and autograd gradients of one batch. With a ``mesh``, ``x`` is
+    this rank's shard: the loss is normalized by the global denominator, and
+    loss and gradients are summed over the ranks (one all-reduce of one
+    buffer), which gives every rank the whole batch's values."""
     leaves = trainable_leaves(model)
     wrt = [p for p in leaves if p.numel()]
     with torch.enable_grad():
-        loss = masked_nll_loss(model, base, x, theta, mask)
+        if mesh is None and denom is None:
+            loss = masked_nll_loss(model, base, x, theta, mask)
+        else:
+            z, ldj = model.inverse(x, theta)
+            den = torch.clamp(_global_denominator(mask, mesh, denom),
+                              min=1e-12)
+            loss = -((base.log_prob(z) + ldj) * mask).sum() / den
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = [(next(got) if p.numel() else None) for p in leaves]
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    return loss.detach(), leaves, grads
+    loss = loss.detach()
+    if mesh is not None:
+        buf = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        mesh.all_reduce_(buf)
+        sizes = [g.numel() for g in grads]
+        grads = [c.view(g.shape) for c, g in
+                 zip(torch.split(buf[:-1], sizes), grads)]
+        loss = buf[-1]
+    return loss, leaves, grads
 
 
 def _all_finite(loss, grads) -> bool:
@@ -181,15 +235,21 @@ def _all_finite(loss, grads) -> bool:
 
 
 def make_train_step(optimizer, *, remat: bool = False,
-                    mixed_precision: bool = False):
+                    mixed_precision: bool = False, mesh=None):
     """Single-batch step (loss + gradients + update) for callers that feed
     batches from their own pipeline: ``step(model, opt_state, base, x,
-    theta, mask) → (model, opt_state, loss)``. The model is updated in
-    place."""
-    _not_ported(None, remat, mixed_precision)
+    theta, mask, denom=None) → (model, opt_state, loss)``. The model is
+    updated in place.
 
-    def train_step(model, opt_state, base, x, theta, mask):
-        loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask)
+    With a ``mesh`` the step is data-parallel: every rank passes ITS rows of
+    the batch, the loss is normalized by the global ``Σ mask`` (``denom``
+    when the caller has it already), and the autograd gradients are summed
+    over the ranks before the update; the returned loss is the global one."""
+    _not_ported(remat, mixed_precision)
+
+    def train_step(model, opt_state, base, x, theta, mask, denom=None):
+        loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask,
+                                              mesh, denom)
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         with torch.no_grad():
             for p, u in zip(leaves, updates):
@@ -197,6 +257,27 @@ def make_train_step(optimizer, *, remat: bool = False,
         return model, opt_state, loss
 
     return train_step
+
+
+def _batch_order(x, batchsize, epochs, shuffle, generator, epoch_perms):
+    """The batches of a multi-epoch program over the rows of ``x``:
+    ``(n_batches, idx, pad_mask)`` with ``idx`` ``(epochs, n_batches ·
+    batchsize)`` row indices (each epoch's permutation, drawn from
+    ``generator`` unless ``epoch_perms`` gives it, padded with row 0) and
+    ``pad_mask`` 1 on real rows, 0 on the padding, both on ``x``'s device."""
+    n = x.shape[0]
+    n_batches = -(-n // batchsize)
+    n_pad = n_batches * batchsize
+    perms = (draw_epoch_perms(generator, epochs, n, shuffle)
+             if epoch_perms is None else np.asarray(epoch_perms))
+    if perms.shape != (epochs, n):
+        raise ValueError(
+            f"epoch_perms must have shape {(epochs, n)}, got {perms.shape}")
+    idx = np.zeros((epochs, n_pad), np.int64)
+    idx[:, :n] = perms
+    idx = torch.as_tensor(idx, device=x.device)
+    pad_mask = (torch.arange(n_pad, device=x.device) < n).to(x.dtype)
+    return n_batches, idx, pad_mask
 
 
 def make_train_program(
@@ -210,6 +291,7 @@ def make_train_program(
     weighted: bool = False,
     track_best: bool = False,
     guard_nonfinite: bool = False,
+    mesh=None,
 ):
     """Build the plain multi-epoch training program.
 
@@ -231,24 +313,24 @@ def make_train_program(
       each batch update is applied only if the loss and every gradient are
       finite; a skipped step leaves parameters and optimizer state as they
       are.
+    - ``mesh``: the data-parallel program. Every rank passes the same
+      arrays, permutations and model; of each batch a rank works on its own
+      rows (``parallel.mesh.host_local_rows``) and the ranks sum loss and
+      gradients, so every rank applies the whole batch's update. The
+      full-split evaluations run on every rank in full.
     """
-    _not_ported(None, remat, mixed_precision)
+    _not_ported(remat, mixed_precision)
+    local = slice(None)
+    if mesh is not None:
+        from .parallel.mesh import host_local_rows
+
+        local = host_local_rows(mesh, batchsize)
 
     def body(model, opt_state, base, x, theta, w, x_valid, theta_valid,
              w_valid, generator, epoch_perms):
         n, nv = x.shape[0], x_valid.shape[0]
-        n_batches = -(-n // batchsize)
-        n_pad = n_batches * batchsize
-        perms = (draw_epoch_perms(generator, epochs, n, shuffle)
-                 if epoch_perms is None else np.asarray(epoch_perms))
-        if perms.shape != (epochs, n):
-            raise ValueError(
-                f"epoch_perms must have shape {(epochs, n)}, got "
-                f"{perms.shape}")
-        idx = np.zeros((epochs, n_pad), np.int64)
-        idx[:, :n] = perms
-        idx = torch.as_tensor(idx, device=x.device)
-        pad_mask = (torch.arange(n_pad, device=x.device) < n).to(x.dtype)
+        n_batches, idx, pad_mask = _batch_order(
+            x, batchsize, epochs, shuffle, generator, epoch_perms)
         ones_t, ones_v = x.new_ones(n), x.new_ones(nv)
         tls, vls, skips = [], [], []
         best_vl = float("inf")
@@ -258,12 +340,12 @@ def make_train_program(
             e_skips = 0
             for b in range(n_batches):
                 sl = slice(b * batchsize, (b + 1) * batchsize)
-                rows = idx[e, sl]
-                m = pad_mask[sl]
+                rows = idx[e, sl][local]
+                m = pad_mask[sl][local]
                 if weighted:
                     m = m * w[rows]
                 loss, leaves, grads = _loss_and_grads(
-                    model, base, x[rows], theta[rows], m)
+                    model, base, x[rows], theta[rows], m, mesh)
                 if guard_nonfinite and not _all_finite(loss, grads):
                     e_skips += 1
                     continue
@@ -308,16 +390,230 @@ def make_train_program(
     return train_program
 
 
+# -- the step-kernel programs ----------------------------------------------------
+
+def _adam_hp(lr, b1, b2, eps):
+    return dict(lr=float(lr), b1=float(b1), b2=float(b2), eps=float(eps))
+
+
+def _folded_adam_(flat_p, state: AdamState, g, hp) -> None:
+    """One Adam update over the flat folded buffers, in place: ``state``
+    holds the count and the two moments as one flat tensor each."""
+    count = state.count + 1
+    bc1, bc2 = _bias_corrections(hp["b1"], hp["b2"], count)
+    mu, nu = state.mu[0], state.nu[0]
+    mu.mul_(hp["b1"]).add_(g, alpha=1.0 - hp["b1"])
+    nu.mul_(hp["b2"]).addcmul_(g, g, value=1.0 - hp["b2"])
+    flat_p.addcdiv_(mu, (nu / bc2).sqrt_().add_(hp["eps"]),
+                    value=-hp["lr"] / bc1)
+    state.count = count
+
+
+def _sharded_grads(mesh, step_plan, flat_p, xb, thb, mb, denom=None):
+    """The packed gradient and loss (``StepPlan.loss_and_grads``) of the
+    GLOBAL batch from this rank's rows: the kernel with the global
+    denominator, then one sum over the ranks."""
+    out = step_plan.loss_and_grads(
+        flat_p, xb, thb, mb, denom=_global_denominator(mb, mesh, denom))
+    if mesh is not None:
+        mesh.all_reduce_(out)
+    return out
+
+
+def make_fused_step_fn(mesh, step_plan, *, lr=1e-3, b1=0.9, b2=0.999,
+                       eps=1e-8, guard_nonfinite=False):
+    """Per-BATCH step on the grads-only kernel, for host-driven loops (the
+    streaming trainer): local kernel with the global denominator → sum of the
+    packed gradient and loss over the ranks of ``mesh`` (``None``: one
+    device, no collective) → Adam over the flat folded buffer.
+
+    ``step_plan``: the flow's plan lowered once
+    (``models.fused_train.fold_for_step``). Returns ``step(flat_p, fstate,
+    xb, thb, mask, denom=None) → (flat_p, fstate, global_loss)``; ``flat_p``
+    and ``fstate`` (an :class:`AdamState` whose moments are one flat tensor
+    each) are updated in place. With ``guard_nonfinite`` an update is applied
+    only when the summed loss and gradients are finite (the same decision on
+    every rank); ``step.skipped`` counts the others."""
+    hp = _adam_hp(lr, b1, b2, eps)
+    n_params = step_plan.n_params
+
+    def step(flat_p, fstate, xb, thb, mb, denom=None):
+        out = _sharded_grads(mesh, step_plan, flat_p, xb, thb, mb, denom)
+        loss = out[n_params]
+        if guard_nonfinite and not bool(torch.isfinite(out).all()):
+            step.skipped += 1
+            return flat_p, fstate, loss
+        _folded_adam_(flat_p, fstate, out[:n_params], hp)
+        return flat_p, fstate, loss
+
+    step.skipped = 0
+    return step
+
+
+def make_fused_step_mesh_program(
+    mesh, step_plan, batchsize, epochs, shuffle=True, *, lr=1e-3, b1=0.9,
+    b2=0.999, eps=1e-8, weighted=False, track_best=False,
+    guard_nonfinite=False,
+):
+    """Data-parallel train program on the grads-only step kernel.
+
+    Per batch every rank runs ``step_grads`` on its rows with the global
+    denominator, the packed gradient and loss are summed over the ranks, and
+    the Adam update runs in plain tensor operations on the replicated flat
+    FOLDED parameter buffer. The per-epoch full-split evaluations use
+    ``folded_nll``. Shuffle and batch semantics are those of
+    :func:`make_train_program` (same permutations, same batch composition).
+
+    Returns ``fn(flat_p, fstate, x, theta[, w], x_valid, theta_valid
+    [, w_valid], generator, *, epoch_perms=None) → (flat_p, fstate, tls, vls
+    [, best_flat_p][, skips])`` — the output contract of
+    :func:`make_train_program` on the flat folded buffer. ``flat_p`` and
+    ``fstate`` are updated in place."""
+    from .parallel.mesh import host_local_rows
+
+    sp = step_plan
+    local = host_local_rows(mesh, batchsize) if mesh is not None \
+        else slice(None)
+    step = make_fused_step_fn(mesh, sp, lr=lr, b1=b1, b2=b2, eps=eps,
+                              guard_nonfinite=guard_nonfinite)
+
+    def body(flat_p, fstate, x, theta, w, x_valid, theta_valid, w_valid,
+             generator, epoch_perms):
+        n, nv = x.shape[0], x_valid.shape[0]
+        n_batches, idx, pad_mask = _batch_order(
+            x, batchsize, epochs, shuffle, generator, epoch_perms)
+        w_t = w if weighted else x.new_ones(n)
+        w_v = w_valid if weighted else x.new_ones(nv)
+        tls, vls, skips = [], [], []
+        best_vl, best = float("inf"), (flat_p.clone() if track_best else None)
+        for e in range(epochs):
+            before = step.skipped
+            for b in range(n_batches):
+                sl = slice(b * batchsize, (b + 1) * batchsize)
+                rows = idx[e, sl][local]
+                m = pad_mask[sl][local]
+                if weighted:
+                    m = m * w[rows]
+                step(flat_p, fstate, x[rows], theta[rows], m)
+            tp = sp.views(flat_p)
+            tl = float(folded_nll(tp, sp.cparams, x, theta, w_t,
+                                  plan=sp.plan))
+            vl = float(folded_nll(tp, sp.cparams, x_valid, theta_valid, w_v,
+                                  plan=sp.plan))
+            if track_best and vl < best_vl:   # false on NaN
+                best_vl, best = vl, flat_p.clone()
+            tls.append(tl)
+            vls.append(vl)
+            skips.append(step.skipped - before)
+        out = [flat_p, fstate, np.asarray(tls, np.float32),
+               np.asarray(vls, np.float32)]
+        if track_best:
+            out.append(best)
+        if guard_nonfinite:
+            out.append(np.asarray(skips, np.int32))
+        return tuple(out)
+
+    if weighted:
+        def program(flat_p, fstate, x, theta, w, x_valid, theta_valid,
+                    w_valid, generator, *, epoch_perms=None):
+            return body(flat_p, fstate, x, theta, w, x_valid, theta_valid,
+                        w_valid, generator, epoch_perms)
+    else:
+        def program(flat_p, fstate, x, theta, x_valid, theta_valid,
+                    generator, *, epoch_perms=None):
+            return body(flat_p, fstate, x, theta, None, x_valid, theta_valid,
+                        None, generator, epoch_perms)
+    return program
+
+
+def _fold_adam_state(folded, opt_state):
+    """The Adam state of a flow's leaves as the flat folded state
+    (zeros when ``opt_state`` is None)."""
+    sp = folded.step_plan
+    if opt_state is None:
+        flat = sp.flatten(folded.tparams)
+        return AdamState(0, [torch.zeros_like(flat)], [torch.zeros_like(flat)])
+    return AdamState(int(opt_state.count),
+                     [sp.flatten(folded.fold_state(opt_state.mu))],
+                     [sp.flatten(folded.fold_state(opt_state.nu))])
+
+
+def _unfold_adam_state(folded, fstate) -> AdamState:
+    sp = folded.step_plan
+    return AdamState(fstate.count, folded.unfold(sp.unflatten(fstate.mu[0])),
+                     folded.unfold(sp.unflatten(fstate.nu[0])))
+
+
+def _run_fused_step_mesh(flow, mesh, folded, batchsize, epochs, shuffle,
+                         generator, xt, tht, xv, thv, wt, wv, hp, opt_state,
+                         track_best, guard, verbose, metrics_log,
+                         epoch_perms):
+    """Run the data-parallel step-kernel program and translate in and out of
+    the folded parameter space."""
+    from .parallel.mesh import put_replicated
+
+    sp = folded.step_plan
+    flat_p = sp.flatten(folded.tparams)
+    fstate = _fold_adam_state(folded, opt_state)
+    # the fold ran on every rank's own copy: make the copies one
+    put_replicated(mesh, [flat_p, fstate.mu[0], fstate.nu[0]])
+
+    program = make_fused_step_mesh_program(
+        mesh, sp, batchsize, epochs, shuffle, weighted=wt is not None,
+        track_best=track_best, guard_nonfinite=guard, **hp)
+    t0 = time.perf_counter()
+    if wt is not None:
+        out = program(flat_p, fstate, xt, tht, wt, xv, thv, wv, generator,
+                      epoch_perms=epoch_perms)
+    else:
+        out = program(flat_p, fstate, xt, tht, xv, thv, generator,
+                      epoch_perms=epoch_perms)
+    flat_p, fstate, tls, vls = out[:4]
+    rest = list(out[4:])
+    best_flat = rest.pop(0) if track_best else None
+    skips = rest.pop(0) if guard else None
+    elapsed = time.perf_counter() - t0
+
+    load_leaves_(flow.model, folded.unfold(sp.unflatten(flat_p)))
+    flow.trained_path = "fused-step-mesh"
+    flow.fused_decline_reason = None
+    flow.train_loss.extend(float(v) for v in tls)
+    flow.valid_loss.extend(float(v) for v in vls)
+    if skips is not None:
+        flow.skipped_updates.extend(int(v) for v in skips)
+        if verbose and skips.sum():
+            print(f"[skipped {int(skips.sum())} non-finite updates]")
+    if metrics_log is not None:
+        _write_metrics(metrics_log, flow, epochs)
+    out_state = _unfold_adam_state(folded, fstate)
+    if verbose:
+        for e, (tl, vl) in enumerate(zip(tls, vls)):
+            print(f"epoch: {len(flow.train_loss) - epochs + e + 1} | "
+                  f"train_loss = {tl}, valid_loss = {vl}")
+        sps = epochs * xt.shape[0] / elapsed if elapsed > 0 else float("inf")
+        print(f"[mesh fused-step kernel | {elapsed:.2f}s | {sps:,.0f} "
+              f"samples/s]")
+    if track_best:
+        best_model = copy.deepcopy(flow.model)
+        load_leaves_(best_model, folded.unfold(sp.unflatten(best_flat)))
+        return out_state, best_model
+    return out_state
+
+
 # -- chunked loops ------------------------------------------------------------
 
-def _chunk_seed(generator) -> int:
+def _chunk_seed(generator, mesh=None, device="cpu") -> int:
     """One draw of the caller's generator: the seed every chunk's generator
-    is derived from."""
+    is derived from (on a mesh rank 0's draw, broadcast through a tensor on
+    ``device``, the flow's)."""
     if generator is None:
         generator = torch.Generator()
         generator.seed()
-    return int(torch.randint(0, 2**62, (1,), generator=generator,
-                             device=generator.device, dtype=torch.int64))
+    seed = torch.randint(0, 2**62, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+    if mesh is not None:
+        seed = mesh.broadcast_(seed.to(device)).cpu()
+    return int(seed)
 
 
 def _chunk_generator(seed: int, done: int) -> torch.Generator:
@@ -336,6 +632,7 @@ def _train_with_checkpoints(
     flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
     generator, debug, checkpoint_dir, checkpoint_every, resume,
     metrics_log=None, weights=None, skip_nonfinite=False, epoch_perms=None,
+    mesh=None,
 ):
     """Chunked training with checkpoint-restart recovery: chunks of
     ``checkpoint_every`` epochs with a full checkpoint (model + optimizer
@@ -344,7 +641,7 @@ def _train_with_checkpoints(
 
     # the chunk train() calls receive the USER's optimizer (None when
     # unspecified) so plain-surface chunks may route through the kernel
-    seed = _chunk_seed(generator)
+    seed = _chunk_seed(generator, mesh, flow.device)
     done = 0
     if resume and os.path.exists(os.path.join(checkpoint_dir, "flow.json")):
         restored = load_flow(checkpoint_dir,
@@ -371,10 +668,14 @@ def _train_with_checkpoints(
             batchsize=batchsize, shuffle=shuffle, verbose=verbose,
             generator=_chunk_generator(seed, done), debug=debug,
             metrics_log=metrics_log, weights=weights,
-            skip_nonfinite=skip_nonfinite,
+            skip_nonfinite=skip_nonfinite, mesh=mesh,
             _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
         done += chunk
-        save_flow(checkpoint_dir, flow, opt_state, erase=True)
+        # every rank holds the same model and state: rank 0 writes
+        if mesh is None or mesh.rank == 0:
+            save_flow(checkpoint_dir, flow, opt_state, erase=True)
+        if mesh is not None:
+            mesh.barrier()
     return opt_state
 
 
@@ -382,6 +683,7 @@ def _train_early_stopping(
     flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
     generator, debug, patience, min_delta, check_every, restore_best,
     metrics_log, weights=None, skip_nonfinite=False, epoch_perms=None,
+    mesh=None,
 ):
     """Chunked training with validation-based early stopping. Between chunks
     of ``check_every`` epochs the host inspects the validation-loss tail and
@@ -389,7 +691,7 @@ def _train_early_stopping(
     ``patience`` consecutive epochs; with ``restore_best`` the model is
     rolled back to the EXACT best-epoch parameters (each chunk tracks its
     best epoch, so the restore is epoch-exact whatever ``check_every``)."""
-    seed = _chunk_seed(generator)
+    seed = _chunk_seed(generator, mesh, flow.device)
     best = float("inf")
     best_restore = float("inf")
     best_model = None
@@ -403,7 +705,7 @@ def _train_early_stopping(
             generator=_chunk_generator(seed, done), debug=debug,
             metrics_log=metrics_log, weights=weights,
             skip_nonfinite=skip_nonfinite, _track_best=restore_best,
-            _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
+            mesh=mesh, _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
         opt_state, chunk_best = res if restore_best else (res, None)
         done += chunk
         tail = flow.valid_loss[-chunk:]
@@ -560,11 +862,25 @@ def train(
       the supported surface.
     - ``False``: always the plain program.
 
-    ``flow.trained_path`` is ``"fused"`` or ``"torch"`` after the call. A
-    kernel that fails to build or launch raises; nothing turns such a
-    failure into a run on the other path.
+    ``mesh`` (``parallel.mesh.make_mesh()``): data-parallel training over
+    the ranks of a ``torch.distributed`` group. Every rank calls ``train``
+    with the same data, model and ``generator`` seed (rank 0's permutations
+    and parameters are broadcast), works on its rows of every batch, and ends
+    with the same model, histories and state. The whole-run kernel has no
+    mesh mode; under ``"auto"`` a CUDA flow with an ``adam(...)`` optimizer
+    inside the step kernel's envelope takes the step-kernel program
+    (``flow.trained_path == "fused-step-mesh"``), any other run the plain
+    program with an all-reduce of the autograd gradients, with the decline
+    recorded and, on a CUDA flow, warned about. ``fused_kernel=True`` with a
+    mesh forces the step-kernel program (on a CPU flow: the kernel's plain
+    version) or raises.
+
+    ``flow.trained_path`` is ``"fused"``, ``"fused-step-mesh"`` or
+    ``"torch"`` after the call. A kernel that fails to build or launch
+    raises; nothing turns such a failure into a run on the other path.
     """
-    _not_ported(mesh, remat, mixed_precision)
+    _not_ported(remat, mixed_precision, mesh)
+    requested = fused_kernel
     # Adam hyperparameters the kernel can honor: None → Adam(1e-3); an
     # adam(...) → its lr/b1/b2/eps. Exact-type check: an Adam SUBCLASS may
     # override update() with semantics the kernel does not implement
@@ -602,6 +918,7 @@ def train(
         chunked_loop = (early_stopping_patience is not None
                           or checkpoint_dir is not None)
         blocked = [name for name, flag in (
+            ("mesh", mesh is not None),
             ("debug", debug),
             ("optimizer other than adam(...)",
              optimizer is not None and type(optimizer) is not Adam),
@@ -634,7 +951,9 @@ def train(
                 "adam(lr, b1, b2, eps) (its hyperparameters are "
                 "introspectable) instead of another optimizer or an Adam "
                 "subclass")
-        return fused_call()
+        if mesh is None:
+            return fused_call()
+        # on a mesh the forced kernel path is the step-kernel program below
     if early_stopping_patience is not None:
         if checkpoint_dir is not None:
             raise ValueError(
@@ -650,7 +969,7 @@ def train(
                          or min(early_stopping_patience, 10)),
             restore_best=restore_best, metrics_log=metrics_log,
             weights=weights, skip_nonfinite=skip_nonfinite,
-            epoch_perms=_epoch_perms)
+            epoch_perms=_epoch_perms, mesh=mesh)
     if checkpoint_dir is not None:
         return _train_with_checkpoints(
             flow, data, optimizer, opt_state, epochs=epochs,
@@ -658,14 +977,15 @@ def train(
             generator=generator, debug=debug, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, resume=resume,
             metrics_log=metrics_log, weights=weights,
-            skip_nonfinite=skip_nonfinite, epoch_perms=_epoch_perms)
+            skip_nonfinite=skip_nonfinite, epoch_perms=_epoch_perms,
+            mesh=mesh)
     if optimizer is None:
         optimizer = Adam()
 
     if debug and epochs > _DEBUG_CHUNK and not _track_best:
         # chunked execution so a non-finite epoch loss raises within about
         # _DEBUG_CHUNK epochs, not after the whole run
-        seed = _chunk_seed(generator)
+        seed = _chunk_seed(generator, mesh, flow.device)
         done = 0
         while done < epochs:
             chunk = min(_DEBUG_CHUNK, epochs - done)
@@ -674,7 +994,7 @@ def train(
                 batchsize=batchsize, shuffle=shuffle, verbose=verbose,
                 generator=_chunk_generator(seed, done), debug=True,
                 metrics_log=metrics_log, weights=weights,
-                skip_nonfinite=skip_nonfinite, fused_kernel=False,
+                skip_nonfinite=skip_nonfinite, fused_kernel=False, mesh=mesh,
                 _epoch_perms=_chunk_perms(_epoch_perms, done, chunk))
             done += chunk
         return opt_state
@@ -697,12 +1017,61 @@ def train(
     xt, tht = _put(x_train, dev), _put(th_train, dev)
     xv, thv = _put(x_valid, dev), _put(th_valid, dev)
     model = flow.model
+
+    if mesh is not None:
+        from .parallel.mesh import put_replicated
+
+        # one batch order for every rank: rank 0's
+        n_rows = xt.shape[0]
+        perms = (draw_epoch_perms(generator, epochs, n_rows, shuffle)
+                 if _epoch_perms is None else np.asarray(_epoch_perms))
+        perms_t = torch.as_tensor(np.ascontiguousarray(perms, np.int64))
+        _epoch_perms = mesh.broadcast_(perms_t.to(dev)).cpu().numpy()
+
+        # the step-kernel program: forced, or by default on a CUDA flow
+        # inside the kernel's envelope (Adam only: the folded state needs
+        # its moments)
+        forced = requested is True
+        wanted = forced or (requested == "auto" and dev.type == "cuda"
+                            and not debug)
+        if wanted and type(optimizer) is Adam:
+            try:
+                if opt_state is not None \
+                        and not isinstance(opt_state, AdamState):
+                    raise UnsupportedFusedTrain(
+                        "opt_state is not an Adam state (need count, mu, nu)")
+                folded = fold_for_step_mesh(flow, batchsize, mesh)
+            except UnsupportedFusedTrain as e:
+                reason = str(e)
+            else:
+                hp = _adam_hp(optimizer.learning_rate, optimizer.b1,
+                              optimizer.b2, optimizer.eps)
+                return _run_fused_step_mesh(
+                    flow, mesh, folded, batchsize, epochs, shuffle,
+                    generator, xt, tht, xv, thv, w_train, w_valid, hp,
+                    opt_state, _track_best, skip_nonfinite, verbose,
+                    metrics_log, _epoch_perms)
+            if forced:
+                raise UnsupportedFusedTrain(reason)
+            flow.fused_decline_reason = f"mesh fused-step not used — {reason}"
+            warnings.warn(
+                f"train: the step kernel declined this data-parallel run "
+                f"({reason}); the plain program trains it with an all-reduce "
+                "of the autograd gradients. Pass fused_kernel=False to "
+                "choose that path without this warning", RuntimeWarning,
+                stacklevel=2)
+            if verbose:
+                print(f"[mesh fused-step kernel not used — {reason}; using "
+                      f"the plain data-parallel program]")
+        put_replicated(mesh, [p.data for p in trainable_leaves(model)
+                              if p.numel()])
+
     if opt_state is None:
         opt_state = optimizer.init(trainable_leaves(model))
 
     program = make_train_program(
         optimizer, batchsize, epochs, shuffle, weighted=weights is not None,
-        track_best=_track_best, guard_nonfinite=skip_nonfinite)
+        track_best=_track_best, guard_nonfinite=skip_nonfinite, mesh=mesh)
     t0 = time.perf_counter()
     if weights is not None:
         out = program(model, opt_state, flow.base, xt, tht, w_train, xv, thv,

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA chain
-kernels and the whole-run train kernel against their plain versions. They skip where there is no card; run
-them on a machine with one with
+kernels, the whole-run train kernel and the grads-only step kernel against
+their plain versions. They skip where there is no card; run them on a machine
+with one with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
@@ -14,6 +15,7 @@ import densityflows_tpu_torch as dt
 from densityflows_tpu_torch.models import fused_chain as TF
 from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.ops import chain_kernels as CK
+from densityflows_tpu_torch.ops import step_kernels as SK
 from densityflows_tpu_torch.ops import train_kernels as TK
 
 pytestmark = pytest.mark.gpu
@@ -141,3 +143,70 @@ def test_train_run_kernel_two_calls_equal_one(cuda):
         for u, v in zip(one[i], b[i]):
             assert torch.equal(u, v)
     assert torch.equal(one[3], torch.cat([a[3], b[3]]))
+
+
+def _step_case(device, rows=300):
+    (plan, tc, tparams, masks, slots, cparams, _f, _u), arrays, _p, _kw = \
+        _train_case(device, False)
+    rng = np.random.default_rng(2)
+    idx = rng.integers(0, arrays[0].shape[0], size=rows)
+    x, th = arrays[0][idx].contiguous(), arrays[1][idx].contiguous()
+    mask = torch.as_tensor((rng.uniform(0.2, 2.0, size=rows)
+                            * (np.arange(rows) < rows - 7)
+                            ).astype(np.float32)).to(device)
+    sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 5, 1, tc)
+    return sp, tparams, x, th, mask
+
+
+@pytest.mark.parametrize("tile", [None, 8, 32])
+def test_step_grads_kernel_matches_plain(cuda, tile):
+    """A weighted batch of 300 rows with padded rows, no multiple of the
+    tile: loss and gradients against the plain version at 1e-4 (the same f32
+    arithmetic in another summation order); the counter moves by one."""
+    sp, tparams, x, th, mask = _step_case(cuda)
+    flat = sp.flatten(tparams)
+    before = SK.run_fused_grads.launches
+    loss, g = sp.grads(flat, x, th, mask, tile=tile)
+    torch.cuda.synchronize()
+    assert SK.run_fused_grads.launches == before + 1
+    want_loss, want = SK.step_grads_plain(
+        sp.plan, tparams, sp.masks, sp.mask_slots, sp.cparams, x, th, mask)
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
+    torch.testing.assert_close(g, torch.cat([w.reshape(-1) for w in want]),
+                               rtol=0, atol=1e-4)
+
+
+def test_step_grads_kernel_is_deterministic_and_shards_sum(cuda):
+    """Two launches give the same bits; two shards with the GLOBAL
+    denominator sum to the whole batch (1e-5)."""
+    sp, tparams, x, th, mask = _step_case(cuda, rows=256)
+    flat = sp.flatten(tparams)
+    a = sp.loss_and_grads(flat, x, th, mask).clone()
+    b = sp.loss_and_grads(flat, x, th, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    denom = mask.sum()
+    halves = [sp.loss_and_grads(flat, x[s], th[s], mask[s], denom=denom)
+              for s in (slice(0, 128), slice(128, 256))]
+    torch.testing.assert_close(halves[0] + halves[1], a, rtol=0, atol=1e-5)
+
+
+def test_train_streaming_takes_the_step_kernel(cuda):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(500, 5)).astype(np.float32)
+    th = rng.uniform(-1, 2, size=(500, 1)).astype(np.float32)
+    data = dt.DataArrays.make(x, th, rng=0)
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g, device=cuda, zero_init_final=False,
+              hidden_dim_s=16, hidden_dim_t=16)
+    flow = dt.Flow(dt.flow_chain(
+        dt.coupling_layer(data, [0, 1, 2], **kw),
+        dt.coupling_layer(data, [2, 3, 4], **kw),
+        dt.normalization_layer(x, -1.0, 1.0, device=cuda)), data, device=cuda)
+    before = SK.run_fused_grads.launches
+    state = dt.train_streaming(flow, x, th, epochs=2, batchsize=64,
+                               verbose=False, valid_data=(x[:64], th[:64]))
+    assert flow.trained_path == "fused-step"
+    assert SK.run_fused_grads.launches == before + 2 * 8 == before + state.count
+    assert flow.train_loss[1] < flow.train_loss[0]
+    assert np.isfinite(flow.valid_loss).all()

@@ -42,6 +42,33 @@ from densityflows_tpu_torch.ops import train_kernels
 from densityflows_tpu_torch.models import fused_train
 from densityflows_tpu_torch.utils import logging as port_logging
 assert train_kernels.run_fused_train.launches == 0
+
+# streaming and data-parallel training on the CPU: the native loader (or its
+# fallback), the step kernel's plain version, the trivial mesh
+from densityflows_tpu_torch import data_stream, native
+from densityflows_tpu_torch.ops import step_kernels
+from densityflows_tpu_torch.parallel import mesh as port_mesh
+xs = rng.normal(size=(60, 4)).astype(np.float32)
+ths = rng.uniform(size=(60, 1)).astype(np.float32)
+state = dt.train_streaming(tflow, xs, ths, epochs=1, batchsize=16,
+                           verbose=False, fused_kernel=True)
+assert state.count == 4 and tflow.trained_path == "fused-step"
+state = dt.train(tflow, data, epochs=1, batchsize=16, verbose=False,
+                 generator=g, mesh=dt.make_mesh(), fused_kernel=True)
+assert tflow.trained_path == "fused-step-mesh"
+assert step_kernels.run_fused_grads.launches == 0
+assert isinstance(native.native_available(), bool)
+# mesh= is ported for training only, and tensor parallelism not at all
+for call in (lambda: tflow.sample((2,), (0.5,), mesh=dt.make_mesh()),
+             lambda: tflow.log_prob(xs, ths, mesh=dt.make_mesh()),
+             lambda: port_mesh.shard_params_tp(dt.make_mesh(), chain),
+             lambda: port_mesh.mlp_tp_specs(2)):
+    try:
+        call()
+    except NotImplementedError as e:
+        assert "mesh" in str(e) or "tensor parallelism" in str(e), e
+    else:
+        raise AssertionError("an unported mesh surface did not raise")
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
                               "flax", "orbax")]
@@ -89,7 +116,9 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     names = {os.path.relpath(p, ROOT) for p in sources}
     for module in ("train.py", "models/fused_train.py",
                    "ops/train_kernels.py", "utils/logging.py", "convert.py",
-                   "utils/checkpoint.py"):
+                   "utils/checkpoint.py", "data_stream.py",
+                   "native/__init__.py", "ops/step_kernels.py",
+                   "parallel/mesh.py", "parallel/__init__.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -130,7 +159,37 @@ def test_train_kernel_source_is_package_data():
     # compiler themselves: the package's source names no file outside csrc/
     assert os.path.exists(os.path.join(ROOT, "tests",
                                        "cuda_host_emulation.h"))
-    assert "#include \"" not in text
+    csrc = os.path.dirname(src)
+    quoted = [line.split('"')[1] for line in text.splitlines()
+              if line.startswith("#include \"")]
+    assert quoted == ["flow_phases.cuh"]
+    assert all(os.path.exists(os.path.join(csrc, name)) for name in quoted)
+
+
+def test_step_kernel_and_loader_sources_are_package_data():
+    csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "step_kernels.cu")) as f:
+        text = f.read()
+    for symbol in ("df_step_grads", "step_grads_kernel", "step_reduce_kernel",
+                   "__global__"):
+        assert symbol in text
+    quoted = [line.split('"')[1] for line in text.splitlines()
+              if line.startswith("#include \"")]
+    assert quoted == ["flow_phases.cuh"]
+    with open(os.path.join(csrc, "flow_phases.cuh")) as f:
+        shared = f.read()
+    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
+                    "atomicadd"):
+        assert library not in text.lower() and library not in shared.lower()
+    # the host loader: the port's own copy, no file of the JAX package
+    with open(os.path.join(csrc, "loader.cpp")) as f:
+        loader = f.read()
+    for symbol in ("df_shuffle", "df_gather_f32", "df_gather_f64",
+                   "0x9E3779B97F4A7C15ULL"):
+        assert symbol in loader
+    pkg = os.path.join(ROOT, "densityflows_tpu_torch", "native")
+    assert sorted(f for f in os.listdir(pkg) if not f.startswith("__py")) \
+        == ["__init__.py"]
 
 
 def test_build_module_needs_no_compiler_to_import():
@@ -143,4 +202,8 @@ def test_build_module_needs_no_compiler_to_import():
     assert _build.source_path("train_kernels").endswith(
         os.path.join("csrc", "train_kernels.cu"))
     assert os.path.exists(_build.source_path("train_kernels"))
+    assert os.path.exists(_build.source_path("step_kernels"))
+    assert _build.source_path("loader", ".cpp").endswith(
+        os.path.join("csrc", "loader.cpp"))
+    assert "-pthread" in _build.HOST_FLAGS
     assert os.path.basename(_build.build_dir()) == "build"

@@ -375,6 +375,11 @@ def test_kernel_source_is_hand_written():
                        "train_kernels.cu")
     with open(src) as f:
         text = f.read()
+    # the forward and backward phases lie in the header that this source and
+    # the step kernel's include
+    assert '#include "flow_phases.cuh"' in text
+    with open(os.path.join(os.path.dirname(src), "flow_phases.cuh")) as f:
+        text += f.read()
     for symbol in ("df_train_run", "train_run_kernel", "__global__",
                    "b_dense", "adam_update", "mask_and_check",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
