@@ -20,8 +20,10 @@ the port's main paths through the entry points a user calls:
   ``train(flow, data, epochs=50, generator=...)`` with default routing (the
   whole-run ``train_run`` kernel), held against the plain program on the
   same batch order, then ``evaluate``, ``save_flow`` with the optimizer
-  state → ``load_flow`` → 5 more epochs, and ``sample``. A training call on
-  the wide serving chain shows the visible decline to the plain program;
+  state → ``load_flow`` → 5 more epochs, and ``sample``. ``train()`` on the
+  wide serving chain takes the stream mode (``train_stream``), beside the
+  plain program on the same batches; a chain with an "elu" conditioner shows
+  the visible decline to the plain program;
 - streaming training, at the widest recorded step-kernel config — d 16, n 4,
   three RealNVP couplings of hidden 64 and a normalization layer, Adam 1e-3,
   batch 1024, streamed from 2^20 host rows for 3 epochs (3,072 steps) with
@@ -31,7 +33,12 @@ the port's main paths through the entry points a user calls:
   50,000 host rows for 2 epochs;
 - data-parallel training on a one-rank NCCL process group:
   ``train(flow, data, mesh=make_mesh())`` at the README / BASELINE config on
-  the step-kernel program, held against the single-device plain program.
+  the step-kernel program, held against the single-device plain program;
+- the streaming whole-run trainer, at the same d 16 / n 4 / hidden 64 /
+  batch 1024 config: ``train(flow, data, epochs=3, batchsize=1024,
+  generator=...)`` on a DataArrays of the same 2^20 rows held on the card,
+  which takes ``train_fused``'s stream mode (one ``train_stream`` launch),
+  held against the plain version over its first 32 steps.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -42,6 +49,7 @@ its launches on the main path, its time, the plain version's time and the
 roofline bound for the same work.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -60,6 +68,7 @@ from densityflows_tpu_torch.models import fused_chain as fc
 from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
 from densityflows_tpu_torch.ops import step_kernels as sk
+from densityflows_tpu_torch.ops import stream_kernels as stk
 from densityflows_tpu_torch.ops import train_kernels as tk
 from densityflows_tpu_torch.train import (
     _fold_adam_state,
@@ -777,35 +786,106 @@ def drive_training(device, tmp):
                               perms)
 
 
-def wide_decline(rng, device):
-    """train() on the wide serving chain: outside the kernel's envelope, so
-    the default routing declines by name and the plain program runs."""
-    rows, batch = 4096, 256
+def wide_stream(rng, device):
+    """train() on the wide serving chain (d 32, n 8, 8 couplings of hidden
+    256): past train_run's shared memory, inside train_stream's envelope, so
+    the default routing takes the stream mode; the plain program on the same
+    weights and batch order beside it, for its ms per step."""
+    rows, batch, epochs = 4096, 256, 2
     x, th01 = data(rng, rows, D, N_COND, "cpu")
     arrays = dt.DataArrays.make(x.numpy(), th01.numpy(), rng=0)
     flow = dt.Flow(wide_chain(False, rng, device), arrays, device=device)
+    plain = dt.Flow(copy.deepcopy(flow.model), arrays, device=device)
+    n_train = len(arrays.partition.training)
+    perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED), epochs,
+                                n_train)
     tk.run_fused_train.launches = 0
+    stk.run_fused_train_stream.launches = 0
+    torch.cuda.synchronize()
     t0 = time.time()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        dt.train(flow, arrays, epochs=2, batchsize=batch, verbose=False,
-                 generator=torch.Generator().manual_seed(SEED))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)  # a decline warns
+        dt.train(flow, arrays, epochs=epochs, batchsize=batch, verbose=False,
+                 _epoch_perms=perms)
     torch.cuda.synchronize()
     seconds = time.time() - t0
+    launches = stk.run_fused_train_stream.launches
+    if flow.trained_path != "fused" or flow.fused_kernel_mode != "stream" \
+            or launches != 1 or tk.run_fused_train.launches != 0:
+        fail(f"wide chain: train took {flow.trained_path} / "
+             f"{flow.fused_kernel_mode} with {launches} train_stream "
+             f"launches ({flow.fused_decline_reason})")
+    # the kernel alone on the same run, from the same starting weights
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(plain.model)
+    sp = ft.fold_for_step(plain).step_plan
+    xt, tht = arrays.normalized_training_data(plain.metadata)
+    xt, tht = put(xt, device), put(tht, device)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    kernel_ms = time_ms(lambda: stk.run_fused_train_stream(
+        plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht, perms,
+        batchsize=batch, step_plan=sp), warmup=1, runs=3)
+    tile, threads, shared, n_blocks = stk.device_launch_shape(sp, batch)
+    t0 = time.time()
+    dt.train(plain, arrays, epochs=epochs, batchsize=batch, verbose=False,
+             fused_kernel=False, _epoch_perms=perms)
+    torch.cuda.synchronize()
+    plain_seconds = time.time() - t0
+    for f in (flow, plain):
+        if not np.isfinite(f.valid_loss).all() or len(f.valid_loss) != 2:
+            fail(f"wide chain: histories {f.train_loss} / {f.valid_loss}")
+    # two f32 trajectories over 30 Adam steps: the gate of the long runs
+    hist_err = float(np.abs(np.asarray(flow.valid_loss)
+                            - np.asarray(plain.valid_loss)).max())
+    if hist_err > 5e-2:
+        fail(f"wide chain: validation NLL {flow.valid_loss} vs the plain "
+             f"program's {plain.valid_loss}")
+    steps = epochs * -(-n_train // batch)
+    return dict(rows=rows, batchsize=batch, epochs=epochs, steps=steps,
+                train_stream_launches=launches,
+                train_stream_ms_per_step=1e3 * seconds / steps,
+                kernel_alone_ms_per_step=kernel_ms / steps,
+                plain_program_ms_per_step=1e3 * plain_seconds / steps,
+                folded_parameters=sp.n_params, tile_rows=tile,
+                threads=threads, shared_bytes=shared, blocks=n_blocks,
+                valid_nll=flow.valid_loss, valid_nll_plain=plain.valid_loss,
+                valid_history_err_vs_plain=hist_err)
+
+
+def elu_decline(rng, device):
+    """train() on a chain with an "elu" conditioner, outside both training
+    kernels' envelopes: the default routing declines by name, with a
+    RuntimeWarning, and the plain program trains it."""
+    rows, batch = 4096, 256
+    x, th01 = data(rng, rows, D, N_COND, "cpu")
+    arrays = dt.DataArrays.make(x.numpy(), th01.numpy(), rng=0)
+    x_ref = rng.normal(size=(512, D)).astype(np.float32)
+    flow = dt.Flow(dt.flow_chain(
+        dt.coupling_block(D, None, n=N_COND, hidden_dim_s=64, hidden_dim_t=64,
+                          activation_s="elu", activation_t="elu",
+                          device=device),
+        dt.normalization_layer(x_ref, -1.0, 1.0, device=device)), arrays,
+        device=device)
+    tk.run_fused_train.launches = 0
+    stk.run_fused_train_stream.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dt.train(flow, arrays, epochs=1, batchsize=batch, verbose=False,
+                 generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
     reason = flow.fused_decline_reason or ""
     if not any(issubclass(c.category, RuntimeWarning) and reason
                and reason in str(c.message) for c in caught):
-        fail("wide chain: the decline raised no warning naming its reason")
-    if flow.trained_path != "torch" or tk.run_fused_train.launches != 0:
-        fail("wide chain: train did not decline to the plain program")
-    if "bytes of shared memory" not in reason or \
-            str(tk.MAX_SHARED_BYTES) not in reason:
-        fail(f"wide chain: decline reason does not name the bytes: {reason}")
-    if not np.isfinite(flow.valid_loss).all() or len(flow.valid_loss) != 2:
-        fail("wide chain: plain program histories")
-    steps = 2 * -(-len(arrays.partition.training) // batch)
-    return dict(reason=reason, plain_program_ms_per_step=1e3 * seconds / steps,
-                steps=steps, rows=rows, batchsize=batch)
+        fail("elu chain: the decline raised no warning naming its reason")
+    if flow.trained_path != "torch" or tk.run_fused_train.launches != 0 or \
+            stk.run_fused_train_stream.launches != 0:
+        fail("elu chain: train did not decline to the plain program")
+    if "activation 'elu'" not in reason:
+        fail(f"elu chain: decline reason does not name the activation: "
+             f"{reason}")
+    if not np.isfinite(flow.valid_loss).all() or len(flow.valid_loss) != 1:
+        fail("elu chain: plain program histories")
+    return dict(reason=reason)
 
 
 def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
@@ -1019,6 +1099,145 @@ def check_step_small(rng, device):
         data0, device, rng)
     errs["n0_actnorm"] = check_step_case(case, "n = 0", rng, device)
     return errs
+
+
+# -- train_stream against its plain version ---------------------------------------
+
+def stream_run(case, fn, perms=None, state=None, **kw):
+    """``fn`` (``run_fused_train_stream`` or its plain version) on a
+    TrainCase's training split, with the per-step losses."""
+    tparams, mu, nu = state or (case.tparams, case.zeros, case.zeros)
+    out = fn(case.plan, tparams, case.masks, case.slots, case.cparams, mu, nu,
+             case.arrays[0], case.arrays[1],
+             case.perms if perms is None else perms,
+             batchsize=case.batchsize, with_losses=True, **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def require_stream_close(got, want, what, tol=TRAIN_TOL):
+    """params, mu, nu, snapshots and per-step losses (NaN where the other
+    side has NaN), skips exactly."""
+    worst = 0.0
+    for i, name in ((0, "params"), (1, "mu"), (2, "nu"), (3, "snapshots")):
+        for k, (a, b) in enumerate(zip(got[i], want[i])):
+            worst = max(worst, require_close(a, b, f"{what}: {name}[{k}]",
+                                             **tol))
+    if (got[4] is None) != (want[4] is None) or (
+            got[4] is not None and got[4].tolist() != want[4].tolist()):
+        fail(f"{what}: skips {got[4]} != {want[4]}")
+    nan = torch.isnan(want[5])
+    if not torch.equal(torch.isnan(got[5]), nan):
+        fail(f"{what}: NaN losses at other steps than the plain version's")
+    return max(worst, require_close(got[5][~nan], want[5][~nan],
+                                    f"{what}: losses", **tol))
+
+
+def same_bits(a, b):
+    """Two stream runs: every tensor equal bit for bit (NaN where NaN)."""
+    def flat(out):
+        return [t for group in out[:4] for t in group] + [
+            t for t in out[4:] if t is not None]
+    return all(torch.equal(torch.nan_to_num(u), torch.nan_to_num(v))
+               and torch.equal(torch.isnan(u), torch.isnan(v))
+               for u, v in zip(flat(a), flat(b)))
+
+
+def check_stream_small(rng, device):
+    """train_stream against fused_train_stream_plain on the card: the small
+    chains of the train smoke, 4 epochs of batch 32 over 123 rows (a ragged
+    last batch; every other case weighted), n = 0; two launches bit for bit;
+    fewer blocks than tiles; one call against two chunked calls bit for bit;
+    the guard on NaN rows; and on the BASELINE config train_stream against
+    train_run over 4 epochs (parameters, moments, histories)."""
+    data, x = small_train_data(rng, 1)
+    errs = {}
+    for i, (name, layers) in enumerate(
+            small_train_chains(data, x, device).items()):
+        case = TrainCase(layers, data, device, rng)
+        kw = dict(w=case.w) if i % 2 else {}
+        errs[name] = require_stream_close(
+            stream_run(case, stk.run_fused_train_stream, **kw),
+            stream_run(case, stk.fused_train_stream_plain, **kw),
+            f"train_stream {name}")
+    data0, x0 = small_train_data(rng, 0)
+    case = TrainCase(
+        [dt.coupling_layer(data0, [0, 1, 2], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device),
+         dt.actnorm_layer(x0, device=device),
+         dt.coupling_layer(data0, [2, 3, 4], hidden_dim_s=16,
+                           hidden_dim_t=16, device=device,
+                           kind=dt.NICECouplingLayer),
+         dt.normalization_layer(x0, -1.0, 1.0, device=device)],
+        data0, device, rng)
+    errs["n0_actnorm"] = require_stream_close(
+        stream_run(case, stk.run_fused_train_stream),
+        stream_run(case, stk.fused_train_stream_plain), "train_stream n = 0")
+
+    ref = small_train_chains(data, x, device)["reference"]
+    case = TrainCase(ref, data, device, rng)
+    kw = dict(w=case.w, guard_nonfinite=True, lr=3e-3, b1=0.85)
+    one = stream_run(case, stk.run_fused_train_stream, **kw)
+    if not same_bits(one, stream_run(case, stk.run_fused_train_stream, **kw)):
+        fail("train_stream: two launches differ")
+    want = stream_run(case, stk.fused_train_stream_plain, **kw)
+    for n_blocks in (1, 3):
+        errs[f"blocks_{n_blocks}"] = require_stream_close(
+            stream_run(case, stk.run_fused_train_stream, n_blocks=n_blocks,
+                       **kw), want, f"train_stream on {n_blocks} block(s)")
+    n_batches = -(-case.n_rows // case.batchsize)
+    a = stream_run(case, stk.run_fused_train_stream, perms=case.perms[:2],
+                   **kw)
+    b = stream_run(case, stk.run_fused_train_stream, perms=case.perms[2:],
+                   state=a[:3], count0=2 * n_batches - int(a[4].sum()), **kw)
+    chained = (b[0], b[1], b[2], [torch.cat([u, v]) for u, v in
+                                  zip(a[3], b[3])],
+               torch.cat([a[4], b[4]]), torch.cat([a[5], b[5]]))
+    if not same_bits(one, chained):
+        fail("train_stream: two chunked calls differ from one call")
+
+    # the guard: NaN rows poison the batches that gather them
+    arrays = list(case.arrays)
+    arrays[0] = arrays[0].clone()
+    arrays[0][[5, 40, 77], 1] = float("nan")
+    case.arrays = tuple(arrays)
+    got = stream_run(case, stk.run_fused_train_stream, guard_nonfinite=True)
+    want = stream_run(case, stk.fused_train_stream_plain,
+                      guard_nonfinite=True)
+    skipped = int(got[4].sum())
+    if skipped == 0:
+        fail("train_stream guard: no step was skipped")
+    errs["guard"] = require_stream_close(got, want, "train_stream guard")
+
+    # BASELINE: train_stream against train_run, 4 epochs of batch 64
+    data_b, dat = baseline_data()
+    flow = baseline_flow(data_b, dat, device, SEED)
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(flow.model)
+    xt, tht = data_b.normalized_training_data(flow.metadata)
+    xv, thv = data_b.normalized_validation_data(flow.metadata)
+    xt, tht, xv, thv = (put(a, device) for a in (xt, tht, xv, thv))
+    perms = np.stack([rng.permutation(xt.shape[0]) for _ in range(4)])
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros)
+    run = tk.run_fused_train(*head, xt, tht, xv, thv, perms,
+                             batchsize=TRAIN_BATCH)
+    strm = stk.run_fused_train_stream(*head, xt, tht, perms,
+                                      batchsize=TRAIN_BATCH)
+    hist = [stk.eval_snapshots(strm[3], cparams, xs, ths, None, plan=plan)
+            for xs, ths in ((xt, tht), (xv, thv))]
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, name in ((0, "params"), (1, "mu"), (2, "nu")):
+        for k, (u, v) in enumerate(zip(strm[i], run[i])):
+            worst = max(worst, require_close(
+                u, v, f"train_stream vs train_run: {name}[{k}]", **TRAIN_TOL))
+    for i, name in ((0, "train history"), (1, "valid history")):
+        worst = max(worst, require_close(
+            hist[i], run[3 + i], f"train_stream vs train_run: {name}",
+            **TRAIN_TOL))
+    errs["baseline_vs_train_run"] = worst
+    return errs, {"nan_rows": skipped}
 
 
 # -- streaming: the main path of the step kernel ---------------------------------
@@ -1484,6 +1703,220 @@ def step_kernel_row(flows, launches, err_small, device, card):
     }
 
 
+# -- the streaming whole-run trainer: the main path of train_stream -----------------
+
+def reset_counts():
+    ck.reset_launch_counts()
+    tk.run_fused_train.launches = 0
+    sk.run_fused_grads.launches = 0
+    stk.run_fused_train_stream.launches = 0
+
+
+def read_counts():
+    return dict(ck.launch_counts(), train_run=tk.run_fused_train.launches,
+                step_grads=sk.run_fused_grads.launches,
+                train_stream=stk.run_fused_train_stream.launches)
+
+
+def drive_train_stream(x, th, device):
+    """``train(flow, data, epochs=3, batchsize=1024, generator=...)`` with
+    default routing at the "med" config, on a DataArrays of the 2^20 rows of
+    ``med_data`` split 0.9 / 0.1: past train_run's shared memory, so
+    train_fused takes the stream mode. Checks the mode, the launch counts,
+    the Adam count, a falling train NLL, the final validation NLL against
+    ``flow.log_prob``, and the first 32 steps against the plain version on
+    the same permutations."""
+    batch, epochs = MED["batch"], MED["epochs"]
+    dataset = dt.DataArrays.make(x, th, rng=0)
+    n_train = len(dataset.partition.training)
+    n_batches = -(-n_train // batch)
+
+    def make():
+        return med_flow(x[:256], th, device, SEED)
+
+    flow = make()
+    n_params = ft.fold_for_step(flow).step_plan.n_params
+    chunks = -(-epochs // ft.stream_chunk_epochs(n_params, n_train, batch,
+                                                 epochs))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)  # a decline warns
+        state = dt.train(flow, dataset, epochs=epochs, batchsize=batch,
+                         verbose=False,
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_counts()
+    if flow.trained_path != "fused" or flow.fused_kernel_mode != "stream":
+        fail(f"train took {flow.trained_path} / {flow.fused_kernel_mode} "
+             f"({flow.fused_decline_reason}), expected the stream mode")
+    if launches != dict(chain_apply=0, chain_sample=0, train_run=0,
+                        step_grads=0, train_stream=chunks):
+        fail(f"train_stream main path launches {launches}, expected "
+             f"{chunks} train_stream launch(es) and no other kernel")
+    if state.count != epochs * n_batches:
+        fail(f"train_stream main path: Adam count {state.count}, expected "
+             f"{epochs} x {n_batches}")
+    tl, vl = np.asarray(flow.train_loss), np.asarray(flow.valid_loss)
+    if tl.shape != (epochs,) or vl.shape != (epochs,) or \
+            not (np.isfinite(tl).all() and np.isfinite(vl).all()):
+        fail(f"train_stream main path: histories {tl} / {vl}")
+    if not bool((np.diff(tl) < 0).all()):
+        fail(f"train_stream main path: train NLL does not fall: {tl}")
+    xv, thv = dataset.validation_data()
+    with torch.no_grad():
+        lp = flow.log_prob(put(xv, device), put(thv, device))
+    nll = float(-lp.mean())
+    if abs(nll - vl[-1]) > 1e-4:
+        fail(f"train_stream main path: final validation NLL {vl[-1]} != "
+             f"-mean log_prob {nll}")
+
+    # the first 32 steps: the kernel and its plain version on the batches
+    # the run began with (the permutations train drew from that generator)
+    perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED + 7),
+                                epochs, n_train)
+    start = make()
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(start.model)
+    xt, tht = dataset.normalized_training_data(start.metadata)
+    first = perms[0, :min(32, n_train // batch) * batch]
+    x32, th32 = put(xt[first], device), put(tht[first], device)
+    order = np.arange(len(first))[None]
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros)
+    runs = {}
+    for steps in (1, len(first) // batch):
+        rows = slice(0, steps * batch)
+        args = head + (x32[rows], th32[rows], order[:, rows])
+        runs[steps] = (
+            stk.run_fused_train_stream(*args, batchsize=batch,
+                                       with_losses=True),
+            stk.fused_train_stream_plain(*args, batchsize=batch,
+                                         with_losses=True))
+    torch.cuda.synchronize()
+    got, want = runs[len(first) // batch]
+    loss_err = require_close(got[5], want[5],
+                             "first 32 steps: losses vs the plain version",
+                             **TRAIN_TOL)
+    # One step differs by rounding only. Over 32 steps Adam amplifies that
+    # rounding where an entry's gradient is small against its history: on
+    # this batch order the kernel — whose per-step gradient equals
+    # step_grads' bit for bit and whose Adam is within an ulp of the plain
+    # one — and step_grads + Adam alike end 4.5e-4 from the plain version
+    # on one entry. The gate is the streaming trainer's for its first 32
+    # steps (parameters 1e-3), and the first step's parameters are held to
+    # 1e-5.
+    first_err = max(require_close(a, b, f"first step: param {k}", 0.0, 1e-5)
+                    for k, (a, b) in enumerate(zip(*(r[0] for r in
+                                                     runs[1]))))
+    param_err = max(require_close(a, b, f"first 32 steps: param {k}", 0.0,
+                                  1e-3)
+                    for k, (a, b) in enumerate(zip(got[0], want[0])))
+    steps = epochs * n_batches
+    report = dict(
+        rows=int(x.shape[0]), n_train=n_train, batchsize=batch, epochs=epochs,
+        steps=steps, chunks=chunks, seconds=seconds,
+        ms_per_step=1e3 * seconds / steps,
+        rows_per_s=epochs * n_train / seconds, train_nll=tl.tolist(),
+        valid_nll=vl.tolist(), valid_nll_vs_log_prob=abs(nll - float(vl[-1])),
+        first_step_param_err=first_err, first_32_steps_loss_err=loss_err,
+        first_32_steps_param_err=param_err)
+    return launches["train_stream"], report, (make, dataset, perms)
+
+
+def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
+                      err_params_32, card):
+    """The {"kernels": ...} entry of train_stream at the main path's shapes:
+    one epoch (the main path's first permutation) of the kernel and of its
+    plain version from the main path's starting weights; the per-epoch
+    evaluation of the snapshots alone."""
+    batch = MED["batch"]
+    flow = make()
+    device = flow.device
+    folded = ft.fold_for_step(flow)
+    sp = folded.step_plan
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(flow.model)
+    xt, tht = dataset.normalized_training_data(flow.metadata)
+    xv, thv = dataset.normalized_validation_data(flow.metadata)
+    xt, tht, xv, thv = (put(a, device) for a in (xt, tht, xv, thv))
+    n_train, d = xt.shape
+    n_cond = tht.shape[1]
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht,
+            perms[:1])
+
+    def kernel():
+        return stk.run_fused_train_stream(*head, batchsize=batch,
+                                          step_plan=sp, with_losses=True)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ms = time_ms(kernel, warmup=1, runs=3)
+    t0 = time.time()
+    want = stk.fused_train_stream_plain(*head, batchsize=batch,
+                                        with_losses=True)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.time() - t0)
+    # over a whole epoch (922 Adam steps) the two trajectories drift by
+    # rounding: reported here, gated over the first 32 steps above
+    drift = {name: max(float((a - b).abs().max())
+                       for a, b in zip(got[i], want[i]))
+             for i, name in ((0, "params"), (1, "mu"), (2, "nu"))}
+    drift["losses"] = float((got[5] - want[5]).abs().max())
+
+    snaps = stk.run_fused_train_stream(*head[:9], perms, batchsize=batch,
+                                       step_plan=sp)[3]
+    eval_ms = time_ms(lambda: [stk.eval_snapshots(
+        snaps, cparams, xs, ths, None, plan=plan,
+        row_chunk=ft._EVAL_ROW_CHUNK) for xs, ths in ((xt, tht), (xv, thv))],
+        warmup=1, runs=3)
+
+    tile, threads, shared, n_blocks = stk.device_launch_shape(sp, batch)
+    co_resident = stk.co_resident_blocks(threads, shared)
+    n_batches = -(-n_train // batch)
+    n_pad = n_batches * batch
+    # the bound: the products the epoch needs (forward + two backward per
+    # layer and training row) over the f32 rate, against every input read
+    # once and every output written once — rows, order, parameters and both
+    # moments in and out, the masks, constants and program, one snapshot
+    flops = 3 * n_train * needed_flops_per_row(flow.model)
+    pk = sp.packed(tile)
+    nbytes = 4 * (n_train * (d + n_cond) + n_pad + 7 * sp.n_params
+                  + pk.flat_consts.numel() + pk.prog.numel() + 1)
+    b_ms, by = bound_ms(flops, nbytes)
+    say(phase="stream_kernel_times", card=card, epoch_steps=n_batches,
+        train_stream_ms_per_epoch=ms, train_stream_ms_per_step=ms / n_batches,
+        plain_version_ms_per_epoch=plain,
+        plain_version_ms_per_step=plain / n_batches,
+        eval_snapshots_ms_3_epochs_both_splits=eval_ms,
+        tile_rows=tile, threads=threads, shared_bytes=shared, blocks=n_blocks,
+        co_resident_blocks=co_resident, folded_parameters=sp.n_params,
+        drift_one_epoch_vs_plain=drift)
+    return {
+        "name": "train_stream", "route": "cuda",
+        "source": "densityflows_tpu_torch/csrc/stream_kernels.cu",
+        "replaces": "densityflows_tpu/ops/pallas_train_stream.py:58",
+        "launches": launches, "max_abs_err": max(err_small, err_main),
+        "max_abs_err_small_cases": err_small,
+        "max_abs_err_main_path_first_step_and_32_losses": err_main,
+        "tolerance": TRAIN_TOL,
+        "max_abs_err_main_path_32_steps_parameters": err_params_32,
+        "tolerance_32_steps_parameters": dict(rtol=0.0, atol=1e-3),
+        "shape": f"one epoch of {n_batches} batches of {batch} over "
+                 f"{n_train} rows, d {d}, theta {n_cond}, 3 split couplings "
+                 f"hidden {MED['hidden']} + affine ({sp.n_params} folded "
+                 f"parameters), {n_blocks} blocks of {tile} rows x {threads} "
+                 f"threads",
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None, "ms_per_step": ms / n_batches,
+        "plain_ms_per_step": plain / n_batches, "eval_snapshots_ms": eval_ms,
+        "needed_flops": flops, "needed_bytes": nbytes,
+    }
+
+
 # -- phase 5: times and bounds ---------------------------------------------------
 
 def needed_flops_per_row(chain):
@@ -1610,7 +2043,7 @@ def main():
 
     t0 = time.time()
     by_source = _build.load_libraries(["chain_kernels", "train_kernels",
-                                       "step_kernels"])
+                                       "step_kernels", "stream_kernels"])
     summary = {"build_seconds": time.time() - t0,
                "build_seconds_by_source": by_source}
     say(phase="build", seconds=summary["build_seconds"],
@@ -1661,6 +2094,14 @@ def main():
     say(phase="step_kernel_small", max_abs_err_by_case=step_errs,
         tolerance=STEP_TOL, two_launches_equal="bit for bit")
 
+    # phase 3f: train_stream against its plain version, small runs
+    stream_errs, stream_skips = check_stream_small(rng, device)
+    errs["train_stream"] = max(stream_errs.values())
+    say(phase="stream_kernel_small", max_abs_err_by_case=stream_errs,
+        skipped_updates=stream_skips, tolerance=TRAIN_TOL,
+        two_launches_equal="bit for bit",
+        two_chunked_calls_equal_one_call="bit for bit")
+
     # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1694,7 +2135,10 @@ def main():
         batchsize=TRAIN_BATCH, train_run_launches=train_launches,
         **train_report)
     summary["train_main_path"] = train_report
-    declined = wide_decline(rng, device)
+    wide = wide_stream(rng, device)
+    say(phase="train_wide_stream", card=card, **wide)
+    summary["train_wide_stream"] = wide
+    declined = elu_decline(rng, device)
     say(phase="train_decline", card=card, **declined)
     summary["train_decline"] = declined
 
@@ -1712,6 +2156,14 @@ def main():
     say(phase="stream_step_split", card=card, config="d16 n4 h64 b1024",
         **split)
     summary["stream_med"] = dict(report, split=split)
+
+    # phase 4e: the streaming whole-run trainer, train() on the same rows
+    stream_launches, report, streamed = drive_train_stream(x_m, th_m, device)
+    errs["train_stream_main_path"] = max(report["first_step_param_err"],
+                                         report["first_32_steps_loss_err"])
+    say(phase="train_stream_main_path", card=card, config="d16 n4 h64 b1024",
+        train_stream_launches=stream_launches, **report)
+    summary["train_stream_main_path"] = report
     del x_m, th_m
 
     x_b, th_b, xv_b, thv_b = stream50k_rows(np.random.default_rng(SEED))
@@ -1746,6 +2198,10 @@ def main():
                                     errs["train_run"], device, card))
     kernels.append(step_kernel_row(step_flows, step_launches,
                                    errs["step_grads"], device, card))
+    kernels.append(stream_kernel_row(
+        *streamed, stream_launches, errs["train_stream"],
+        errs["train_stream_main_path"],
+        summary["train_stream_main_path"]["first_32_steps_param_err"], card))
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

@@ -14,8 +14,9 @@ Ported so far: the serving path — ``load_flow`` → ``log_prob`` / ``sample``
 whole-chain kernels ``chain_apply`` and ``chain_sample``
 (``csrc/chain_kernels.cu``), and single-device training — ``train`` →
 ``train_fused`` on the whole-run kernel ``train_run``
-(``csrc/train_kernels.cu``), with the plain multi-epoch program beside it,
-and the streaming trainer and the data-parallel step — ``train_streaming``,
+(``csrc/train_kernels.cu``) or, for a model too large for its shared memory,
+the streaming whole-run kernel ``train_stream`` (``csrc/stream_kernels.cu``),
+with the plain multi-epoch program beside them, and the streaming trainer and the data-parallel step — ``train_streaming``,
 ``train(mesh=...)`` — on the grads-only step kernel ``step_grads``
 (``csrc/step_kernels.cu``), fed by the native host loader
 (``csrc/loader.cpp``).

@@ -30,14 +30,20 @@ permutes), a StandardNormal base, the Adam update. A split RNVP coupling is
 folded as two nets (kind ``"nvp"``); the s and t nets are not merged into one
 block-diagonal net, because the zero blocks would be real work on this card.
 
-The kernel gathers batch rows through an index array, so there is no
-pre-gathered batch slab and no limit on the rows or the epochs of one call:
-every run inside the envelope is one launch and ``fused_kernel_mode`` is
-``"resident"``. The envelope is the block's shared memory: the four flat
-buffers (parameters, both moments, gradients), the constants and one batch's
-activation caches must fit ``MAX_SHARED_BYTES``; the check is exact, from the
-lowered plan. A model past it would need a kernel that streams its
-parameters, which the port does not have (ROADMAP B5).
+The kernels gather batch rows through an index array, so there is no
+pre-gathered batch slab. Two modes, recorded in ``flow.fused_kernel_mode``:
+
+- ``"resident"``: ONE ``train_run`` launch runs the whole run, evaluations
+  included, while the block's shared memory holds the four flat buffers
+  (parameters, both moments, gradients), the constants and one batch's
+  activation caches (``MAX_SHARED_BYTES``; the check is exact, from the
+  lowered plan).
+- ``"stream"``: past that, ``train_stream`` (``ops/stream_kernels.py``) keeps
+  the state in device memory and splits each batch over many blocks; its
+  envelope is the caches of one row. One launch per chunk of epochs (the
+  chunks bounded by ``_STREAM_DEVICE_BUDGET``); the per-epoch histories are
+  evaluated from its snapshots. A model outside both envelopes raises
+  :class:`UnsupportedFusedTrain` with both reasons.
 """
 
 from __future__ import annotations
@@ -65,6 +71,15 @@ from .layers import (
     RNVPCouplingLayer,
 )
 from .normalization import NormalizationLayer, PermutationLayer
+
+# Device memory one streaming call may spend on what grows with its epochs:
+# the int32 batch order (4 bytes per padded training row) and one snapshot of
+# the folded parameters (4 bytes each) per epoch. An eighth of the H100's
+# 80 GB, so the rows, the state and the partial buffers keep the rest; a
+# longer run is cut into balanced chunks of epochs.
+_STREAM_DEVICE_BUDGET = 80_000_000_000 // 8
+# rows per chunk of the per-epoch evaluations of the snapshots
+_EVAL_ROW_CHUNK = 1 << 16
 
 __all__ = ["UnsupportedFusedTrain", "chain_train_fold", "train_fused",
            "trainable_leaves", "load_leaves_", "draw_epoch_perms",
@@ -475,8 +490,7 @@ def _check_budget(packed):
             f"({flat} for parameters, both Adam moments and gradients, "
             f"{4 * packed.cache_floats} for one batch's activations and "
             f"scratch) and a block has {MAX_SHARED_BYTES}: model or batch "
-            "too large for the whole-run kernel, which has no mode that "
-            "streams its parameters (ROADMAP B5)")
+            "too large for the resident whole-run kernel")
 
 
 # -- the grads-only step kernel's envelope ------------------------------------
@@ -580,15 +594,17 @@ def train_fused(
     so the run can be continued by either path. The model's parameters are
     updated in place. ``track_best=True`` returns ``(opt_state,
     best_model)`` — a copy of the model at the lowest-validation-NLL epoch,
-    selected inside the kernel. ``weights`` takes per-RAW-row importance
-    weights: batch losses and both full-split epoch evaluations become the
-    weighted NLL −Σw·lp/Σw. ``skip_nonfinite=True`` applies each batch
+    selected inside the kernel (in stream mode: from each chunk's
+    snapshots, as the JAX package's stream mode selects it). ``weights``
+    takes per-RAW-row importance weights: batch losses and both full-split
+    epoch evaluations become the weighted NLL −Σw·lp/Σw. ``skip_nonfinite=True`` applies each batch
     update only when the loss and all (masked) gradients are finite; skipped
     steps leave parameters and Adam state as they are, do not advance the
     Adam step, and are counted per epoch into ``flow.skipped_updates``.
 
-    On a CUDA flow this launches the kernel once; on a CPU flow the wrapper
-    runs the kernel's plain version.
+    On a CUDA flow this launches ``train_run`` once or, past its envelope,
+    ``train_stream`` once per chunk of epochs (``flow.fused_kernel_mode``
+    says which); on a CPU flow the wrappers run the kernels' plain versions.
     """
     from ..train import AdamState
 
@@ -618,7 +634,19 @@ def train_fused(
 
     packed = pack_train_plan(plan, tparams, masks, mask_slots, cparams, d,
                              n_cond, batchsize)
-    _check_budget(packed)
+    step_plan = None
+    try:
+        _check_budget(packed)
+    except UnsupportedFusedTrain as resident:
+        # past the resident envelope: the streaming kernel, or both reasons
+        from ..ops.step_kernels import StepPlan
+        from ..ops.stream_kernels import stream_reason
+
+        step_plan = StepPlan(plan, tparams, masks, mask_slots, cparams, d,
+                             n_cond, tcounts)
+        reason = stream_reason(step_plan)
+        if reason is not None:
+            raise UnsupportedFusedTrain(f"{resident}; {reason}") from None
 
     count0 = 0
     if opt_state is not None:
@@ -640,27 +668,35 @@ def train_fused(
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
+    arrays = (put(x_train), put(th_train) if n_cond else None,
+              put(x_valid), put(th_valid) if n_cond else None)
+    w_dev = (put(w_train), put(w_valid)) if weights is not None else (None,
+                                                                      None)
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps)
     t0 = time.perf_counter()
-    p_new, mu_new, nu_new, tls, vls, best, skips = run_fused_train(
-        plan, tparams, masks, mask_slots, cparams, mu, nu,
-        put(x_train), put(th_train) if n_cond else None,
-        put(x_valid), put(th_valid) if n_cond else None, perms,
-        batchsize=batchsize, count0=count0, lr=lr, b1=b1, b2=b2, eps=eps,
-        track_best=track_best,
-        w=put(w_train) if weights is not None else None,
-        w_valid=put(w_valid) if weights is not None else None,
-        guard_nonfinite=skip_nonfinite, packed=packed)
-    tls = tls.cpu().numpy()  # the host fetch waits for the kernel
-    vls = vls.cpu().numpy()
+    if step_plan is None:
+        p_new, mu_new, nu_new, tls, vls, best, skips = run_fused_train(
+            plan, tparams, masks, mask_slots, cparams, mu, nu, *arrays, perms,
+            batchsize=batchsize, count0=count0, track_best=track_best,
+            w=w_dev[0], w_valid=w_dev[1], guard_nonfinite=skip_nonfinite,
+            packed=packed, **hp)
+        tls = tls.cpu().numpy()  # the host fetch waits for the kernel
+        vls = vls.cpu().numpy()
+        skips = skips.cpu().numpy() if skip_nonfinite else None
+        flow.fused_kernel_mode = "resident"
+    else:
+        p_new, mu_new, nu_new, tls, vls, best, skips = _train_stream_chunks(
+            step_plan, tparams, mu, nu, arrays, w_dev, perms,
+            batchsize=batchsize, count0=count0, track_best=track_best,
+            guard=skip_nonfinite, verbose=verbose, hp=hp)
+        flow.fused_kernel_mode = "stream"
     elapsed = time.perf_counter() - t0
-    flow.fused_kernel_mode = "resident"
 
     load_leaves_(flow.model, unfold(p_new))
     flow.train_loss.extend(float(v) for v in tls)
     flow.valid_loss.extend(float(v) for v in vls)
     n_skipped = 0
     if skip_nonfinite:
-        skips = skips.cpu().numpy()
         n_skipped = int(skips.sum())
         flow.skipped_updates.extend(int(v) for v in skips)
 
@@ -683,3 +719,66 @@ def train_fused(
         load_leaves_(best_model, unfold(best))
         return out_state, best_model
     return out_state
+
+
+def stream_chunk_epochs(n_params, n_rows, batchsize, epochs) -> int:
+    """Epochs per ``train_stream`` launch: as many as
+    ``_STREAM_DEVICE_BUDGET`` holds (each needs its batch order and one
+    snapshot), the chunks then balanced."""
+    per_epoch = 4 * (-(-n_rows // batchsize) * batchsize + n_params)
+    e_max = max(1, int(_STREAM_DEVICE_BUDGET // per_epoch))
+    return -(-epochs // -(-epochs // e_max))
+
+
+def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
+                         batchsize, count0, track_best, guard, verbose, hp):
+    """The run on ``train_stream`` in balanced chunks of epochs that fit
+    ``_STREAM_DEVICE_BUDGET``, the state, the Adam count and the sliced
+    permutations carried from chunk to chunk; each chunk's histories
+    evaluated from its snapshots. Returns what ``run_fused_train`` returns,
+    the histories and skips as numpy arrays.
+
+    ``track_best`` follows the JAX package's stream mode: per chunk the
+    snapshot at ``np.argmin`` of its validation NLLs (a NaN, where the chunk
+    holds one), kept when the first chunk or when below the best so far;
+    the resident kernel's rule (a NaN in the history stops every later
+    update) differs there."""
+    from ..ops.stream_kernels import eval_snapshots, run_fused_train_stream
+
+    x, th, xv, thv = arrays
+    epochs, n = perms.shape
+    if epochs < 1:
+        raise ValueError("epochs must be at least 1")
+    n_batches = -(-n // batchsize)
+    chunk = stream_chunk_epochs(sp.n_params, n, batchsize, epochs)
+    if verbose:
+        print(f"[fused-train STREAMING kernel: {epochs} epochs in "
+              f"{-(-epochs // chunk)} chunk(s) of <= {chunk} ({n} rows, "
+              f"batch {batchsize})]")
+    params, count = list(tparams), count0
+    tls, vls, skips = [], [], []
+    best, best_vl = None, np.inf
+    for done in range(0, epochs, chunk):
+        params, mu, nu, snaps, sk = run_fused_train_stream(
+            sp.plan, params, sp.masks, sp.mask_slots, sp.cparams, mu, nu, x,
+            th, perms[done:done + chunk], batchsize=batchsize, count0=count,
+            w=w_dev[0], guard_nonfinite=guard, step_plan=sp, **hp)
+        tl = eval_snapshots(snaps, sp.cparams, x, th, w_dev[0], plan=sp.plan,
+                            row_chunk=_EVAL_ROW_CHUNK).cpu().numpy()
+        vl = eval_snapshots(snaps, sp.cparams, xv, thv, w_dev[1],
+                            plan=sp.plan,
+                            row_chunk=_EVAL_ROW_CHUNK).cpu().numpy()
+        tls.append(tl)
+        vls.append(vl)
+        c_skips = 0
+        if guard:
+            skips.append(sk.cpu().numpy())
+            c_skips = int(skips[-1].sum())
+        count += len(tl) * n_batches - c_skips
+        if track_best:
+            arg = int(np.argmin(vl))
+            if best is None or vl[arg] < best_vl:
+                best = [s[arg].clone() for s in snaps]
+                best_vl = float(vl[arg])
+    return (params, mu, nu, np.concatenate(tls), np.concatenate(vls), best,
+            np.concatenate(skips) if guard else None)

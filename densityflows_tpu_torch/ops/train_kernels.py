@@ -402,6 +402,20 @@ def _adam_scalars(lr, b1, b2, eps):
                 omb2=f(1.0 - b2), logb1=f(np.log(b1)), logb2=f(np.log(b2)))
 
 
+def _adam_step(params, mu, nu, grads, t, hp):
+    """One ``optax.adam`` update at step ``t`` of the lists, in place: the
+    bias corrections as the kernels write them, ``1 − exp(t·log b)`` in
+    f32. ``hp``: :func:`_adam_scalars` as floats."""
+    t = np.float32(t)
+    bc1 = float(np.float32(1.0) - np.exp(t * np.float32(hp["logb1"])))
+    bc2 = float(np.float32(1.0) - np.exp(t * np.float32(hp["logb2"])))
+    for k, g in enumerate(grads):
+        mu[k] = hp["b1"] * mu[k] + hp["omb1"] * g
+        nu[k] = hp["b2"] * nu[k] + hp["omb2"] * g * g
+        params[k] = params[k] - hp["lr"] * (mu[k] / bc1) / (
+            torch.sqrt(nu[k] / bc2) + hp["eps"])
+
+
 def _eval_nll(lp, w, n_rows):
     """Unweighted: −Σlp / rows; weighted: −Σw·lp / max(Σw, 1e-12)."""
     if w is None:
@@ -446,16 +460,8 @@ def _train_loop(grads_fn, lp_fn, params, mu, nu, masks, x, theta, x_valid,
                 if not ok:
                     e_skips += 1
                     continue
-            # the Adam step is count0 + APPLIED updates + 1; bias
-            # correction as the kernel writes it, 1 − exp(t·log b) in f32
-            t = np.float32(count0 + applied + 1)
-            bc1 = float(np.float32(1.0) - np.exp(t * np.float32(hp["logb1"])))
-            bc2 = float(np.float32(1.0) - np.exp(t * np.float32(hp["logb2"])))
-            for k, g in enumerate(grads):
-                mu[k] = hp["b1"] * mu[k] + hp["omb1"] * g
-                nu[k] = hp["b2"] * nu[k] + hp["omb2"] * g * g
-                params[k] = params[k] - hp["lr"] * (mu[k] / bc1) / (
-                    torch.sqrt(nu[k] / bc2) + hp["eps"])
+            # the Adam step is count0 + APPLIED updates + 1
+            _adam_step(params, mu, nu, grads, count0 + applied + 1, hp)
             applied += 1
         tl = _eval_nll(lp_fn(params, x, theta), w, n)
         vl = _eval_nll(lp_fn(params, x_valid, theta_valid), w_valid,

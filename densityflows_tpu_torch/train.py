@@ -9,8 +9,10 @@ single-device ``train`` call:
   batch gather → inverse pass → masked NLL → autograd → optimizer update,
   then the full-split train and validation NLL. It handles every optimizer
   and every layer, and it is the reference the kernel is held against;
-- the **whole-run kernel** (``models/fused_train.py``): the same run as one
-  ``train_run`` launch, for chains and configs inside its envelope.
+- the **whole-run kernels** (``models/fused_train.py``): the same run as one
+  ``train_run`` launch for chains and configs inside its shared-memory
+  envelope, else as one ``train_stream`` launch per chunk of epochs (the
+  stream mode: parameters and moments in device memory).
 
 DataLoader semantics: fresh shuffle each epoch, final partial batch kept —
 as padded gather indices (row 0) plus a loss mask. Loss histories are
@@ -841,25 +843,30 @@ def train(
 
     Returns ``opt_state`` so training can be continued exactly.
 
-    ``fused_kernel`` selects the whole-run kernel (``models/fused_train.py``):
-    every epoch in ONE launch with the parameters and Adam moments kept on
-    chip. Supported surface: RNVP / joint / NICE couplings (incl.
-    ``max_log_scale`` clamps) + ActNorm / Normalization / Permutation layers,
-    StandardNormal base, Adam (the default or ``adam(lr, b1, b2, eps)``),
-    ``weights=``, ``skip_nonfinite``, ``metrics_log`` and best-epoch
-    tracking. Same batch order as the plain program (losses agree to float
-    accumulation order); the returned state continues on either path.
+    ``fused_kernel`` selects the whole-run kernels (``models/fused_train.py``):
+    every epoch in ONE launch of ``train_run``, with the parameters and Adam
+    moments in one block's shared memory, or — for a model too large for
+    that — one launch of ``train_stream`` per chunk of epochs, with them in
+    device memory (``flow.fused_kernel_mode`` is ``"resident"`` or
+    ``"stream"``; ``flow.trained_path`` is ``"fused"`` for both). Supported
+    surface: RNVP / joint / NICE couplings (incl. ``max_log_scale`` clamps)
+    + ActNorm / Normalization / Permutation layers, StandardNormal base,
+    Adam (the default or ``adam(lr, b1, b2, eps)``), ``weights=``,
+    ``skip_nonfinite``, ``metrics_log`` and best-epoch tracking. Same batch
+    order as the plain program (losses agree to float accumulation order);
+    the returned state continues on either path.
 
-    - ``"auto"`` (default): route through the kernel when the flow is on a
+    - ``"auto"`` (default): route through the kernels when the flow is on a
       CUDA device, the call is on the plain training surface and the
-      chain/config is inside the kernel's envelope; otherwise run the plain
-      program. Every decline is recorded in ``flow.fused_decline_reason``
-      (and printed with ``verbose``); a chain or config outside the envelope
-      on a CUDA flow also raises a ``RuntimeWarning``. A CPU flow never
-      auto-routes.
-    - ``True``: force the kernel path (on a CPU flow: the kernel's plain
-      version); raises ``ValueError`` / ``UnsupportedFusedTrain`` outside
-      the supported surface.
+      chain/config is inside an envelope (the resident one first, then the
+      streaming one); otherwise run the plain program. Every decline is
+      recorded in ``flow.fused_decline_reason`` (and printed with
+      ``verbose``); a chain or config outside both envelopes on a CUDA flow
+      also raises a ``RuntimeWarning``. A CPU flow never auto-routes.
+    - ``True``: force the kernel path (on a CPU flow: the kernels' plain
+      versions, the streaming one where the resident budget fails); raises
+      ``ValueError`` / ``UnsupportedFusedTrain`` outside the supported
+      surface.
     - ``False``: always the plain program.
 
     ``mesh`` (``parallel.mesh.make_mesh()``): data-parallel training over

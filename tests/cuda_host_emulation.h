@@ -1,9 +1,14 @@
-// Plain C++ stand-ins for the CUDA builtins that csrc/train_kernels.cu uses,
-// so that the CPU tests can compile that source with a host compiler
-// (-DDF_HOST_EMULATION -include this file) and execute it. A phase of the kernel (DF_PHASE) runs
-// its threads one after another, in ascending or descending order; a result
-// that depends on that order shows a race inside a phase. What the emulation
-// cannot show is a missing barrier between phases.
+// Plain C++ stand-ins for the CUDA builtins that the sources of
+// densityflows_tpu_torch/csrc use, so that the CPU tests can compile them
+// with a host compiler (-DDF_HOST_EMULATION -include this file) and execute
+// them. A phase of a block (DF_PHASE) runs its threads one after another, in
+// ascending or descending order; a result that depends on that order shows a
+// race inside a phase. A phase of a grid (df_grid_phase: the work between two
+// grid-wide barriers of a cooperative launch) runs its blocks one after
+// another, in ascending or descending order, each with a fresh shared array
+// filled with NaN, so that a result that depends on the order of the blocks
+// or on shared memory carried across a grid barrier shows. What the emulation
+// cannot show is a missing barrier between the phases of a block.
 #pragma once
 
 #include <cmath>
@@ -14,6 +19,7 @@
 
 static int df_emulation_threads = 1;
 static int df_emulation_reverse = 0;
+static int df_emulation_block_reverse = 0;
 
 #define DF_PHASE(...)                                                   \
     for (int df_t_ = 0; df_t_ < df_emulation_threads; ++df_t_) {        \
@@ -22,6 +28,17 @@ static int df_emulation_reverse = 0;
         (void)tid; (void)nt;                                            \
         __VA_ARGS__;                                                    \
     }
+
+// body(block) for every block of the grid, on the shared array S of
+// `floats` floats, refilled with NaN before each block
+template <class Body>
+static inline void df_grid_phase(int n_blocks, float* S, int floats,
+                                 Body&& body) {
+    for (int k = 0; k < n_blocks; ++k) {
+        for (int i = 0; i < floats; ++i) S[i] = NAN;
+        body(df_emulation_block_reverse ? n_blocks - 1 - k : k);
+    }
+}
 
 static inline float __int_as_float(int v) {
     float f;

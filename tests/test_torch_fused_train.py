@@ -346,10 +346,16 @@ def test_unsupported_chains_raise(cond):
     assert issubclass(dt.UnsupportedFusedTrain, ValueError)
 
 
-def test_exact_shared_memory_budget_declines_a_wide_chain(cond):
+def test_exact_shared_memory_budget_declines_a_wide_chain(cond,
+                                                         monkeypatch):
     """The envelope is the block's shared memory, computed exactly from the
     lowered plan: the reference config fits, hidden 256 at d 32 does not and
-    the message carries the byte counts."""
+    the message carries the byte counts. Such a chain trains in the stream
+    mode (``train_stream``'s envelope is the caches of one row); with that
+    limit lowered below one row it declines with both reasons and nothing
+    runs."""
+    from densityflows_tpu_torch.ops import stream_kernels as SKM
+
     jd, td, x = cond
     chain = to_torch(CHAINS["reference"](jd, x))
     plan, _tc, tparams, masks, slots, cparams, _f, _u = \
@@ -364,19 +370,37 @@ def test_exact_shared_memory_budget_declines_a_wide_chain(cond):
     xw = rng.normal(size=(300, 32)).astype(np.float32)
     thw = rng.uniform(size=(300, 8)).astype(np.float32)
     data = dt.DataArrays.make(xw, thw, rng=0)
-    wide = dt.Flow(dt.flow_chain(
-        dt.coupling_block(data, None, hidden_dim_s=256, hidden_dim_t=256,
-                          generator=torch.Generator().manual_seed(0),
-                          device="cpu"),
-        dt.normalization_layer(xw, -1.0, 1.0, device="cpu")), data,
-        device="cpu")
+
+    def wide():
+        return dt.Flow(dt.flow_chain(
+            dt.coupling_block(data, None, hidden_dim_s=256, hidden_dim_t=256,
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu"),
+            dt.normalization_layer(xw, -1.0, 1.0, device="cpu")), data,
+            device="cpu")
+
+    plan_w, _tc, tp_w, masks_w, slots_w, c_w, _f, _u = \
+        FT.chain_train_fold(wide().model)
+    n_folded = sum(p.numel() for p in tp_w)
     with pytest.raises(dt.UnsupportedFusedTrain) as err:
-        dt.train(wide, data, epochs=1, verbose=False, fused_kernel=True)
+        FT._check_budget(TK.pack_train_plan(plan_w, tp_w, masks_w, slots_w,
+                                            c_w, 32, 8, 64))
     msg = str(err.value)
     assert str(MAX_SHARED_BYTES) in msg and "bytes of shared memory" in msg
-    n_folded = sum(p.numel() for p in FT.chain_train_fold(wide.model)[2])
     assert str(16 * n_folded) in msg
-    assert wide.train_loss == []
+
+    streamed = wide()
+    dt.train(streamed, data, epochs=1, verbose=False, fused_kernel=True)
+    assert streamed.fused_kernel_mode == "stream"
+    assert len(streamed.valid_loss) == 1
+
+    declined = wide()
+    monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", 1000)
+    with pytest.raises(dt.UnsupportedFusedTrain) as err:
+        dt.train(declined, data, epochs=1, verbose=False, fused_kernel=True)
+    msg = str(err.value)
+    assert str(16 * n_folded) in msg and "train_stream needs" in msg
+    assert declined.train_loss == []
 
 
 def test_fused_surface_errors(cond):

@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA chain
-kernels, the whole-run train kernel and the grads-only step kernel against
-their plain versions. They skip where there is no card; run them on a machine
+kernels, the whole-run train kernels (resident and streaming) and the
+grads-only step kernel against their plain versions. They skip where there is no card; run them on a machine
 with one with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -16,6 +16,7 @@ from densityflows_tpu_torch.models import fused_chain as TF
 from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.ops import chain_kernels as CK
 from densityflows_tpu_torch.ops import step_kernels as SK
+from densityflows_tpu_torch.ops import stream_kernels as STK
 from densityflows_tpu_torch.ops import train_kernels as TK
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +211,56 @@ def test_train_streaming_takes_the_step_kernel(cuda):
     assert SK.run_fused_grads.launches == before + 2 * 8 == before + state.count
     assert flow.train_loss[1] < flow.train_loss[0]
     assert np.isfinite(flow.valid_loss).all()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_train_stream_kernel_matches_plain(cuda, weighted):
+    """4 epochs of batch 32 over 123 rows (a ragged last batch), with the
+    guard: parameters, moments, snapshots and per-step losses against the
+    plain version at 1e-4 (the same f32 arithmetic in another order, through
+    Adam); two launches give the same bits; the counter moves by one."""
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), arrays, perms, kw = \
+        _train_case(cuda, weighted)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, arrays[0],
+            arrays[1], perms)
+    kw = dict(batchsize=32, guard_nonfinite=True, with_losses=True,
+              w=kw.get("w"))
+    before = STK.run_fused_train_stream.launches
+    got = STK.run_fused_train_stream(*head, **kw)
+    again = STK.run_fused_train_stream(*head, **kw)
+    torch.cuda.synchronize()
+    assert STK.run_fused_train_stream.launches == before + 2
+    want = STK.fused_train_stream_plain(*head, **kw)
+    for i in (0, 1, 2, 3):
+        for a, b, c in zip(got[i], want[i], again[i]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+            assert torch.equal(a, c)
+    torch.testing.assert_close(got[5], want[5], rtol=0, atol=1e-4)
+    assert got[4].tolist() == want[4].tolist() == [0, 0, 0, 0]
+
+
+def test_train_fused_takes_the_stream_mode(cuda, monkeypatch):
+    """With the resident budget failing, ``train`` on a CUDA flow runs
+    ``train_stream`` once and no other training kernel."""
+    def fails(packed):
+        raise FT.UnsupportedFusedTrain("probe: force stream")
+
+    monkeypatch.setattr(FT, "_check_budget", fails)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(500, 5)).astype(np.float32)
+    th = rng.uniform(-1, 2, size=(500, 1)).astype(np.float32)
+    data = dt.DataArrays.make(x, th, rng=0)
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g, device=cuda, hidden_dim_s=16, hidden_dim_t=16)
+    flow = dt.Flow(dt.flow_chain(
+        dt.coupling_layer(data, [0, 1, 2], **kw),
+        dt.coupling_layer(data, [2, 3, 4], **kw),
+        dt.normalization_layer(x, -1.0, 1.0, device=cuda)), data, device=cuda)
+    before = (STK.run_fused_train_stream.launches, TK.run_fused_train.launches)
+    state = dt.train(flow, data, epochs=3, batchsize=64, verbose=False)
+    assert flow.trained_path == "fused" and flow.fused_kernel_mode == "stream"
+    assert (STK.run_fused_train_stream.launches,
+            TK.run_fused_train.launches) == (before[0] + 1, before[1])
+    assert state.count == 3 * 8
+    assert flow.train_loss[2] < flow.train_loss[0]

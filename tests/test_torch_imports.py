@@ -118,7 +118,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                    "ops/train_kernels.py", "utils/logging.py", "convert.py",
                    "utils/checkpoint.py", "data_stream.py",
                    "native/__init__.py", "ops/step_kernels.py",
-                   "parallel/mesh.py", "parallel/__init__.py"):
+                   "ops/stream_kernels.py", "parallel/mesh.py",
+                   "parallel/__init__.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -203,6 +204,7 @@ def test_build_module_needs_no_compiler_to_import():
         os.path.join("csrc", "train_kernels.cu"))
     assert os.path.exists(_build.source_path("train_kernels"))
     assert os.path.exists(_build.source_path("step_kernels"))
+    assert os.path.exists(_build.source_path("stream_kernels"))
     assert _build.source_path("loader", ".cpp").endswith(
         os.path.join("csrc", "loader.cpp"))
     assert "-pthread" in _build.HOST_FLAGS
