@@ -38,7 +38,14 @@ the port's main paths through the entry points a user calls:
   batch 1024 config: ``train(flow, data, epochs=3, batchsize=1024,
   generator=...)`` on a DataArrays of the same 2^20 rows held on the card,
   which takes ``train_fused``'s stream mode (one ``train_stream`` launch),
-  held against the plain version over its first 32 steps.
+  held against the plain version over its first 32 steps;
+- the opt-in per-layer coupling kernels, at the wide config of
+  ``benchmarks/wide_config.py`` ("fused_f32"): 32 steps of
+  ``make_train_step(adam(1e-3))`` under ``set_fused_kernels(True)`` on the
+  wide split chain at batch 8192 from 2^16 rows (each coupling of the loss
+  launches ``coupling_fwd``, its gradient ``coupling_bwd``), held against the
+  plain autograd step; then ``train(..., fused_kernel=False)`` under ``True``
+  and a chain the chain kernel declines (``log_prob`` / ``sample``).
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -49,6 +56,7 @@ its launches on the main path, its time, the plain version's time and the
 roofline bound for the same work.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -67,6 +75,8 @@ from densityflows_tpu_torch import _build, native
 from densityflows_tpu_torch.models import fused_chain as fc
 from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
+from densityflows_tpu_torch.ops import coupling as cpl
+from densityflows_tpu_torch.ops import coupling_kernels as cpk
 from densityflows_tpu_torch.ops import step_kernels as sk
 from densityflows_tpu_torch.ops import stream_kernels as stk
 from densityflows_tpu_torch.ops import train_kernels as tk
@@ -118,6 +128,7 @@ def fail(msg):
 
 
 def require_close(got, want, what, rtol, atol):
+    got, want = got.detach(), want.detach()
     if got.shape != want.shape:
         fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not bool(torch.isfinite(got).all()):
@@ -1707,6 +1718,7 @@ def step_kernel_row(flows, launches, err_small, device, card):
 
 def reset_counts():
     ck.reset_launch_counts()
+    cpk.reset_launch_counts()
     tk.run_fused_train.launches = 0
     sk.run_fused_grads.launches = 0
     stk.run_fused_train_stream.launches = 0
@@ -1715,7 +1727,8 @@ def reset_counts():
 def read_counts():
     return dict(ck.launch_counts(), train_run=tk.run_fused_train.launches,
                 step_grads=sk.run_fused_grads.launches,
-                train_stream=stk.run_fused_train_stream.launches)
+                train_stream=stk.run_fused_train_stream.launches,
+                **cpk.launch_counts())
 
 
 def drive_train_stream(x, th, device):
@@ -1753,7 +1766,8 @@ def drive_train_stream(x, th, device):
         fail(f"train took {flow.trained_path} / {flow.fused_kernel_mode} "
              f"({flow.fused_decline_reason}), expected the stream mode")
     if launches != dict(chain_apply=0, chain_sample=0, train_run=0,
-                        step_grads=0, train_stream=chunks):
+                        step_grads=0, train_stream=chunks, coupling_fwd=0,
+                        coupling_bwd=0, coupling_bwd_reduce=0):
         fail(f"train_stream main path launches {launches}, expected "
              f"{chunks} train_stream launch(es) and no other kernel")
     if state.count != epochs * n_batches:
@@ -1917,6 +1931,484 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
     }
 
 
+# -- the per-layer coupling kernels: coupling_fwd / coupling_bwd ---------------------
+
+# the opt-in per-layer train step at the wide config (benchmarks/wide_config.py
+# "fused_f32"): batch 8192 from a pool of 2^16 rows, Adam 1e-3
+COUPLING = dict(batch=8192, pool=1 << 16, steps=32, epochs=2)
+# the short-run rule of the streaming trainer: losses, then parameters. At
+# the wide config two plain f32 versions of the same step (autograd and the
+# hand-written pullback) already end 32 Adam steps further apart than 1e-3 on
+# entries whose gradient is small against their history, so the parameters
+# are held to FLOOR_FACTOR times that measured floor where it exceeds 1e-3;
+# every step's gradients are held to KERNEL_TOL on the same weights.
+SHORT_RUN_TOL = (1e-4, 1e-3)
+FLOOR_FACTOR = 3.0
+
+
+def coupling_nets(rng, kind, K, A, hidden, n_s, n_t, act, bias, device):
+    """``(weights, biases, activation)`` nets for the wrappers, glorot-uniform
+    numpy draws with the final layer scaled by 0.3 (so s and t are not 0);
+    ``n_s`` / ``n_t`` hidden layers (0: one dense layer)."""
+    def net(n_sub):
+        dims = [K] + [hidden] * n_sub + [A]
+        ws, bs = [], []
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            lim = np.sqrt(6.0 / (a + b)) * (0.3 if i == len(dims) - 2 else 1)
+            ws.append(put(rng.uniform(-lim, lim, size=(a, b)), device))
+            if bias:
+                bs.append(put(rng.normal(size=b) * 0.05, device))
+        return ws, bs, act
+
+    return (net(n_s) if kind == "nvp" else None), net(n_t)
+
+
+def flat_tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x for o in out if o is not None for x in flat_tensors(o)]
+
+
+def bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def require_close_nan(got, want, what):
+    """KERNEL_TOL where the plain version is not NaN; NaN where it is."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail(f"{what}: NaN pattern differs from the plain version")
+    ok = ~torch.isnan(want)
+    if not bool(ok.any()):
+        return 0.0
+    return require_close(got[ok], want[ok], what, **KERNEL_TOL)
+
+
+def check_coupling_case(rng, device, name, rows, K=6, A=4, hidden=18, n_s=2,
+                        n_t=2, act="relu", bias=True, kinds=("nvp", "nice"),
+                        nan_row=False):
+    """Both kernels against their plain versions, both directions, the
+    forward with and without ldj, the backward with a non-zero g_ldj and
+    twice (the same bits). K 6 / A 4 / hidden 18 is d 7, n 3, h 18."""
+    worst = 0.0
+    for kind in kinds:
+        s, t = coupling_nets(rng, kind, K, A, hidden, n_s, n_t, act, bias,
+                             device)
+        h = rng.normal(size=(rows, K))
+        if nan_row:
+            h[min(3, rows - 1), 1] = np.nan
+        h, y, gy = (put(a, device) for a in
+                    (h, rng.normal(size=(rows, A)), rng.normal(size=(rows, A))))
+        gl = put(rng.normal(size=rows), device)
+        for direction in ("forward", "inverse"):
+            tag = f"coupling {name} {kind} {direction}"
+            for with_ldj in (True, False):
+                got = cpk.coupling_fwd(s, t, h, y, direction=direction,
+                                       with_ldj=with_ldj)
+                torch.cuda.synchronize()
+                want = cpk.coupling_fwd_plain(s, t, h, y, direction=direction,
+                                              with_ldj=with_ldj)
+                for i, (a, b) in enumerate(zip(flat_tensors(got),
+                                               flat_tensors(want))):
+                    worst = max(worst, require_close_nan(
+                        a, b, f"{tag} coupling_fwd ldj={with_ldj} out {i}"))
+            got = flat_tensors(cpk.coupling_bwd(s, t, h, y, gy, gl,
+                                                direction=direction))
+            again = flat_tensors(cpk.coupling_bwd(s, t, h, y, gy, gl,
+                                                  direction=direction))
+            torch.cuda.synchronize()
+            want = flat_tensors(cpk.coupling_bwd_plain(
+                s, t, h, y, gy, gl, direction=direction))
+            if len(got) != len(want):
+                fail(f"{tag}: coupling_bwd gave {len(got)} tensors, the plain "
+                     f"version {len(want)}")
+            # dh, dy, then every dW / db
+            for i, (a, b) in enumerate(zip(got, want)):
+                worst = max(worst, require_close_nan(
+                    a, b, f"{tag} coupling_bwd output {i}"))
+            if not all(bits_equal(a, b) for a, b in zip(got, again)):
+                fail(f"{tag}: two coupling_bwd launches differ")
+    return worst
+
+
+def check_coupling_small(device):
+    rng = np.random.default_rng(SEED + 5)
+    errs = {
+        "d7_n3_h18_rows_1001": check_coupling_case(rng, device, "d7", 1001),
+        "rows_37": check_coupling_case(rng, device, "rows 37", 37,
+                                       act="tanh"),
+        "rows_5_below_one_tile": check_coupling_case(rng, device, "rows 5", 5),
+        "n_s_1_n_t_3": check_coupling_case(rng, device, "n_s 1 n_t 3", 300,
+                                           n_s=1, n_t=3, kinds=("nvp",)),
+        "one_dense_layer": check_coupling_case(rng, device, "one layer", 300,
+                                               n_s=0, n_t=0),
+        "no_bias": check_coupling_case(rng, device, "no bias", 300,
+                                       bias=False, act="elu"),
+        "nan_row": check_coupling_case(rng, device, "NaN row", 64,
+                                       nan_row=True),
+        "main_shape": check_coupling_case(
+            rng, device, "K24 A16 H256", COUPLING["batch"], K=24, A=16,
+            hidden=256, kinds=("nvp",)),
+    }
+    for act in ACTIVATIONS:
+        errs[f"act_{act}"] = check_coupling_case(
+            rng, device, f"act {act}", 257, act=act, kinds=("nvp",))
+    return errs
+
+
+def coupling_pool(device):
+    """The main path's rows, as benchmarks/wide_config.py draws them: x
+    normal, theta uniform in [0, 1), from numpy seed SEED."""
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(COUPLING["pool"], D)).astype(np.float32)
+    th = rng.uniform(0, 1, size=(COUPLING["pool"], N_COND)).astype(np.float32)
+    b = COUPLING["batch"]
+    batches = [(put(x[i:i + b], device), put(th[i:i + b], device))
+               for i in range(0, len(x), b)]
+    return x, th, batches
+
+
+def coupling_steps(start, batches, mode, steps):
+    """``steps`` steps of make_train_step(adam(1e-3)) from a copy of
+    ``start`` under ``set_fused_kernels(mode)``: (model, losses, seconds)."""
+    model = copy.deepcopy(start)
+    opt = dt.adam(1e-3)
+    step = dt.make_train_step(opt)
+    state = opt.init(ft.trainable_leaves(model))
+    base = dt.StandardNormal(D)
+    mask = torch.ones(COUPLING["batch"], device=batches[0][0].device)
+    losses = []
+    dt.set_fused_kernels(mode)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for k in range(steps):
+            xb, thb = batches[k % len(batches)]
+            model, state, loss = step(model, state, base, xb, thb, mask)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        dt.set_fused_kernels("auto")
+    return model, torch.stack(losses), seconds
+
+
+@contextlib.contextmanager
+def plain_coupling_ops():
+    """The per-layer route with the kernels' plain versions on the card,
+    for the rounding floor of the 32-step comparison (a harness of this
+    script; the package never swaps them)."""
+    real = cpk.coupling_fwd, cpk.coupling_bwd
+    cpk.coupling_fwd, cpk.coupling_bwd = (cpk.coupling_fwd_plain,
+                                          cpk.coupling_bwd_plain)
+    try:
+        yield
+    finally:
+        cpk.coupling_fwd, cpk.coupling_bwd = real
+
+
+def coupling_grads_each_step(start, batches, steps):
+    """The kernels' trajectory replayed: at every step the loss and every
+    gradient with the kernels against the plain autograd step on the SAME
+    weights (KERNEL_TOL), then the kernels' Adam update. Returns the error
+    of each step."""
+    model = copy.deepcopy(start)
+    opt = dt.adam(1e-3)
+    state = opt.init(ft.trainable_leaves(model))
+    base = dt.StandardNormal(D)
+    mask = torch.ones(COUPLING["batch"], device=batches[0][0].device)
+    errs = []
+    for k in range(steps):
+        xb, thb = batches[k % len(batches)]
+        got = {}
+        for mode in (True, False):
+            dt.set_fused_kernels(mode)
+            try:
+                got[mode] = _loss_and_grads(model, base, xb, thb, mask)
+            finally:
+                dt.set_fused_kernels("auto")
+        pairs = zip([got[True][0]] + got[True][2],
+                    [got[False][0]] + got[False][2])
+        errs.append(max(require_close(
+            a, b, f"coupling main path step {k + 1} "
+            f"{'loss' if i == 0 else f'gradient {i}'} on the same weights",
+            **KERNEL_TOL) for i, (a, b) in enumerate(pairs)))
+        updates, state = opt.update(got[True][2], state, got[True][1])
+        with torch.no_grad():
+            for p, u in zip(got[True][1], updates):
+                p.add_(u)
+    return errs
+
+
+def coupling_counts(fwd, bwd):
+    return dict(chain_apply=0, chain_sample=0, train_run=0, step_grads=0,
+                train_stream=0, coupling_fwd=fwd, coupling_bwd=bwd,
+                coupling_bwd_reduce=bwd)
+
+
+def declined_chain(device):
+    """A small chain the chain kernel declines (a coupling whose nets are
+    one dense layer each): under True, log_prob and sample reach
+    coupling_fwd with ldj (``_chain_eval``) and without (``forward_``)."""
+    rng = np.random.default_rng(SEED + 9)
+    d, n = 7, 3
+    axes = dt.coupling_axes(d, [0, 1, 2], n=n)
+    K, A = axes.nn_input_dim, axes.transform_dim
+    one = lambda: dt.MLP([torch.zeros(K, A, device=device)],  # noqa: E731
+                         [torch.zeros(A, device=device)], "tanh")
+    x_ref = rng.normal(size=(64, d)).astype(np.float32)
+    chain = numpy_weights_(dt.flow_chain(
+        dt.RNVPCouplingLayer(one(), one(), axes),
+        dt.coupling_layer(d, [3, 4, 5, 6], n=n, kind=dt.NICECouplingLayer,
+                          hidden_dim_t=32, device=device),
+        dt.normalization_layer(x_ref, -1.0, 1.0, device=device)), rng, 0.3)
+    if fc.chain_is_fusable(chain, d, n):
+        fail("declined chain: the chain kernel would take it")
+    flow = dt.Flow(chain, dt.MetaData("", d, n, np.zeros(n), np.ones(n)),
+                   device=device)
+    x, th = data(rng, 3000, d, n, device)
+    out = {}
+    for mode in (True, False):
+        dt.set_fused_kernels(mode)
+        try:
+            reset_counts()
+            with torch.no_grad():
+                lp = flow.log_prob(x, th)
+                smp = flow.sample((3000,), (0.5,) * n,
+                                  generator=torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            out[mode] = (lp, smp, read_counts())
+        finally:
+            dt.set_fused_kernels("auto")
+    # two couplings: log_prob (with ldj) and sample (forward_, without)
+    if out[True][2] != coupling_counts(4, 0):
+        fail(f"declined chain under True: launches {out[True][2]}")
+    if out[False][2] != coupling_counts(0, 0):
+        fail(f"declined chain under False: launches {out[False][2]}")
+    return max(require_close(out[True][0], out[False][0],
+                             "declined chain: log_prob", **KERNEL_TOL),
+               require_close(out[True][1], out[False][1],
+                             "declined chain: sample", **KERNEL_TOL))
+
+
+def drive_coupling_main_path(device):
+    """The opt-in per-layer train step at the wide config: the wide split
+    chain (d 32, n 8, 4 coupling blocks of hidden 256, normalization; its
+    non-zero final weights keep s != 0) on batches of 8192 from 2^16 rows.
+    32 steps of make_train_step under True (launches asserted) against the
+    same 32 under False and against the rounding floor; every step's loss and
+    gradients against the plain autograd step on the same weights; then
+    ``train(..., fused_kernel=False)`` on a DataArrays of the rows under True
+    and the declined chain."""
+    steps, batch = COUPLING["steps"], COUPLING["batch"]
+    x, th, batches = coupling_pool(device)
+    start = wide_chain(False, np.random.default_rng(SEED + 11), device)
+    n_couplings = sum(isinstance(layer, dt.RNVPCouplingLayer)
+                      for layer in fc._iter_layers(start, "fwd"))
+    reset_counts()
+    model_k, losses_k, sec_k = coupling_steps(start, batches, True, steps)
+    launches = read_counts()
+    per_step = n_couplings
+    if launches != coupling_counts(per_step * steps, per_step * steps):
+        fail(f"coupling main path launches {launches}, expected "
+             f"{per_step} coupling_fwd and {per_step} coupling_bwd (+ its "
+             f"reduction) per step and no other kernel")
+    model_p, losses_p, sec_p = coupling_steps(start, batches, False, steps)
+    with plain_coupling_ops():
+        model_f, losses_f, _ = coupling_steps(start, batches, True, steps)
+
+    def param_errs(model):
+        return [float((a - b).detach().abs().max()) for a, b in zip(
+            ft.trainable_leaves(model), ft.trainable_leaves(model_p))]
+
+    floor = max(param_errs(model_f))
+    param_tol = max(SHORT_RUN_TOL[1], FLOOR_FACTOR * floor)
+    loss_err = require_close(losses_k, losses_p, f"{steps} steps: losses",
+                             0.0, SHORT_RUN_TOL[0])
+    param_err = max(require_close(a, b, f"{steps} steps: param {k}", 0.0,
+                                  param_tol)
+                    for k, (a, b) in enumerate(zip(
+                        ft.trainable_leaves(model_k),
+                        ft.trainable_leaves(model_p))))
+    errs_k = param_errs(model_k)
+    step_errs = coupling_grads_each_step(start, batches, steps)
+
+    # train() as a user calls it, the plain program under True
+    dataset = dt.DataArrays.make(x, th, rng=0)
+    flow = dt.Flow(copy.deepcopy(start), dataset, device=device)
+    n_batches = -(-len(dataset.partition.training) // batch)
+    epochs = COUPLING["epochs"]
+    nll0 = dt.evaluate(flow, dataset, "training")
+    dt.set_fused_kernels(True)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dt.train(flow, dataset, epochs=epochs, batchsize=batch,
+                 fused_kernel=False, verbose=False,
+                 generator=torch.Generator().manual_seed(SEED + 13))
+        torch.cuda.synchronize()
+        train_seconds = time.time() - t0
+        train_launches = read_counts()
+    finally:
+        dt.set_fused_kernels("auto")
+    # per epoch: every batch's loss and gradient, then the two full-split
+    # evaluations of the plain program (forward only)
+    want = coupling_counts(epochs * (n_batches + 2) * per_step,
+                           epochs * n_batches * per_step)
+    if train_launches != want:
+        fail(f"train under True: launches {train_launches}, expected {want}")
+    tl, vl = np.asarray(flow.train_loss), np.asarray(flow.valid_loss)
+    if flow.trained_path != "torch" or not (np.isfinite(tl).all()
+                                            and np.isfinite(vl).all()):
+        fail(f"train under True: path {flow.trained_path}, NLL {tl} / {vl}")
+    # from the random start the NLL falls, though not in every epoch
+    if not tl[-1] < nll0:
+        fail(f"train under True: the NLL does not fall from {nll0}: {tl}")
+    declined_err = declined_chain(device)
+    report = dict(
+        config=f"d {D}, n {N_COND}, {N_BLOCKS} coupling blocks hidden "
+               f"{HIDDEN} + normalization, batch {batch}, pool {len(x)}",
+        step1_max_abs_err=step_errs[0],
+        each_step_max_abs_err_same_weights=max(step_errs), steps=steps,
+        steps_loss_max_abs_err=loss_err, steps_param_max_abs_err=param_err,
+        steps_param_tensors_over_1e_3=sum(e > SHORT_RUN_TOL[1]
+                                              for e in errs_k),
+        rounding_floor_param_err=floor,
+        rounding_floor_loss_err=float((losses_f - losses_p).abs().max()),
+        steps_param_tolerance=param_tol,
+        steps_seconds_kernels=sec_k, steps_seconds_plain=sec_p,
+        ms_per_step_kernels_first_32=1e3 * sec_k / steps,
+        ms_per_step_plain_first_32=1e3 * sec_p / steps,
+        train_epochs=epochs, train_batches_per_epoch=n_batches,
+        train_seconds=train_seconds, train_nll_before=nll0,
+        train_nll=tl.tolist(),
+        valid_nll=vl.tolist(), train_launches=train_launches,
+        declined_chain_max_abs_err=declined_err)
+    return launches, report, (start, batches)
+
+
+def coupling_kernel_rows(start, batches, launches, errs, card):
+    """The {"kernels": ...} entries of coupling_fwd / coupling_bwd at the main
+    path's shapes: the first coupling of the wide chain on one batch (8192
+    rows, K 24, A 16, hidden 256) in the inverse direction the loss runs.
+    Also the backward's two kernels apart, and the per-layer train step
+    against the plain autograd step on the same weights."""
+    device = batches[0][0].device
+    layer = next(fc._iter_layers(start, "fwd"))
+    xb, thb = batches[0]
+    y_id, y_af = cpl.split_features(xb, layer.axes)
+    h = cpl.nn_input(y_id, thb).contiguous()
+    y = y_af.contiguous()
+
+    def net(m):
+        return ([w.detach() for w in m.weights],
+                [b.detach() for b in m.biases], m.activation)
+
+    s, t = net(layer.s_net), net(layer.t_net)
+    B, K = h.shape
+    A = y.shape[1]
+    rng = np.random.default_rng(SEED + 17)
+    gy = put(rng.normal(size=(B, A)), device)
+    gl = put(rng.normal(size=B), device)
+    ms_f = time_ms(lambda: cpk.coupling_fwd(s, t, h, y, direction="inverse"),
+                   runs=15)
+    ms_b = time_ms(lambda: cpk.coupling_bwd(s, t, h, y, gy, gl,
+                                            direction="inverse"), runs=15)
+    plain_f = time_ms(lambda: cpk.coupling_fwd_plain(
+        s, t, h, y, direction="inverse", with_ldj=True), runs=15)
+    plain_b = time_ms(lambda: cpk.coupling_bwd_plain(
+        s, t, h, y, gy, gl, direction="inverse"), runs=15)
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = torch.empty(cpk.workspace_floats(B, s, t), device=device)
+
+    def part(phases):
+        return lambda: cpk._run_bwd(
+            lambda *a: cpk._library().df_coupling_bwd(*a, stream), s, t, h, y,
+            gy, gl, direction="inverse", phases=phases, workspace=ws)
+
+    part(1)()                   # the reduction alone reads a filled workspace
+    tile_ms = time_ms(part(1), runs=15)
+    reduce_ms = time_ms(part(2), runs=15)
+    # each kernel at the row tiles it can take (the default: 8)
+    need = {"fwd": lambda r: cpk.fwd_shared_bytes(r, s, t, K, A),
+            "bwd": lambda r: cpk.bwd_shared_bytes(r, s, t, K)}
+    by_tile = {}
+    for tb in (8, 16, 32, 64):
+        cpk.set_tile_rows(tb)
+        try:
+            by_tile[tb] = dict(
+                tiles_taken=[cpk.pick_tile(k, need[k]) for k in need],
+                fwd=time_ms(lambda: cpk.coupling_fwd(
+                    s, t, h, y, direction="inverse"), runs=7),
+                bwd=time_ms(lambda: cpk.coupling_bwd(
+                    s, t, h, y, gy, gl, direction="inverse"), runs=7))
+        finally:
+            cpk.set_tile_rows(None)
+
+    base = dt.StandardNormal(D)
+    mask = torch.ones(B, device=device)
+    step_ms = {}
+    for mode in (True, False):
+        model = copy.deepcopy(start)
+        opt = dt.adam(1e-3)
+        step = dt.make_train_step(opt)
+        state = opt.init(ft.trainable_leaves(model))
+        dt.set_fused_kernels(mode)
+        try:
+            step_ms[mode] = time_ms(lambda: step(model, state, base, xb, thb,
+                                                 mask))
+        finally:
+            dt.set_fused_kernels("auto")
+
+    # the bounds: 2.K.N of every product at the nets' own shapes over the
+    # f32 rate (the backward: the forward again, dX and dW, three times the
+    # forward's), against each input read once and each output written once
+    mats = sum(int(w.shape[0] * w.shape[1]) for n_ in (s, t) for w in n_[0])
+    n_par = sum(int(p.numel()) for n_ in (s, t) for p in n_[0] + n_[1])
+    flops_f = 2 * B * mats
+    bytes_f = 4 * (B * (K + A) + n_par + B * A + B)
+    bf_ms, bf_by = bound_ms(flops_f, bytes_f)
+    bytes_b = 4 * (B * (K + 2 * A + 1) + n_par + B * (K + A) + n_par)
+    bb_ms, bb_by = bound_ms(3 * flops_f, bytes_b)
+    n_c = sum(isinstance(c, dt.RNVPCouplingLayer)
+              for c in fc._iter_layers(start, "fwd"))
+    tiles = {k: cpk.pick_tile(k, need[k]) for k in need}
+    say(phase="coupling_times", card=card, rows=B, K=K, A=A, hidden=HIDDEN,
+        coupling_fwd_ms=ms_f, coupling_bwd_ms=ms_b,
+        coupling_bwd_tile_kernel_ms=tile_ms,
+        coupling_bwd_reduce_ms=reduce_ms, coupling_fwd_plain_ms=plain_f,
+        coupling_bwd_plain_ms=plain_b, coupling_fwd_bound_ms=bf_ms,
+        coupling_bwd_bound_ms=bb_ms, step_ms_per_layer_kernels=step_ms[True],
+        step_ms_plain_autograd=step_ms[False],
+        step_kernel_bound_ms=n_c * (bf_ms + bb_ms), tile_rows=tiles,
+        ms_by_tile_rows=by_tile,
+        workspace_bytes=4 * ws.numel())
+    shape = (f"one coupling, inverse, h ({B}, {K}), y ({B}, {A}), two nets "
+             f"{K}->{HIDDEN}->{HIDDEN}->{A}")
+    common = dict(route="cuda",
+                  source="densityflows_tpu_torch/csrc/coupling_kernels.cu",
+                  tolerance=KERNEL_TOL, shape=shape, library_ms=None,
+                  library_note="no single PyTorch call computes an MLP pair "
+                               "plus the coupling and its ldj")
+    return [
+        dict(name="coupling_fwd",
+             replaces="densityflows_tpu/ops/pallas_coupling.py:226",
+             launches=launches["coupling_fwd"], max_abs_err=errs["fwd"],
+             ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms, bound_by=bf_by,
+             needed_flops=flops_f, needed_bytes=bytes_f,
+             tile_rows=tiles["fwd"], **common),
+        dict(name="coupling_bwd",
+             replaces="densityflows_tpu/ops/pallas_coupling.py:263",
+             launches=launches["coupling_bwd"], max_abs_err=errs["bwd"],
+             ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
+             needed_flops=3 * flops_f, needed_bytes=bytes_b,
+             tile_kernel_ms=tile_ms, reduce_ms=reduce_ms,
+             reduce_launches=launches["coupling_bwd_reduce"],
+             tile_rows=tiles["bwd"], **common),
+    ]
+
+
 # -- phase 5: times and bounds ---------------------------------------------------
 
 def needed_flops_per_row(chain):
@@ -2043,7 +2535,8 @@ def main():
 
     t0 = time.time()
     by_source = _build.load_libraries(["chain_kernels", "train_kernels",
-                                       "step_kernels", "stream_kernels"])
+                                       "step_kernels", "stream_kernels",
+                                       "coupling_kernels"])
     summary = {"build_seconds": time.time() - t0,
                "build_seconds_by_source": by_source}
     say(phase="build", seconds=summary["build_seconds"],
@@ -2101,6 +2594,11 @@ def main():
         skipped_updates=stream_skips, tolerance=TRAIN_TOL,
         two_launches_equal="bit for bit",
         two_chunked_calls_equal_one_call="bit for bit")
+
+    # phase 3g: coupling_fwd / coupling_bwd against their plain versions
+    coupling_errs = check_coupling_small(device)
+    say(phase="coupling_kernel_small", max_abs_err_by_case=coupling_errs,
+        tolerance=KERNEL_TOL, two_launches_equal="bit for bit")
 
     # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
@@ -2186,6 +2684,12 @@ def main():
         step_grads_launches=step_launches["mesh"], **mesh_report)
     summary["mesh"] = mesh_report
 
+    # phase 4f: the opt-in per-layer train step at the wide config
+    coupling_launches, report, coupled = drive_coupling_main_path(device)
+    say(phase="coupling_main_path", card=card, launches=coupling_launches,
+        **report)
+    summary["coupling_main_path"] = report
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -2202,6 +2706,12 @@ def main():
         *streamed, stream_launches, errs["train_stream"],
         errs["train_stream_main_path"],
         summary["train_stream_main_path"]["first_32_steps_param_err"], card))
+    small = max(coupling_errs.values())
+    kernels.extend(coupling_kernel_rows(
+        *coupled, coupling_launches,
+        {"fwd": max(small, report["declined_chain_max_abs_err"]),
+         "bwd": max(small, report["each_step_max_abs_err_same_weights"])},
+        card))
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

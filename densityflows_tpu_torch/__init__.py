@@ -19,7 +19,10 @@ the streaming whole-run kernel ``train_stream`` (``csrc/stream_kernels.cu``),
 with the plain multi-epoch program beside them, and the streaming trainer and the data-parallel step — ``train_streaming``,
 ``train(mesh=...)`` — on the grads-only step kernel ``step_grads``
 (``csrc/step_kernels.cu``), fed by the native host loader
-(``csrc/loader.cpp``).
+(``csrc/loader.cpp``). Under ``set_fused_kernels(True)`` every RealNVP / NICE
+coupling call outside the chain kernels takes the per-layer kernels
+``coupling_fwd`` / ``coupling_bwd`` (``csrc/coupling_kernels.cu``, through
+``ops.coupling_kernels.fused_coupling``).
 """
 
 from ._device import resolve_device

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import coupling as C
 from ..ops.chain_kernels import (
     op_param_count,
     pack_plan,
@@ -341,15 +342,32 @@ def _cached_plan(chain, dirn, d, n):
 
 # -- the plain per-layer fold (reference and backward path) -------------------
 
+def _layer_plain(layer, y, theta, dirn):
+    """One layer in plain PyTorch with ldj: RNVP and NICE couplings bypass
+    their own per-layer kernel dispatch (``set_fused_kernels(True)``)."""
+    if isinstance(layer, RNVPCouplingLayer):
+        y_id, y_af, s, t = layer._conditioner(y, theta)
+        out, ldj = (C.rnvp_forward(s, t, y_af) if dirn == "fwd"
+                    else C.rnvp_backward(s, t, y_af))
+        return C.recombine_features(y_id, out, layer.axes), ldj
+    if isinstance(layer, NICECouplingLayer):
+        y_id, y_af, t = layer._conditioner(y, theta)
+        out, ldj = (C.nice_forward(t, y_af) if dirn == "fwd"
+                    else C.nice_backward(t, y_af))
+        return C.recombine_features(y_id, out, layer.axes), ldj
+    return layer.forward(y, theta) if dirn == "fwd" else layer.inverse(y, theta)
+
+
 def fold_layers(chain, y, theta, dirn, with_ldj):
-    """Per-layer plain fold of the chain; never routes to the kernels."""
+    """Per-layer plain fold of the chain; never routes to a kernel, whatever
+    the policy (the reference of the chain kernels and their backward)."""
     ldj = None
     for layer in _iter_layers(chain, dirn):
-        if not with_ldj and dirn == "fwd":
+        if not with_ldj and dirn == "fwd" and not isinstance(
+                layer, (RNVPCouplingLayer, NICECouplingLayer)):
             y = layer.forward_(y, theta)
             continue
-        y, ldj_i = (layer.forward(y, theta) if dirn == "fwd"
-                    else layer.inverse(y, theta))
+        y, ldj_i = _layer_plain(layer, y, theta, dirn)
         ldj = ldj_i if ldj is None else ldj + ldj_i
     return (y, ldj) if with_ldj else y
 

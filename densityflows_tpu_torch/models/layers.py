@@ -11,14 +11,18 @@ Direction convention: ``forward`` = latent z → data x (sampling),
 ``(y, log_det_jac)`` with per-sample ldj of batch shape. ``forward_`` is the
 ldj-free sampling path.
 
-Not in this package yet: the spline coupling layer, bf16 conditioners, and
-the per-layer fused kernel of the JAX package.
+Under ``set_fused_kernels(True)`` every RNVP / NICE coupling call takes the
+per-layer fused kernels (``ops/coupling_kernels.py``: ``coupling_fwd``, and
+``coupling_bwd`` for its gradient), as the JAX layers take their Pallas
+kernels. Not in this package yet: the spline coupling layer and bf16
+conditioners.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,19 +33,21 @@ from ..ops.mlp import MLP, apply_mlp, count_params, init_mlp
 
 __all__ = [
     "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
-    "coupling_layer", "set_fused_kernels", "use_fused_chain",
+    "coupling_layer", "set_fused_kernels", "use_fused_chain", "use_fused",
 ]
 
-# Whole-chain kernel policy: "auto" routes every fusable chain through the
-# CUDA chain kernels when the data is on a CUDA device; True routes on any
-# device (on the CPU the wrappers run their plain versions); False selects
-# the per-layer path. The crossover below which the per-layer path is faster
-# on an H100 has not been measured yet.
+# Kernel policy. "auto" routes every fusable chain through the CUDA chain
+# kernels when the data is on a CUDA device, and never takes the per-layer
+# kernels. True routes on any device (on the CPU the wrappers run their
+# plain versions): the chain route comes first, and every RNVP / NICE
+# coupling call outside it takes the per-layer coupling kernels. False
+# selects the plain per-layer path. The crossover below which the plain
+# per-layer path is faster on an H100 has not been measured yet.
 _FUSED_MODE: str | bool = "auto"
 
 
 def set_fused_kernels(mode: str | bool) -> None:
-    """Set the whole-chain kernel policy: "auto" (default), True, or False."""
+    """Set the kernel policy: "auto" (default), True, or False."""
     global _FUSED_MODE
     if mode not in ("auto", True, False):
         raise ValueError("mode must be 'auto', True, or False")
@@ -55,6 +61,43 @@ def use_fused_chain(device) -> bool:
     if _FUSED_MODE is False:
         return False
     return torch.device(device).type == "cuda"
+
+
+def use_fused(batch_rows: int) -> bool:
+    """Per-layer fused-kernel gate: explicit opt-in only."""
+    del batch_rows
+    return _FUSED_MODE is True
+
+
+def _can_fuse_impl(layer, y) -> bool:
+    rows = int(np.prod(y.shape[:-1])) if y.dim() > 1 else 1
+    return (use_fused(rows) and layer.axes.nn_input_dim > 0
+            and layer.axes.transform_dim > 0)
+
+
+def _flatten_batch(y, theta):
+    """Collapse leading batch dims to one row axis for the 2-D kernels."""
+    batch_shape = y.shape[:-1]
+    rows = int(np.prod(batch_shape)) if batch_shape else 1
+    return (y.reshape(rows, y.shape[-1]),
+            theta.reshape(rows, theta.shape[-1]), batch_shape)
+
+
+def _fused_apply(layer, s_net, y, theta, direction, with_ldj):
+    """The per-layer kernel route: split, conditioner input, one
+    ``fused_coupling`` call, recombine."""
+    from ..ops.coupling_kernels import fused_coupling
+
+    y2, th2, batch_shape = _flatten_batch(y, theta)
+    y_id, y_af = C.split_features(y2, layer.axes)
+    h = C.nn_input(y_id, th2)
+    out = fused_coupling(s_net, layer.t_net, h, y_af, direction=direction,
+                         with_ldj=with_ldj)
+    if with_ldj:
+        y_out, ldj = out
+        y_full = C.recombine_features(y_id, y_out, layer.axes)
+        return y_full.reshape(y.shape), ldj.reshape(batch_shape)
+    return C.recombine_features(y_id, out, layer.axes).reshape(y.shape)
 
 
 def _clamp(s, m: float):
@@ -76,23 +119,36 @@ class RNVPCouplingLayer(nn.Module):
         self.axes = axes
         self.max_log_scale = float(max_log_scale)
 
+    def _can_fuse(self, y) -> bool:
+        # the kernels implement the unbounded math only
+        return _can_fuse_impl(self, y) and not self.max_log_scale
+
     def _conditioner(self, y, theta):
         y_id, y_af = C.split_features(y, self.axes)
         h = C.nn_input(y_id, theta)
         s = _clamp(apply_mlp(self.s_net, h), self.max_log_scale)
         return y_id, y_af, s, apply_mlp(self.t_net, h)
 
+    def _fused(self, y, theta, direction, with_ldj):
+        return _fused_apply(self, self.s_net, y, theta, direction, with_ldj)
+
     def forward(self, z, theta):
+        if self._can_fuse(z):
+            return self._fused(z, theta, "forward", True)
         z_id, z_af, s, t = self._conditioner(z, theta)
         x_af, ldj = C.rnvp_forward(s, t, z_af)
         return C.recombine_features(z_id, x_af, self.axes), ldj
 
     def inverse(self, x, theta):
+        if self._can_fuse(x):
+            return self._fused(x, theta, "inverse", True)
         x_id, x_af, s, t = self._conditioner(x, theta)
         z_af, ldj = C.rnvp_backward(s, t, x_af)
         return C.recombine_features(x_id, z_af, self.axes), ldj
 
     def forward_(self, z, theta):
+        if self._can_fuse(z):
+            return self._fused(z, theta, "forward", False)
         z_id, z_af, s, t = self._conditioner(z, theta)
         return C.recombine_features(z_id, z_af * torch.exp(s) + t, self.axes)
 
@@ -155,21 +211,33 @@ class NICECouplingLayer(nn.Module):
         self.t_net = t_net
         self.axes = axes
 
+    def _can_fuse(self, y) -> bool:
+        return _can_fuse_impl(self, y)
+
     def _conditioner(self, y, theta):
         y_id, y_af = C.split_features(y, self.axes)
         return y_id, y_af, apply_mlp(self.t_net, C.nn_input(y_id, theta))
 
+    def _fused(self, y, theta, direction, with_ldj):
+        return _fused_apply(self, None, y, theta, direction, with_ldj)
+
     def forward(self, z, theta):
+        if self._can_fuse(z):
+            return self._fused(z, theta, "forward", True)
         z_id, z_af, t = self._conditioner(z, theta)
         x_af, ldj = C.nice_forward(t, z_af)
         return C.recombine_features(z_id, x_af, self.axes), ldj
 
     def inverse(self, x, theta):
+        if self._can_fuse(x):
+            return self._fused(x, theta, "inverse", True)
         x_id, x_af, t = self._conditioner(x, theta)
         z_af, ldj = C.nice_backward(t, x_af)
         return C.recombine_features(x_id, z_af, self.axes), ldj
 
     def forward_(self, z, theta):
+        if self._can_fuse(z):
+            return self._fused(z, theta, "forward", False)
         z_id, z_af, t = self._conditioner(z, theta)
         return C.recombine_features(z_id, z_af + t, self.axes)
 

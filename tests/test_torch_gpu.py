@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA chain
-kernels, the whole-run train kernels (resident and streaming) and the
-grads-only step kernel against their plain versions. They skip where there is no card; run them on a machine
+kernels, the whole-run train kernels (resident and streaming), the
+grads-only step kernel and the per-layer coupling kernels against their plain
+versions. They skip where there is no card; run them on a machine
 with one with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -15,6 +16,7 @@ import densityflows_tpu_torch as dt
 from densityflows_tpu_torch.models import fused_chain as TF
 from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.ops import chain_kernels as CK
+from densityflows_tpu_torch.ops import coupling_kernels as CPK
 from densityflows_tpu_torch.ops import step_kernels as SK
 from densityflows_tpu_torch.ops import stream_kernels as STK
 from densityflows_tpu_torch.ops import train_kernels as TK
@@ -264,3 +266,80 @@ def test_train_fused_takes_the_stream_mode(cuda, monkeypatch):
             TK.run_fused_train.launches) == (before[0] + 1, before[1])
     assert state.count == 3 * 8
     assert flow.train_loss[2] < flow.train_loss[0]
+
+
+def _coupling_nets(device, kind, K=6, A=4, hidden=18, n_s=2, n_t=1,
+                   act="gelu", bias=True):
+    g = torch.Generator().manual_seed(5)
+
+    def net(n_sub):
+        dims = [K] + [hidden] * n_sub + [A]
+        ws = [(torch.randn(a, b, generator=g) * (0.7 / a ** 0.5)).to(device)
+              for a, b in zip(dims[:-1], dims[1:])]
+        bs = ([(torch.randn(b, generator=g) * 0.1).to(device)
+               for b in dims[1:]] if bias else [])
+        return ws, bs, act
+
+    return (net(n_s) if kind == "nvp" else None), net(n_t)
+
+
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("kind", ["nvp", "nice"])
+def test_coupling_kernels_match_plain(cuda, kind, direction):
+    """1001 rows (a ragged last tile), hidden 18, n_s != n_t, a non-zero
+    g_ldj: coupling_fwd and coupling_bwd against their plain versions at 1e-4
+    (f32 FMA in another summation order); two launches give the same bits;
+    the counters move by one per launch."""
+    s, t = _coupling_nets(cuda, kind)
+    g = torch.Generator().manual_seed(6)
+    h, y, gy = (torch.randn(1001, w, generator=g).to(cuda) for w in (6, 4, 4))
+    gl = torch.randn(1001, generator=g).to(cuda)
+    before = CPK.launch_counts()
+    out = CPK.coupling_fwd(s, t, h, y, direction=direction)
+    back = CPK.coupling_bwd(s, t, h, y, gy, gl, direction=direction)
+    again = CPK.coupling_bwd(s, t, h, y, gy, gl, direction=direction)
+    torch.cuda.synchronize()
+    after = CPK.launch_counts()
+    assert after["coupling_fwd"] == before["coupling_fwd"] + 1
+    assert after["coupling_bwd"] == before["coupling_bwd"] + 2
+    assert after["coupling_bwd_reduce"] == before["coupling_bwd_reduce"] + 2
+    want = CPK.coupling_fwd_plain(s, t, h, y, direction=direction,
+                                  with_ldj=True)
+    want_b = CPK.coupling_bwd_plain(s, t, h, y, gy, gl, direction=direction)
+
+    def flat(o):
+        return [o] if isinstance(o, torch.Tensor) else [
+            x for p in o if p is not None for x in flat(p)]
+
+    for a, b in zip(flat(out) + flat(back), flat(want) + flat(want_b)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for a, b in zip(flat(back), flat(again)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["auto", False, True])
+def test_layers_launch_the_coupling_kernels_only_under_true(cuda, mode):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(300, 5, generator=g).to(cuda)
+    th = torch.rand(300, 1, generator=g).to(cuda)
+    dt.set_fused_kernels(mode)
+    try:
+        for kind in (dt.RNVPCouplingLayer, dt.NICECouplingLayer):
+            layer = dt.coupling_layer(5, [0, 1, 2], n=1, kind=kind,
+                                      generator=g, device=cuda,
+                                      hidden_dim_s=16, hidden_dim_t=16,
+                                      zero_init_final=False)
+            before = CPK.launch_counts()
+            z, ldj = layer.inverse(x, th)
+            layer.forward(z, th)
+            layer.forward_(z, th)
+            fwd = CPK.launch_counts()
+            ((z ** 2).sum() - ldj.sum()).backward()
+            torch.cuda.synchronize()
+            bwd = CPK.launch_counts()
+            on = mode is True
+            assert fwd["coupling_fwd"] - before["coupling_fwd"] == 3 * on
+            assert bwd["coupling_bwd"] - before["coupling_bwd"] == on
+            assert all(p.grad is not None for p in layer.parameters())
+    finally:
+        dt.set_fused_kernels("auto")

@@ -119,7 +119,7 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                    "utils/checkpoint.py", "data_stream.py",
                    "native/__init__.py", "ops/step_kernels.py",
                    "ops/stream_kernels.py", "parallel/mesh.py",
-                   "parallel/__init__.py"):
+                   "parallel/__init__.py", "ops/coupling_kernels.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -193,6 +193,26 @@ def test_step_kernel_and_loader_sources_are_package_data():
         == ["__init__.py"]
 
 
+def test_coupling_kernel_source_is_package_data():
+    csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "coupling_kernels.cu")) as f:
+        text = f.read()
+    for symbol in ("df_coupling_fwd", "df_coupling_bwd", "coupling_fwd_kernel",
+                   "coupling_bwd_kernel", "coupling_bwd_reduce_kernel",
+                   "__global__"):
+        assert symbol in text
+    # a source of its own: no header of the package, no library
+    assert not [line for line in text.splitlines()
+                if line.startswith("#include \"")]
+    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
+                    "atomicadd"):
+        assert library not in text.lower()
+    with open(os.path.join(ROOT, "densityflows_tpu_torch", "ops",
+                           "coupling_kernels.py")) as f:
+        wrapper = f.read()
+    assert 'load_library("coupling_kernels")' in wrapper
+
+
 def test_build_module_needs_no_compiler_to_import():
     from densityflows_tpu_torch import _build
 
@@ -205,6 +225,7 @@ def test_build_module_needs_no_compiler_to_import():
     assert os.path.exists(_build.source_path("train_kernels"))
     assert os.path.exists(_build.source_path("step_kernels"))
     assert os.path.exists(_build.source_path("stream_kernels"))
+    assert os.path.exists(_build.source_path("coupling_kernels"))
     assert _build.source_path("loader", ".cpp").endswith(
         os.path.join("csrc", "loader.cpp"))
     assert "-pthread" in _build.HOST_FLAGS
