@@ -164,6 +164,75 @@ def time_ms(fn, warmup=2, runs=7):
     return statistics.median(times)
 
 
+def device_ms_by_kernel(fn, calls=20):
+    """Device time per call of each kernel that ``fn`` launches, summed over
+    its launches, from torch.profiler (CUPTI); ``None`` where the profiler
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + t / 1e3 / calls
+    return out or None
+
+
+def launch_ms(fn, per_call, calls=5):
+    """Device time of each of the ``per_call`` kernel launches of one call
+    of ``fn``, in launch order: ``[name, ms]``, the median over ``calls``
+    profiles (torch.profiler), each of a call of ``fn`` after one that is
+    not counted (the profiler can miss a session's first launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted(
+            (ev.time_range.start,
+             ev.name.replace("(anonymous namespace)::", "").split("(")[0],
+             ev.time_range.elapsed_us() / 1e3)
+            for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+        runs.append(events[-per_call:])
+    return [[runs[0][i][1], statistics.median(r[i][2] for r in runs)]
+            for i in range(per_call)]
+
+
+def host_split_ms(fn, reps=200):
+    """``(host_ms, back_to_back_ms)`` per call over ``reps`` calls issued
+    back to back: the host clock until the last call returns (the enqueue
+    cost), and CUDA events around them all (the device's pace when the host
+    keeps ahead, else the host's)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    e1.record()
+    torch.cuda.synchronize()
+    return host, e0.elapsed_time(e1) / reps
+
+
 # -- chains ----------------------------------------------------------------
 
 def numpy_weights_(chain, rng, final_scale):
@@ -324,6 +393,75 @@ def check_gradient(chain, x, th):
             worst = max(worst, require_close(a, b, f"gradient {i}", 1e-3,
                                              1e-4 * scale))
     return worst
+
+
+def nan_relu_logit_chain(d, n, h, rng, device):
+    """Relu couplings (two and three dense layers, one without bias) and a
+    trailing LogitLayer over (-60, 60): the places where a hand-written
+    chain kernel could swallow a NaN (relu, the logit's clamp)."""
+    lo, hi = list(range(d // 2)), list(range(d // 2, d))
+    kw = dict(n=n, device=device, hidden_dim_s=h, hidden_dim_t=h,
+              activation_s="relu", activation_t="relu")
+    chain = dt.flow_chain(
+        dt.coupling_layer(d, lo, n_sublayers_s=2, n_sublayers_t=2, **kw),
+        dt.coupling_layer(d, hi, bias=False, **kw),
+        dt.coupling_layer(d, lo, **kw),
+        dt.logit_layer((np.full(d, -60.0, np.float32),
+                        np.full(d, 60.0, np.float32)), device=device))
+    return numpy_weights_(chain, rng, 0.3)
+
+
+def check_chain_nan(rng, device):
+    """Rows holding a NaN (an identity dim, a transformed dim, a condition)
+    through a relu chain with a LogitLayer: chain_apply forward and inverse
+    at every row tile, chain_sample with a NaN condition row, and
+    ``Flow.log_prob`` on the chain route, each with the plain version's NaN
+    pattern."""
+    d, n, rows = 7, 3, 1001
+    chain = nan_relu_logit_chain(d, n, 18, rng, device)
+    x = put(rng.uniform(-5, 5, size=(rows, d)), device)
+    th = put(rng.uniform(size=(rows, n)), device)
+    x[3, 1] = float("nan")
+    x[500, 5] = float("nan")
+    th[11, 0] = float("nan")
+    worst, nan_rows = 0.0, {}
+    for dirn in ("fwd", "inv"):
+        plan, params = fc._plan_params(chain, dirn)
+        want_y, want_l = ck.chain_apply_plain(plan, params, x, th,
+                                              with_ldj=True)
+        nan_rows[dirn] = int(torch.isnan(want_l).sum())
+        if nan_rows[dirn] != 3:
+            fail(f"chain NaN rows {dirn}: the plain version has "
+                 f"{nan_rows[dirn]} NaN rows, expected 3")
+        for tb in ck.TILE_ROWS:
+            y, ldj = ck.run_chain(plan, params, x, th, with_ldj=True,
+                                  tile_rows=tb)
+            torch.cuda.synchronize()
+            tag = f"chain_apply NaN rows {dirn} tile {tb}"
+            worst = max(worst, require_close_nan(y, want_y, tag + " y"),
+                        require_close_nan(ldj, want_l, tag + " ldj"))
+    plan, params = fc._plan_params(chain, "fwd")
+    y, r = ck.run_chain_sample(plan, params, rows, d, th, seed=5,
+                               return_noise=True)
+    torch.cuda.synchronize()
+    want = ck.chain_sample_plain(plan, params, rows, d, th, noise=r)
+    if not bool(torch.isnan(want[11]).all()):
+        fail("chain_sample NaN condition row: the plain version is finite")
+    worst = max(worst, require_close_nan(y, want, "chain_sample NaN rows"))
+    flow = dt.Flow(chain, dt.MetaData("", d, n, np.zeros(n), np.ones(n)),
+                   device=device)
+    lp = {}
+    for mode in ("auto", False):
+        dt.set_fused_kernels(mode)
+        try:
+            with torch.no_grad():
+                lp[mode] = flow.log_prob(x, th)
+            torch.cuda.synchronize()
+        finally:
+            dt.set_fused_kernels("auto")
+    worst = max(worst, require_close_nan(lp["auto"], lp[False],
+                                        "log_prob NaN rows, chain route"))
+    return worst, nan_rows
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -1022,8 +1160,9 @@ def plain_packed(sp, tparams, x, th, mask, denom=None):
 
 def check_step_case(case, name, rng, device):
     """One folded chain: a weighted batch of an odd row count with padded
-    rows and a fully masked tile, at several tiles and block counts, against
-    the plain version; two launches bit for bit; an explicit denominator;
+    rows and a fully masked tile, at several tiles and block counts, with
+    the parameters in shared memory and in device memory, against the plain
+    version; two launches bit for bit; an explicit denominator;
     off-support gradient entries exactly 0; a NaN row; and the gradients
     against autograd of the per-layer path."""
     x, th = case.arrays[0], case.arrays[1]
@@ -1037,17 +1176,19 @@ def check_step_case(case, name, rng, device):
     want = plain_packed(sp, case.tparams, x, th, mask)
     worst = 0.0
     runs = {}
-    for tile, n_blocks in ((None, None), (8, 3), (16, None), (64, None),
-                           (1, None)):
-        got = sp.loss_and_grads(flat, x, th, mask, tile=tile,
-                                n_blocks=n_blocks)
-        again = sp.loss_and_grads(flat, x, th, mask, tile=tile,
-                                  n_blocks=n_blocks)
+    # tiles, grids and both residencies of the parameters (shared memory,
+    # device memory)
+    for tile, n_blocks, stage in ((None, None, None), (8, 3, True),
+                                  (8, 3, False), (16, None, False),
+                                  (64, None, True), (1, None, None)):
+        kw = dict(tile=tile, n_blocks=n_blocks, stage=stage)
+        got = sp.loss_and_grads(flat, x, th, mask, **kw)
+        again = sp.loss_and_grads(flat, x, th, mask, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
-            fail(f"step_grads {name}: two launches differ (tile {tile})")
+            fail(f"step_grads {name}: two launches differ ({kw})")
         worst = max(worst, require_step_close(
-            got, want, f"step_grads {name} tile {tile} blocks {n_blocks}"))
+            got, want, f"step_grads {name} {kw}"))
         runs[tile] = got
     dense = torch.cat([(torch.ones_like(p) if s is None else sp.masks[s]
                         ).reshape(-1) for p, s in
@@ -1449,17 +1590,13 @@ def step_time_split(make_flow, x, th, cfg, step_ms, device):
     xb, thb, mask = staged
     copy_ms = time_ms(lambda: stage(*host[0]), runs=15)
 
-    tile = sp.pick_tile(batch)
-    n_blocks = sp.grid(batch, tile)
-    partial = torch.empty(n_blocks * (sp.n_params + 1), device=device)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(*a):
-        return sk._library().df_step_grads(*a, stream)
+    launcher = sp.launcher(batch)
+    den = mask.sum().reshape(1)
+    buf = torch.empty(sp.n_params + 1, device=device)
 
     def phase(which):
-        return lambda: sk._step_grads(launch, sp, flat_p, xb, thb, mask,
-                                      phases=which, partial=partial)
+        return lambda: launcher(sk._library_launch, flat_p, xb, thb, mask,
+                                denom=den, out=buf, phases=which)
 
     kernel_ms = time_ms(lambda: sp.loss_and_grads(flat_p, xb, thb, mask),
                         runs=15)
@@ -1480,9 +1617,11 @@ def step_time_split(make_flow, x, th, cfg, step_ms, device):
     device_step_ms = time_ms(many, warmup=1, runs=5) / 100
     device_ms = copy_ms + kernel_ms + denom_ms + adam_ms
     return dict(
-        tile_rows=tile, blocks=n_blocks, threads=sp.threads(tile),
-        shared_bytes=sp.shared_bytes(tile), folded_parameters=sp.n_params,
-        partial_bytes=4 * partial.numel(),
+        tile_rows=launcher.tile, blocks=launcher.n_blocks,
+        threads=launcher.threads, shared_bytes=launcher.shared_bytes,
+        parameters_in_shared_memory=launcher.staged,
+        folded_parameters=sp.n_params,
+        partial_bytes=4 * launcher.partial.numel(),
         loader_ms_per_batch=loader_ms, staging_host_ms=stage_host_ms,
         copy_ms=copy_ms, kernel_ms=kernel_ms, kernel_tiles_ms=tiles_ms,
         kernel_reduction_ms=reduce_ms, denominator_ms=denom_ms,
@@ -1582,48 +1721,50 @@ def drive_mesh(device, tmp):
 
 
 def step_tile_sweep(sp, flat, d, n, batches, device):
-    """``step_grads`` timed over row tiles and grids at several batch sizes:
-    per ``batch`` and ``tile x blocks`` the two kernels together, the tile
-    kernel alone and the reduction alone (ms, CUDA events). Grids: one block
-    per tile, and fewer blocks that take several tiles each in turn. Every
-    tiling must give the first one's result (1e-4 absolute + relative)."""
+    """``step_grads`` timed over row tiles, grids and residencies at several
+    batch sizes: per ``batch`` and ``tile x blocks`` (``s`` suffix: the
+    parameters staged in shared memory) the two kernels together, the tile
+    kernel alone and the reduction alone, each over launches back to back
+    (ms, CUDA events). Grids: one block per tile, and fewer blocks that take
+    several tiles each in turn. Every tiling must give the first one's
+    result (1e-4 absolute + relative)."""
     rng = np.random.default_rng(SEED + 11)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(*a):
-        return sk._library().df_step_grads(*a, stream)
-
     out = {}
     for batch in batches:
         x, th = data(rng, batch, d, n, device)
         mask = torch.ones(batch, device=device)
+        den = mask.sum().reshape(1)
+        buf = torch.empty(sp.n_params + 1, device=device)
         first, by_tiling = None, {}
         for tile in (4, 8, 16, 32, 64):
             if tile > batch or sp.shared_bytes(tile) > sk.MAX_SHARED_BYTES:
                 continue
             n_tiles = -(-batch // tile)
-            for n_blocks in sorted({n_tiles, max(1, n_tiles // 2),
-                                    max(1, n_tiles // 4),
-                                    min(n_tiles, 528), min(n_tiles, 132)},
-                                   reverse=True):
-                partial = torch.empty(n_blocks * (sp.n_params + 1),
-                                      device=device)
-                kw = dict(tile=tile, n_blocks=n_blocks, partial=partial)
-                got = sk._step_grads(launch, sp, flat, x, th, mask, **kw)
-                torch.cuda.synchronize()
-                if first is None:
-                    first = got
-                # sums of up to 65,536 rows in another order: relative too
-                require_close(got, first, f"step_grads batch {batch} tile "
-                              f"{tile} blocks {n_blocks}", 1e-4, 1e-4)
-                by_tiling[f"{tile}x{n_blocks}"] = [
-                    time_ms(lambda: sk._step_grads(
-                        launch, sp, flat, x, th, mask, phases=ph, **kw),
-                        runs=15) for ph in (3, 1, 2)]
-        tile = sp.pick_tile(batch)
+            for stage in sorted({False, sp.stage_fits(tile)}):
+                for n_blocks in sorted({n_tiles, max(1, n_tiles // 2),
+                                        max(1, n_tiles // 4),
+                                        min(n_tiles, 528), min(n_tiles, 132),
+                                        min(n_tiles, 66)}, reverse=True):
+                    launcher = sp.launcher(batch, tile=tile,
+                                           n_blocks=n_blocks, stage=stage)
+                    got = launcher(sk._library_launch, flat, x, th, mask)
+                    torch.cuda.synchronize()
+                    if first is None:
+                        first = got
+                    # sums of up to 65,536 rows in another order: relative
+                    require_close(got, first, f"step_grads batch {batch} "
+                                  f"tile {tile} blocks {n_blocks} staged "
+                                  f"{stage}", 1e-4, 1e-4)
+                    by_tiling[f"{tile}x{n_blocks}{'s' if stage else ''}"] = [
+                        host_split_ms(lambda: launcher(
+                            sk._library_launch, flat, x, th, mask, denom=den,
+                            out=buf, phases=ph), reps=30)[1]
+                        for ph in (3, 1, 2)]
+                    sp._launchers.clear()     # partial buffers: one at a time
+        tile, blocks, staged = sp.launch_shape(batch)
         out[str(batch)] = dict(
             ms_all_tiles_reduction_by_tile_x_blocks=by_tiling,
-            default=f"{tile}x{sp.grid(batch, tile)}")
+            default=f"{tile}x{blocks}{'s' if staged else ''}")
     return out
 
 
@@ -1660,12 +1801,28 @@ def step_kernel_row(flows, launches, err_small, device, card):
         if abs(float(own[0][-1] + own[1][-1]) - 2 * float(got[-1])) > 1e-3:
             fail(f"step_grads {name}: shard losses with their own "
                  "denominators should sum to twice the batch's")
+        again = sp.loss_and_grads(flat, x, th, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"step_grads at the {name} shape: two launches differ")
         ms = time_ms(lambda: sp.loss_and_grads(flat, x, th, mask), runs=25)
         plain = time_ms(lambda: plain_packed(sp, folded.tparams, x, th,
                                              mask), runs=7)
+        # the call apart: host enqueue, the device's pace back to back, each
+        # kernel's device time (profiler), each kernel alone (events)
+        den = mask.sum().reshape(1)
+        buf = torch.empty(sp.n_params + 1, device=device)
+        launcher = sp.launcher(batch)
+        host_ms, b2b_ms = host_split_ms(
+            lambda: sp.loss_and_grads(flat, x, th, mask, denom=den))
+        by_kernel = device_ms_by_kernel(
+            lambda: sp.loss_and_grads(flat, x, th, mask, denom=den))
+        alone = {ph: host_split_ms(lambda: launcher(
+            sk._library_launch, flat, x, th, mask, denom=den, out=buf,
+            phases=ph), reps=100)[1] for ph in (1, 2)}
         fwd = needed_flops_per_row(flow.model)
         flops = 3 * batch * fwd
-        pk = sp.packed(sp.pick_tile(batch))
+        pk = sp.packed(launcher.tile)
         nbytes = 4 * (batch * (d + n + 1) + 1 + 2 * sp.n_params
                       + pk.flat_consts.numel() + pk.prog.numel()
                       + sp.n_params + 1)
@@ -1674,9 +1831,13 @@ def step_kernel_row(flows, launches, err_small, device, card):
                          bound_by=by, max_abs_err=err,
                          shard_sum_max_abs_err=shard_err, needed_flops=flops,
                          needed_bytes=nbytes, folded_parameters=sp.n_params,
-                         tile_rows=sp.pick_tile(batch),
-                         blocks=sp.grid(batch, sp.pick_tile(batch)),
-                         shared_bytes=sp.shared_bytes(sp.pick_tile(batch)))
+                         tile_rows=launcher.tile, blocks=launcher.n_blocks,
+                         shared_bytes=launcher.shared_bytes,
+                         parameters_in_shared_memory=launcher.staged,
+                         host_enqueue_ms=host_ms, back_to_back_ms=b2b_ms,
+                         device_ms_by_kernel=by_kernel,
+                         tile_kernel_back_to_back_ms=alone[1],
+                         reduction_back_to_back_ms=alone[2])
     say(phase="step_kernel_times", card=card, **out)
     for name, flow, batches in (
             ("med", flows["med"], (MED["batch"], 8192, 65536)),
@@ -1709,6 +1870,13 @@ def step_kernel_row(flows, launches, err_small, device, card):
         "ms_batch64": base["ms"], "plain_ms_batch64": base["plain_ms"],
         "bound_ms_batch64": base["bound_ms"],
         "bound_by_batch64": base["bound_by"],
+        "device_ms_by_kernel": med["device_ms_by_kernel"],
+        "device_ms_by_kernel_batch64": base["device_ms_by_kernel"],
+        "host_enqueue_ms": med["host_enqueue_ms"],
+        "host_enqueue_ms_batch64": base["host_enqueue_ms"],
+        "parameters_in_shared_memory": med["parameters_in_shared_memory"],
+        "parameters_in_shared_memory_batch64":
+            base["parameters_in_shared_memory"],
         "shard_sum_max_abs_err": max(med["shard_sum_max_abs_err"],
                                      base["shard_sum_max_abs_err"]),
     }
@@ -2140,10 +2308,23 @@ def coupling_grads_each_step(start, batches, steps):
     return errs
 
 
-def coupling_counts(fwd, bwd):
+def coupling_counts(fwd, bwd, per_bwd=0):
+    """Launch counts of ``fwd`` coupling_fwd calls and ``bwd`` coupling_bwd
+    calls of ``per_bwd`` launches each (``cpk.bwd_launches``: a product
+    launch per layer of the forward and of the backward, and the pullback)
+    plus one reduction each."""
     return dict(chain_apply=0, chain_sample=0, train_run=0, step_grads=0,
-                train_stream=0, coupling_fwd=fwd, coupling_bwd=bwd,
+                train_stream=0, coupling_fwd=fwd, coupling_bwd=bwd * per_bwd,
                 coupling_bwd_reduce=bwd)
+
+
+def layer_nets(layer):
+    """A coupling layer's nets as the wrappers take them."""
+    def net(m):
+        return ([w.detach() for w in m.weights],
+                [b.detach() for b in m.biases], m.activation)
+
+    return net(layer.s_net), net(layer.t_net)
 
 
 def declined_chain(device):
@@ -2205,14 +2386,18 @@ def drive_coupling_main_path(device):
     start = wide_chain(False, np.random.default_rng(SEED + 11), device)
     n_couplings = sum(isinstance(layer, dt.RNVPCouplingLayer)
                       for layer in fc._iter_layers(start, "fwd"))
+    per_bwd = cpk.bwd_launches(*layer_nets(next(fc._iter_layers(start,
+                                                                "fwd"))))
     reset_counts()
     model_k, losses_k, sec_k = coupling_steps(start, batches, True, steps)
     launches = read_counts()
     per_step = n_couplings
-    if launches != coupling_counts(per_step * steps, per_step * steps):
+    if launches != coupling_counts(per_step * steps, per_step * steps,
+                                   per_bwd):
         fail(f"coupling main path launches {launches}, expected "
-             f"{per_step} coupling_fwd and {per_step} coupling_bwd (+ its "
-             f"reduction) per step and no other kernel")
+             f"{per_step} coupling_fwd and {per_step} coupling_bwd calls of "
+             f"{per_bwd} launches (+ a reduction) per step and no other "
+             "kernel")
     model_p, losses_p, sec_p = coupling_steps(start, batches, False, steps)
     with plain_coupling_ops():
         model_f, losses_f, _ = coupling_steps(start, batches, True, steps)
@@ -2255,7 +2440,7 @@ def drive_coupling_main_path(device):
     # per epoch: every batch's loss and gradient, then the two full-split
     # evaluations of the plain program (forward only)
     want = coupling_counts(epochs * (n_batches + 2) * per_step,
-                           epochs * n_batches * per_step)
+                           epochs * n_batches * per_step, per_bwd)
     if train_launches != want:
         fail(f"train under True: launches {train_launches}, expected {want}")
     tl, vl = np.asarray(flow.train_loss), np.asarray(flow.valid_loss)
@@ -2284,6 +2469,7 @@ def drive_coupling_main_path(device):
         train_seconds=train_seconds, train_nll_before=nll0,
         train_nll=tl.tolist(),
         valid_nll=vl.tolist(), train_launches=train_launches,
+        coupling_bwd_launches_per_call=per_bwd,
         declined_chain_max_abs_err=declined_err)
     return launches, report, (start, batches)
 
@@ -2292,8 +2478,8 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
     """The {"kernels": ...} entries of coupling_fwd / coupling_bwd at the main
     path's shapes: the first coupling of the wide chain on one batch (8192
     rows, K 24, A 16, hidden 256) in the inverse direction the loss runs.
-    Also the backward's two kernels apart, and the per-layer train step
-    against the plain autograd step on the same weights."""
+    Also the backward's kernels apart, and the per-layer train step against
+    the plain autograd step on the same weights."""
     device = batches[0][0].device
     layer = next(fc._iter_layers(start, "fwd"))
     xb, thb = batches[0]
@@ -2301,11 +2487,7 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
     h = cpl.nn_input(y_id, thb).contiguous()
     y = y_af.contiguous()
 
-    def net(m):
-        return ([w.detach() for w in m.weights],
-                [b.detach() for b in m.biases], m.activation)
-
-    s, t = net(layer.s_net), net(layer.t_net)
+    s, t = layer_nets(layer)
     B, K = h.shape
     A = y.shape[1]
     rng = np.random.default_rng(SEED + 17)
@@ -2319,32 +2501,41 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
         s, t, h, y, direction="inverse", with_ldj=True), runs=15)
     plain_b = time_ms(lambda: cpk.coupling_bwd_plain(
         s, t, h, y, gy, gl, direction="inverse"), runs=15)
+    # the backward apart: each kernel's device time, and each launch's in
+    # launch order (profiler)
+    by_kernel = device_ms_by_kernel(lambda: cpk.coupling_bwd(
+        s, t, h, y, gy, gl, direction="inverse"))
+    by_launch = launch_ms(lambda: cpk.coupling_bwd(
+        s, t, h, y, gy, gl, direction="inverse"), cpk.bwd_launches(s, t) + 1)
+    host_ms, _ = host_split_ms(lambda: cpk.coupling_bwd(
+        s, t, h, y, gy, gl, direction="inverse"), reps=50)
     stream = torch.cuda.current_stream().cuda_stream
-    ws = torch.empty(cpk.workspace_floats(B, s, t), device=device)
+    segs = cpk.bwd_segments(B)
 
-    def part(phases):
+    def part(n_segs, workspace):
         return lambda: cpk._run_bwd(
             lambda *a: cpk._library().df_coupling_bwd(*a, stream), s, t, h, y,
-            gy, gl, direction="inverse", phases=phases, workspace=ws)
+            gy, gl, direction="inverse", workspace=workspace, segs=n_segs)
 
-    part(1)()                   # the reduction alone reads a filled workspace
-    tile_ms = time_ms(part(1), runs=15)
-    reduce_ms = time_ms(part(2), runs=15)
-    # each kernel at the row tiles it can take (the default: 8)
-    need = {"fwd": lambda r: cpk.fwd_shared_bytes(r, s, t, K, A),
-            "bwd": lambda r: cpk.bwd_shared_bytes(r, s, t, K)}
+    # the forward at the row tiles it can take (the default: 8); the
+    # backward at other row segment counts of its dW products
+    need = {"fwd": lambda r: cpk.fwd_shared_bytes(r, s, t, K, A)}
     by_tile = {}
     for tb in (8, 16, 32, 64):
         cpk.set_tile_rows(tb)
         try:
             by_tile[tb] = dict(
-                tiles_taken=[cpk.pick_tile(k, need[k]) for k in need],
+                tile_taken=cpk.pick_tile("fwd", need["fwd"]),
                 fwd=time_ms(lambda: cpk.coupling_fwd(
-                    s, t, h, y, direction="inverse"), runs=7),
-                bwd=time_ms(lambda: cpk.coupling_bwd(
-                    s, t, h, y, gy, gl, direction="inverse"), runs=7))
+                    s, t, h, y, direction="inverse"), runs=7))
         finally:
             cpk.set_tile_rows(None)
+    by_segs = {}
+    for n_segs in (4, 8, 16, 32):
+        w_s = torch.empty(cpk.workspace_floats(B, s, t, n_segs),
+                          device=device)
+        by_segs[n_segs] = time_ms(part(n_segs, w_s), runs=7)
+        del w_s
 
     base = dt.StandardNormal(D)
     mask = torch.ones(B, device=device)
@@ -2373,17 +2564,21 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
     bb_ms, bb_by = bound_ms(3 * flops_f, bytes_b)
     n_c = sum(isinstance(c, dt.RNVPCouplingLayer)
               for c in fc._iter_layers(start, "fwd"))
-    tiles = {k: cpk.pick_tile(k, need[k]) for k in need}
+    tiles = {"fwd": cpk.pick_tile("fwd", need["fwd"])}
     say(phase="coupling_times", card=card, rows=B, K=K, A=A, hidden=HIDDEN,
         coupling_fwd_ms=ms_f, coupling_bwd_ms=ms_b,
-        coupling_bwd_tile_kernel_ms=tile_ms,
-        coupling_bwd_reduce_ms=reduce_ms, coupling_fwd_plain_ms=plain_f,
+        coupling_bwd_device_ms_by_kernel=by_kernel,
+        coupling_bwd_device_ms_by_launch=by_launch,
+        coupling_bwd_host_enqueue_ms=host_ms, coupling_bwd_segments=segs,
+        coupling_bwd_ms_by_segments=by_segs,
+        coupling_bwd_launches_per_call=cpk.bwd_launches(s, t),
+        coupling_fwd_plain_ms=plain_f,
         coupling_bwd_plain_ms=plain_b, coupling_fwd_bound_ms=bf_ms,
         coupling_bwd_bound_ms=bb_ms, step_ms_per_layer_kernels=step_ms[True],
         step_ms_plain_autograd=step_ms[False],
         step_kernel_bound_ms=n_c * (bf_ms + bb_ms), tile_rows=tiles,
         ms_by_tile_rows=by_tile,
-        workspace_bytes=4 * ws.numel())
+        workspace_bytes=4 * cpk.workspace_floats(B, s, t, segs))
     shape = (f"one coupling, inverse, h ({B}, {K}), y ({B}, {A}), two nets "
              f"{K}->{HIDDEN}->{HIDDEN}->{A}")
     common = dict(route="cuda",
@@ -2403,9 +2598,11 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
              launches=launches["coupling_bwd"], max_abs_err=errs["bwd"],
              ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
              needed_flops=3 * flops_f, needed_bytes=bytes_b,
-             tile_kernel_ms=tile_ms, reduce_ms=reduce_ms,
+             device_ms_by_kernel=by_kernel, device_ms_by_launch=by_launch,
+             host_enqueue_ms=host_ms,
+             launches_per_call=cpk.bwd_launches(s, t),
              reduce_launches=launches["coupling_bwd_reduce"],
-             tile_rows=tiles["bwd"], **common),
+             row_segments=segs, **common),
     ]
 
 
@@ -2557,6 +2754,10 @@ def main():
     say(phase="kernels_small", chain_apply_max_abs_err=err_a,
         chain_sample_max_abs_err=err_s, gradient_max_abs_err=err_g,
         tolerance=KERNEL_TOL)
+    err_nan, nan_rows = check_chain_nan(np.random.default_rng(SEED + 23),
+                                        device)
+    say(phase="chain_nan_rows", max_abs_err_finite_entries=err_nan,
+        plain_nan_rows=nan_rows, nan_pattern="equal to the plain version's")
 
     # phase 3b/3c: the wide config, split and joint, 2^18 rows
     errs = {"chain_apply": err_a, "chain_sample": err_s}

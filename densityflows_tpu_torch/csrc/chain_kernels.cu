@@ -72,7 +72,8 @@ __device__ __forceinline__ float sigmoid_f(float u) {
 
 __device__ __forceinline__ float act_fn(int act, float u) {
     switch (act) {
-        case ACT_RELU: return fmaxf(u, 0.f);
+        // not fmaxf: it would swallow a NaN, which the plain version keeps
+        case ACT_RELU: return u < 0.f ? 0.f : u;
         case ACT_TANH: return tanhf(u);
         case ACT_SIGMOID: return sigmoid_f(u);
         case ACT_SILU: return u * sigmoid_f(u);
@@ -190,9 +191,9 @@ __device__ __forceinline__ void dense(const float* __restrict__ in, int ldin,
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
             float4 o = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-            if (relu) {
-                o.x = fmaxf(o.x, 0.f); o.y = fmaxf(o.y, 0.f);
-                o.z = fmaxf(o.z, 0.f); o.w = fmaxf(o.w, 0.f);
+            if (relu) {   // u < 0 ? 0 : u keeps a NaN, fmaxf would not
+                o.x = o.x < 0.f ? 0.f : o.x; o.y = o.y < 0.f ? 0.f : o.y;
+                o.z = o.z < 0.f ? 0.f : o.z; o.w = o.w < 0.f ? 0.f : o.w;
             }
             *reinterpret_cast<float4*>(op + i * out_stride) = o;
         }
@@ -279,7 +280,8 @@ __device__ void logit(const Tile& t, int dirn, float eps, const float* lo,
                 x[j] = l + (h - l) * sigmoid_f(z);
             } else {
                 float u = (x[j] - l) / (h - l);
-                u = fminf(fmaxf(u, eps), 1.f - eps);
+                // a clamp that keeps a NaN, as the plain version's does
+                if (u == u) u = fminf(fmaxf(u, eps), 1.f - eps);
                 z = logf(u) - log1pf(-u);
                 x[j] = z;
             }

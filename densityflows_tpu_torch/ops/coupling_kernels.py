@@ -12,19 +12,23 @@ Kernels (``csrc/coupling_kernels.cu``, built by ``_build.py`` at first use):
 
 - :func:`coupling_fwd` launches ``coupling_fwd``; it replaces
   ``densityflows_tpu/ops/pallas_coupling.py::_fwd_kernel``.
-- :func:`coupling_bwd` launches ``coupling_bwd`` and its reduction
-  ``coupling_bwd_reduce``; they replace ``::_bwd_kernel``. The TPU kernel adds
-  each grid step's dW / db into resident output blocks, which needs its grid
-  to run in order; here the tile kernel stores every layer's input and delta
-  of its rows in a device workspace and the reduction sums them over all rows
-  in row order, one thread per dW / db element (see the source's note).
+- :func:`coupling_bwd` launches the backward's kernels; together they
+  replace ``::_bwd_kernel``. Every product of the backward is a matrix
+  product over all rows, computed by one hand-written register-tiled f32
+  kernel (``coupling_product``), one launch per layer of the forward and per
+  layer of the backward (both nets' products in one launch), with the
+  coupling's pullback (``coupling_pullback``) between them. The TPU kernel
+  adds each grid step's dW / db into resident output blocks, which needs its
+  grid to run in order; here a dW product cuts the rows into a fixed number
+  of segments and ``coupling_bwd_reduce`` sums the segments in index order
+  (see the source's note). ``bwd_launches`` gives the count per call.
 
 A wrapper uses its plain version (:func:`coupling_fwd_plain`,
 :func:`coupling_bwd_plain`) only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel or raises. The kernels are float32 only: any
 other dtype raises ``TypeError``. ``coupling_fwd.launches``,
-``coupling_bwd.launches`` and ``coupling_bwd.reduce_launches`` count kernel
-launches (:func:`launch_counts`).
+``coupling_bwd.launches`` (the products and the pullback) and
+``coupling_bwd.reduce_launches`` count kernel launches (:func:`launch_counts`).
 
 A net is handed to the wrappers as ``(weights, biases, activation)``:
 weights ``(in_i, out_i)``, biases ``(out_i,)`` or an empty list; ``None``
@@ -36,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,7 +51,8 @@ __all__ = [
     "fused_coupling", "fused_coupling_nvp", "fused_coupling_nice",
     "set_tile_rows", "kernels_available", "coupling_fwd", "coupling_bwd",
     "coupling_fwd_plain", "coupling_bwd_plain", "reset_launch_counts",
-    "launch_counts", "ACT_CODES", "TILE_ROWS", "MAX_LAYERS",
+    "launch_counts", "bwd_launches", "bwd_segments", "ACT_CODES",
+    "TILE_ROWS", "MAX_LAYERS",
 ]
 
 # activation codes of csrc/coupling_kernels.cu
@@ -56,22 +62,26 @@ ACT_CODES = {
 }
 # dense layers per net the kernels take
 MAX_LAYERS = 16
-# row tiles; each kernel starts at its default (or the set_tile_rows value)
-# and halves it until the tile's shared memory fits one block. The default,
-# 8 rows for both, was the fastest of 8 to 64 in a sweep on an H100 at the
+# row tiles of coupling_fwd; it starts at its default (or the set_tile_rows
+# value) and halves it until the tile's shared memory fits one block. The
+# default, 8 rows, was the fastest of 8 to 64 in a sweep on an H100 at the
 # opt-in train step's shapes (chip_smoke.py, phase coupling_times)
 TILE_ROWS = (64, 32, 16, 8, 4, 2, 1)
-_DEFAULT_TILE = {"fwd": 8, "bwd": 8}
+_DEFAULT_TILE = {"fwd": 8}
 _TILE: int | None = None
+# coupling_bwd's dW products: about this many rows per segment, at most
+# _MAX_SEGS segments (8192 rows: 16 segments)
+_SEG_ROWS = 512
+_MAX_SEGS = 32
 _THREADS = 256
 _KIND = {"nvp": 0, "nice": 1}
 _DIRECTION = {"forward": 0, "inverse": 1}
 
 
 def set_tile_rows(tb: int | None) -> None:
-    """Override the rows per block of both kernels (``None``: the default,
-    8). A tile whose shared memory does not fit one block is halved all the
-    same."""
+    """Override the rows per block of ``coupling_fwd`` (``None``: the
+    default, 8). A tile whose shared memory does not fit one block is halved
+    all the same."""
     global _TILE
     if tb is not None and tb not in TILE_ROWS:
         raise ValueError(f"tile rows must be one of {TILE_ROWS}")
@@ -261,6 +271,9 @@ def _check_net(net, name, K, A, device):
 
 
 def _check(x, name, shape, device):
+    if (x.dtype == torch.float32 and x.shape == tuple(shape)
+            and x.device == device and x.is_contiguous()):
+        return
     _require_f32(x, name)
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -288,12 +301,12 @@ def _check_inputs(s, t, h, y):
 
 
 def _row_floats(net):
-    """Floats of one row's layer inputs a_1.. and deltas: the backward's
-    shared memory per row and workspace per row of one net."""
+    """The backward's workspace per row of one net: the pre-activation and
+    the activation of every hidden layer, and the net's output."""
     if net is None:
         return 0
     d = _dims(net)
-    return sum(d[1:-1]) + sum(d[1:])
+    return 2 * sum(d[1:-1]) + d[-1]
 
 
 def fwd_shared_bytes(tile, s, t, K, A) -> int:
@@ -302,16 +315,28 @@ def fwd_shared_bytes(tile, s, t, K, A) -> int:
     return 4 * tile * (K + 2 * hmax + 2 * A)
 
 
-def bwd_shared_bytes(tile, s, t, K) -> int:
-    return 4 * tile * (K + _row_floats(s) + _row_floats(t))
+def bwd_segments(rows: int) -> int:
+    """Row segments of the backward's dW products for a batch of ``rows``."""
+    return max(1, min(_MAX_SEGS, rows // _SEG_ROWS))
 
 
-def workspace_floats(rows, s, t) -> int:
-    return rows * (_row_floats(s) + _row_floats(t))
+def bwd_launches(s, t) -> int:
+    """Launches of one ``coupling_bwd`` call besides its reduction: a product
+    launch per layer of the deeper net, forward and backward, and the
+    pullback."""
+    return 2 * max(len(net[0]) for net in (s, t) if net is not None) + 1
+
+
+def workspace_floats(rows, s, t, segs=1) -> int:
+    """The backward's workspace: per row of each net, its hidden layers'
+    pre-activations and activations and its output; then the dW / db
+    partials of every segment (``csrc/coupling_kernels.cu::net_workspace``)."""
+    return rows * (_row_floats(s) + _row_floats(t)) + segs * grad_items(s, t)
 
 
 def grad_items(s, t) -> int:
-    """dW / db entries, one thread each in the reduction."""
+    """dW / db entries, one thread each in the reduction; per segment, the
+    entries of the dW products' partials."""
     items = 0
     for net in (s, t):
         if net is not None:
@@ -323,8 +348,8 @@ def grad_items(s, t) -> int:
 
 
 def pick_tile(which: str, need) -> int:
-    """Rows per block of kernel ``which`` ("fwd" / "bwd"): the default (or
-    set) tile, halved until ``need(tile)`` bytes fit one block; raises
+    """Rows per block of kernel ``which`` ("fwd"): the default (or set)
+    tile, halved until ``need(tile)`` bytes fit one block; raises
     ``ValueError`` when even one row does not."""
     tb = _TILE or _DEFAULT_TILE[which]
     while tb > 1 and need(tb) > MAX_SHARED_BYTES:
@@ -351,17 +376,13 @@ def _iargs(s, t, direction, with_ldj, B, K, A, tile):
     return (ctypes.c_int * len(ia))(*ia)
 
 
-def _ptrs(head, s, t, extra=None):
-    """Pointers in the order of ``make_args``: the head, then per net its
-    weights and biases and, for the backward, ``extra[net]``: the transposed
-    weights, the weight and the bias gradients."""
+def _ptrs(head, s, t):
+    """The forward's pointers in the order of ``make_args``: the head, then
+    per net its weights and biases."""
     ps = [x.data_ptr() if x is not None else 0 for x in head]
-    for k, net in enumerate((s, t)):
-        if net is None:
-            continue
-        ps += [x.data_ptr() for x in net[0] + net[1]]
-        if extra is not None:
-            ps += [x.data_ptr() for x in extra[k]]
+    for net in (s, t):
+        if net is not None:
+            ps += [x.data_ptr() for x in net[0] + net[1]]
     return (ctypes.c_longlong * len(ps))(*ps)
 
 
@@ -389,34 +410,82 @@ def _run_fwd(launch, s, t, h, y, *, direction, with_ldj, tile=None):
     return (out, ldj) if with_ldj else out
 
 
-def _run_bwd(launch, s, t, h, y, g_y, g_ldj, *, direction, tile=None,
-             phases=3, workspace=None):
-    """The backward's buffers and ``launch(ptrs, iargs, threads,
-    shared_bytes, items, phases) → error code``. ``phases`` / ``workspace``
-    exist to time the two kernels apart: 1 runs the tile kernel only, 2 the
-    reduction only, over a workspace an earlier launch filled."""
+class _BwdLayout(NamedTuple):
+    """The backward's arguments that depend on shapes only, made once per
+    shape: the ctypes integer arguments, the workspace size and where each
+    output lies in the one buffer that holds them all."""
+    iargs: object
+    n_ws: int
+    sizes: tuple      # floats of dh, dy, then per net its dW and db
+    shapes: tuple
+    n_grads: tuple    # (weights, biases) per net, None for an absent net
+
+
+_BWD_LAYOUTS: dict = {}
+
+
+def _net_key(net):
+    if net is None:
+        return None
+    return (tuple(tuple(w.shape) for w in net[0]), bool(net[1]), net[2])
+
+
+def _bwd_layout(s, t, direction, B, K, A, segs):
+    key = (direction, B, K, A, segs, _net_key(s), _net_key(t))
+    layout = _BWD_LAYOUTS.get(key)
+    if layout is None:
+        shapes, n_grads = [(B, K), (B, A)], []
+        for net in (s, t):
+            if net is None:
+                n_grads.append(None)
+                continue
+            shapes += [tuple(w.shape) for w in net[0]]
+            if net[1]:
+                shapes += [(int(w.shape[1]),) for w in net[0]]
+            n_grads.append((len(net[0]), len(net[0]) if net[1] else 0))
+        layout = _BwdLayout(
+            _iargs(s, t, direction, True, B, K, A, 1),
+            workspace_floats(B, s, t, segs),
+            tuple(int(np.prod(sh)) for sh in shapes), tuple(shapes),
+            tuple(n_grads))
+        _BWD_LAYOUTS[key] = layout
+    return layout
+
+
+def _run_bwd(launch, s, t, h, y, g_y, g_ldj, *, direction, segs=None,
+             workspace=None):
+    """The backward's buffers and ``launch(ptrs, iargs, workspace_floats,
+    segs) → error code``. ``segs``: row segments of the dW products (default
+    :func:`bwd_segments`). The outputs are views of one new buffer, the
+    workspace (``workspace_floats`` floats; one can be handed in) another."""
     B, K, A = y.shape[0], h.shape[1], y.shape[1]
-    if tile is None:
-        tile = pick_tile("bwd", lambda tb: bwd_shared_bytes(tb, s, t, K))
-    shared = bwd_shared_bytes(tile, s, t, K)
+    if segs is None:
+        segs = bwd_segments(B)
+    layout = _bwd_layout(s, t, direction, B, K, A, segs)
     f32 = dict(dtype=torch.float32, device=y.device)
-    n_ws = workspace_floats(B, s, t)
     if workspace is None:
-        workspace = torch.empty(n_ws, **f32)
-    elif workspace.numel() != n_ws:
+        workspace = torch.empty(layout.n_ws, **f32)
+    elif workspace.numel() != layout.n_ws:
         raise ValueError("workspace of another shape")
-    dh = torch.empty(B, K, **f32)
-    dy = torch.empty(B, A, **f32)
-    grads = [None if net is None else
-             ([torch.empty_like(w) for w in net[0]],
-              [torch.empty_like(b) for b in net[1]]) for net in (s, t)]
-    extra = [[] if net is None else
-             [w.t().contiguous() for w in net[0]] + g[0] + g[1]
-             for net, g in zip((s, t), grads)]
-    ptrs = _ptrs((h, y, g_y, g_ldj, None, None, dh, dy, workspace), s, t,
-                 extra)
-    err = launch(ptrs, _iargs(s, t, direction, True, B, K, A, tile),
-                 _THREADS, shared, grad_items(s, t), int(phases))
+    outs = [x if len(sh) == 1 else x.view(sh) for x, sh in zip(
+        torch.empty(sum(layout.sizes), **f32).split(layout.sizes),
+        layout.shapes)]
+    dh, dy = outs[0], outs[1]
+    ptrs = [h.data_ptr(), y.data_ptr(), g_y.data_ptr(), g_ldj.data_ptr(), 0,
+            0, dh.data_ptr(), dy.data_ptr(), workspace.data_ptr()]
+    grads, k = [], 2
+    for net, n in zip((s, t), layout.n_grads):
+        if net is None:
+            grads.append(None)
+            continue
+        ptrs += [x.data_ptr() for x in net[0]]
+        ptrs += [x.data_ptr() for x in net[1]]
+        dws, dbs = outs[k:k + n[0]], outs[k + n[0]:k + n[0] + n[1]]
+        k += n[0] + n[1]
+        ptrs += [x.data_ptr() for x in dws + dbs]
+        grads.append((dws, dbs))
+    err = launch((ctypes.c_longlong * len(ptrs))(*ptrs), layout.iargs,
+                 layout.n_ws, int(segs))
     if err != 0:
         raise RuntimeError(f"coupling_bwd launch failed (CUDA error {err})")
     return dh, dy, grads[0], grads[1]
@@ -436,7 +505,7 @@ def _library():
         i, v = ctypes.c_int, ctypes.c_void_p
         lib.df_coupling_fwd.argtypes = [P, I, i, i, v]
         lib.df_coupling_fwd.restype = i
-        lib.df_coupling_bwd.argtypes = [P, I, i, i, ctypes.c_longlong, i, v]
+        lib.df_coupling_bwd.argtypes = [P, I, ctypes.c_longlong, i, v]
         lib.df_coupling_bwd.restype = i
         _LIB = lib
     return _LIB
@@ -478,8 +547,8 @@ coupling_fwd.launches = 0
 def coupling_bwd(s, t, h, y, g_y, g_ldj, *, direction):
     """One coupling's pullback: ``(dh, dy, (dws_s, dbs_s) or None, (dws_t,
     dbs_t))``, the weight and bias gradients summed over all rows. On CUDA
-    tensors this launches ``coupling_bwd`` and ``coupling_bwd_reduce`` on
-    the current stream or raises; on CPU tensors it runs
+    tensors this launches the backward's kernels (:func:`bwd_launches` and
+    the reduction) on the current stream or raises; on CPU tensors it runs
     :func:`coupling_bwd_plain`."""
     _check_direction(direction)
     B, K, A = _check_inputs(s, t, h, y)
@@ -494,7 +563,7 @@ def coupling_bwd(s, t, h, y, g_y, g_ldj, *, direction):
         stream = _stream(device)
         out = _run_bwd(lambda *a: _library().df_coupling_bwd(*a, stream),
                        s, t, h, y, g_y, g_ldj, direction=direction)
-    coupling_bwd.launches += 1
+    coupling_bwd.launches += bwd_launches(s, t)
     coupling_bwd.reduce_launches += 1
     return out
 

@@ -23,7 +23,14 @@ Plans, folded tensors, 0/1 gradient masks and constants are those of
   tile by tile or the whole batch at once. The reference of the kernel.
 - :class:`StepPlan` — a plan lowered for the kernel once (per row tile), with
   the flat parameter layout; ``StepPlan.loss_and_grads`` is the launch on flat
-  buffers that the training loops call every step.
+  buffers that the training loops call every step. On a CUDA device it goes
+  through a launcher bound to the plan and the batch shape
+  (:meth:`StepPlan.launcher`): checks, lowering, partial buffer, ctypes
+  arguments and the kernel's shared-memory attribute are made once, and a
+  step allocates nothing but its result. The result is a FRESH buffer on
+  every call unless the caller hands one in (``out=``): a loop that keeps
+  each step's loss (``data_stream.py`` stacks them at the epoch's end) must
+  not pass the same ``out`` twice.
 - :func:`run_fused_grads` — the wrapper on lists of folded tensors. On CUDA
   tensors it launches ``step_grads`` (``csrc/step_kernels.cu``; it replaces
   ``densityflows_tpu/ops/pallas_step.py::_step_kernel``) or raises; on CPU
@@ -53,8 +60,8 @@ from .train_kernels import (
     pack_train_plan,
 )
 
-__all__ = ["StepPlan", "run_fused_grads", "step_grads_plain", "folded_nll",
-           "TILE_ROWS", "MAX_SHARED_BYTES"]
+__all__ = ["StepPlan", "StepLaunch", "run_fused_grads", "step_grads_plain",
+           "folded_nll", "TILE_ROWS", "MAX_SHARED_BYTES"]
 
 # Row tiles the wrapper chooses from; 8 and up are its own choices, the
 # smaller ones only where a wider tile's caches do not fit one block. The
@@ -71,6 +78,17 @@ _TARGET_TILES = 128
 # it a block takes several tiles in turn, which cost nothing in the sweep
 _MAX_BLOCKS = 528
 _MAX_THREADS = 1024
+# ``pick_tile`` / ``grid`` / ``threads`` above are also train_stream's launch
+# rule (ops/stream_kernels.py::launch_shape), which keeps them as they are.
+# A step_grads block has at most STEP_MAX_THREADS threads (the kernel's
+# launch bound: 128 registers a thread; the phases loop over their items)
+STEP_MAX_THREADS = 512
+# fewer blocks than this: the tile is halved (down to 4 rows)
+_STEP_MIN_BLOCKS = 16
+
+
+def _align4(floats: int) -> int:
+    return (int(floats) + 3) // 4 * 4
 
 
 @contextlib.contextmanager
@@ -167,6 +185,8 @@ class StepPlan:
         self._templates = [p.detach() for p in tparams]
         self._packed = {}
         self._tiles = {}
+        self._shapes = {}
+        self._launchers = {}
 
     # -- the flat layout --------------------------------------------------
 
@@ -195,8 +215,22 @@ class StepPlan:
             self._packed[tile] = pk
         return pk
 
-    def shared_bytes(self, tile: int) -> int:
-        return self.packed(tile).shared_bytes
+    def shared_bytes(self, tile: int, staged: bool = False) -> int:
+        """Dynamic shared memory of one block at ``tile`` rows: the tile's
+        rows, caches and scratch; with ``staged`` also the folded parameters,
+        the constants and the program (``csrc/step_kernels.cu``: each part
+        rounded up to 16 bytes)."""
+        pk = self.packed(tile)
+        if not staged:
+            return pk.shared_bytes
+        return 4 * (_align4(pk.total_floats) + _align4(self.n_params)
+                    + _align4(pk.flat_consts.numel())
+                    + _align4(pk.prog.numel()))
+
+    def stage_fits(self, tile: int) -> bool:
+        """Whether the parameters fit one block's shared memory beside the
+        caches of a ``tile``-row tile (the kernel's residency switch)."""
+        return self.shared_bytes(tile, True) <= MAX_SHARED_BYTES
 
     def min_tile(self) -> int:
         """The smallest tile; raises ``ValueError`` when even its caches
@@ -237,26 +271,67 @@ class StepPlan:
         work = tile * max(pk.hmax, self.d)
         return int(min(_MAX_THREADS, max(128, (work + 31) // 32 * 32)))
 
+    def launch_shape(self, rows: int):
+        """``(tile, n_blocks, staged)`` of a ``step_grads`` launch on a batch
+        of ``rows``: the tile and grid of :meth:`pick_tile` / :meth:`grid`,
+        the tile halved (not below 4 rows) while the batch gives fewer than
+        ``_STEP_MIN_BLOCKS`` blocks; the parameters staged in shared memory
+        wherever they fit beside that tile's caches, else read from device
+        memory. (A sweep on an H100, ``chip_smoke.py`` phase
+        ``step_tile_sweep``: at d 16 / hidden 64 staging wins at 8-row tiles
+        — 0.141 against 0.190 ms at batch 1024 — and 32-row tiles in device
+        memory beat 8-row tiles staged from batch 8192 on; at the BASELINE
+        model 4-row tiles win at batch 64.)"""
+        shape = self._shapes.get(rows)
+        if shape is None:
+            tile = self.pick_tile(rows)
+            while tile > 4 and -(-rows // tile) < _STEP_MIN_BLOCKS:
+                tile //= 2
+            shape = (tile, self.grid(rows, tile), self.stage_fits(tile))
+            self._shapes[rows] = shape
+        return shape
+
+    def launcher(self, rows: int, *, tile=None, n_blocks=None, stage=None):
+        """The :class:`StepLaunch` of this plan for batches of ``rows`` rows
+        (made once per shape and kept). ``tile`` / ``n_blocks`` / ``stage``
+        override :meth:`launch_shape`; ``stage=True`` where the parameters do
+        not fit raises ``ValueError``."""
+        key = rows if tile is None and n_blocks is None and stage is None \
+            else (rows, tile, n_blocks, stage)
+        launch = self._launchers.get(key)
+        if launch is None:
+            launch = StepLaunch(self, rows, tile=tile, n_blocks=n_blocks,
+                                stage=stage)
+            self._launchers[key] = launch
+        return launch
+
     # -- one step ------------------------------------------------------------
 
     def loss_and_grads(self, flat_p, x, theta, mask, *, denom=None,
-                       tile=None, n_blocks=None):
+                       tile=None, n_blocks=None, stage=None, out=None):
         """One batch's flat gradient and loss in ONE buffer of
         ``n_params + 1`` floats (the gradient, then the loss), so that a
         data-parallel step sums both over the ranks with one collective. On
-        CUDA tensors this launches ``step_grads`` on the current stream or
-        raises; on CPU tensors it runs :func:`step_grads_plain` with the
-        same tiling."""
+        CUDA tensors this launches ``step_grads`` on the current stream
+        through :meth:`launcher` or raises; on CPU tensors it runs
+        :func:`step_grads_plain` with the same tiling.
+
+        ``out``: where the result goes. ``None`` (the default) gives a new
+        buffer on every call; a caller that passes a buffer owns it, and the
+        next call with that buffer overwrites the previous step's values."""
         device = x.device
         if device.type == "cuda":
-            with torch.cuda.device(device):
-                stream = torch.cuda.current_stream().cuda_stream
-                out = _step_grads(
-                    lambda *a: _library().df_step_grads(*a, stream), self,
-                    flat_p, x, theta, mask, denom=denom, tile=tile,
-                    n_blocks=n_blocks)
+            launch = self.launcher(x.shape[0], tile=tile, n_blocks=n_blocks,
+                                   stage=stage)
+            if torch.cuda.current_device() == device.index:
+                result = launch(_library_launch, flat_p, x, theta, mask,
+                                denom=denom, out=out)
+            else:
+                with torch.cuda.device(device):
+                    result = launch(_library_launch, flat_p, x, theta, mask,
+                                    denom=denom, out=out)
             run_fused_grads.launches += 1
-            return out
+            return result
         if device.type != "cpu":
             raise ValueError(f"unsupported device {device}")
         if tile is None:
@@ -264,13 +339,152 @@ class StepPlan:
         loss, grads = step_grads_plain(
             self.plan, self.views(flat_p), self.masks, self.mask_slots,
             self.cparams, x, theta, mask, denom=denom, tile=tile)
-        return torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        result = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        if out is not None:
+            out.copy_(result)
+            return out
+        return result
 
     def grads(self, flat_p, x, theta, mask, **kw):
         """``(loss, flat gradient)`` of one batch: views of
         :meth:`loss_and_grads`'s buffer."""
         out = self.loss_and_grads(flat_p, x, theta, mask, **kw)
         return out[self.n_params], out[:self.n_params]
+
+
+class StepLaunch:
+    """``step_grads`` for one :class:`StepPlan` at one batch shape on one
+    device: the lowering for the tile, the launch shape, the residency, the
+    (grid, n_params + 1) partial buffer and the ctypes arguments, made once.
+    A call checks its tensors without copying them where they are float32,
+    contiguous and on the plan's device (others go through one copy each),
+    fills in their pointers and launches both kernels.
+
+    ``staged``: whether the launches stage the parameters in shared memory
+    (else the phases read them from device memory)."""
+
+    def __init__(self, sp: StepPlan, rows: int, *, tile=None, n_blocks=None,
+                 stage=None):
+        if rows <= 0:
+            raise ValueError("empty batch")
+        auto_tile, _, auto_stage = sp.launch_shape(rows)
+        if tile is None:
+            tile = auto_tile
+        tile = int(tile)
+        if stage is None:
+            stage = auto_stage if tile == auto_tile else sp.stage_fits(tile)
+        if stage and not sp.stage_fits(tile):
+            raise ValueError(
+                f"step_grads: {sp.shared_bytes(tile, True)} bytes of shared "
+                f"memory to stage the parameters at a tile of {tile} rows "
+                f"(limit {MAX_SHARED_BYTES})")
+        packed = sp.packed(tile)
+        if packed.shared_bytes > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"step_grads needs {packed.shared_bytes} bytes of shared "
+                f"memory at a tile of {tile} rows (limit {MAX_SHARED_BYTES})")
+        n_tiles = -(-rows // tile)
+        if n_blocks is None:
+            n_blocks = sp.grid(rows, tile)
+        if not 1 <= n_blocks <= n_tiles:
+            raise ValueError("n_blocks must lie between 1 and the tile count")
+        self.sp, self.rows, self.tile = sp, int(rows), tile
+        self.n_blocks, self.staged = int(n_blocks), bool(stage)
+        self.threads = min(STEP_MAX_THREADS, sp.threads(tile))
+        self.shared_bytes = sp.shared_bytes(tile, self.staged)
+        self.device = sp.device
+        self.packed = packed
+        self.partial = torch.empty(self.n_blocks * (sp.n_params + 1),
+                                   dtype=torch.float32, device=self.device)
+        consts = packed.flat_consts
+        self.ptrs = (ctypes.c_void_p * 10)(
+            None, None, None, None, None, packed.flat_mask.data_ptr(),
+            consts.data_ptr() if consts.numel() else None,
+            packed.prog.data_ptr(), self.partial.data_ptr(), None)
+        self.iargs = (ctypes.c_int * 5)(self.rows, n_tiles, sp.n_params, 3,
+                                        int(self.staged))
+        self._phases = 3
+        self._x_shape = torch.Size((self.rows, sp.d))
+        self._th_shape = torch.Size((self.rows, sp.n))
+        self._m_shape = torch.Size((self.rows,))
+        self._p_shape = torch.Size((sp.n_params,))
+        self._out_shape = torch.Size((sp.n_params + 1,))
+
+    def _ready(self, t, shape):
+        """A tensor the kernel can take as it is: float32, contiguous, on
+        the plan's device, of ``shape``."""
+        return (t.dtype == torch.float32 and t.shape == shape
+                and t.is_contiguous() and t.device == self.device)
+
+    def __call__(self, launch, flat_p, x, theta, mask, *, denom=None,
+                 out=None, phases=3):
+        """Launch on ``(flat_p, x, theta, mask)`` through ``launch(ptrs,
+        iargs, threads, shared_bytes, n_blocks) → error code`` (the C entry
+        point of ``csrc/step_kernels.cu`` on the current stream, or its host
+        emulation). Returns ``out`` (a new buffer when ``None``).
+
+        ``phases``: 3 runs both kernels; 1 the tile kernel alone (``out`` is
+        then not written), 2 the reduction alone over the partial buffer an
+        earlier call left: for timing the two apart."""
+        sp = self.sp
+        n_cond = theta.shape[-1] if theta is not None else 0
+        if mask.dim() != 1:
+            mask = mask.reshape(-1)
+        if not (self._ready(x, self._x_shape) and n_cond == sp.n
+                and (not n_cond or self._ready(theta, self._th_shape))
+                and self._ready(mask, self._m_shape)
+                and self._ready(flat_p, self._p_shape)):
+            x, theta, mask, flat_p = self._checked(x, theta, mask, flat_p,
+                                                   n_cond)
+        if denom is None:
+            denom = mask.sum()
+        elif not (isinstance(denom, torch.Tensor) and denom.numel() == 1
+                  and denom.dtype == torch.float32
+                  and denom.device == self.device):
+            denom = torch.as_tensor(denom, dtype=torch.float32,
+                                    device=self.device).reshape(1)
+        if out is None:
+            out = torch.empty(self._p_shape[0] + 1, dtype=torch.float32,
+                              device=self.device)
+        elif not self._ready(out, self._out_shape):
+            raise ValueError(f"out must be a contiguous float32 buffer of "
+                             f"{sp.n_params + 1} entries on {self.device}")
+        p = self.ptrs
+        p[0] = x.data_ptr()
+        p[1] = theta.data_ptr() if n_cond else None
+        p[2] = mask.data_ptr()
+        p[3] = denom.data_ptr()
+        p[4] = flat_p.data_ptr()
+        p[9] = out.data_ptr()
+        if phases != self._phases:
+            self.iargs[3] = self._phases = int(phases)
+        err = launch(p, self.iargs, self.threads, self.shared_bytes,
+                     self.n_blocks)
+        if err != 0:
+            raise RuntimeError(f"step_grads launch failed (CUDA error {err})")
+        return out
+
+    def _checked(self, x, theta, mask, flat_p, n_cond):
+        """The arguments' checks with their messages, and one copy of each
+        tensor that is not float32 and contiguous."""
+        sp = self.sp
+        if x.dim() != 2 or x.shape[1] != sp.d or n_cond != sp.n:
+            raise ValueError(
+                f"plan was lowered for d {sp.d}, n {sp.n}; got x "
+                f"{tuple(x.shape)}, n {n_cond}")
+        if x.shape[0] != self.rows:
+            raise ValueError(f"launcher made for {self.rows} rows, got "
+                             f"{x.shape[0]}")
+        if x.device != self.device:
+            raise ValueError(
+                f"plan parameters are on {self.device}, data on {x.device}")
+        x = _device_f32(x, "x", self._x_shape, self.device)
+        if n_cond:
+            theta = _device_f32(theta, "theta", self._th_shape, self.device)
+        mask = _device_f32(mask, "mask", self._m_shape, self.device)
+        flat_p = _device_f32(flat_p, "parameters", self._p_shape,
+                             self.device)
+        return x, theta, mask, flat_p
 
 
 _LIB = None
@@ -290,67 +504,24 @@ def _library():
     return _LIB
 
 
+def _library_launch(ptrs, iargs, threads, shared_bytes, n_blocks):
+    """``df_step_grads`` on the current stream of the current device."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    return _library().df_step_grads(ptrs, iargs, threads, shared_bytes,
+                                    n_blocks, stream)
+
+
 def _step_grads(launch, sp: StepPlan, flat_p, x, theta, mask, *, denom=None,
-                tile=None, n_blocks=None, phases=3, partial=None):
-    """Check the arguments, lay out the buffers on ``x``'s device and hand
-    them to ``launch(ptrs, iargs, threads, shared_bytes, n_blocks) → error
-    code``, the C entry point of ``csrc/step_kernels.cu``. Returns the
-    ``n_params + 1`` result buffer: the gradient, then the loss.
-
-    ``phases`` / ``partial`` exist to time the two kernels apart: ``phases``
-    1 runs the tile kernel only (the result buffer is then not written), 2
-    the reduction only, over a ``partial`` buffer that an earlier launch with
-    the same tiling filled."""
-    device = x.device
-    rows, d = x.shape
-    n_cond = theta.shape[-1] if theta is not None else 0
-    if d != sp.d or n_cond != sp.n:
-        raise ValueError(
-            f"plan was lowered for d {sp.d}, n {sp.n}; got d {d}, n {n_cond}")
-    if rows == 0:
+                tile=None, n_blocks=None, stage=None, phases=3, out=None):
+    """One launch through ``launch(ptrs, iargs, threads, shared_bytes,
+    n_blocks) → error code``: :meth:`StepPlan.launcher` for ``x``'s row
+    count, then :class:`StepLaunch`'s call (``phases`` as there). Returns
+    the ``n_params + 1`` result buffer: the gradient, then the loss."""
+    if x.shape[0] == 0:
         raise ValueError("empty batch")
-    if sp.device != device:
-        raise ValueError(
-            f"plan parameters are on {sp.device}, data on {device}")
-    if tile is None:
-        tile = sp.pick_tile(rows)
-    packed = sp.packed(int(tile))
-    if packed.shared_bytes > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"step_grads needs {packed.shared_bytes} bytes of shared memory "
-            f"at a tile of {tile} rows (limit {MAX_SHARED_BYTES})")
-    n_tiles = -(-rows // tile)
-    if n_blocks is None:
-        n_blocks = sp.grid(rows, tile)
-    if not 1 <= n_blocks <= n_tiles:
-        raise ValueError("n_blocks must lie between 1 and the tile count")
-
-    x = _device_f32(x, "x", (rows, d), device)
-    if n_cond:
-        theta = _device_f32(theta, "theta", (rows, n_cond), device)
-    mask = _device_f32(mask.reshape(-1), "mask", (rows,), device)
-    flat_p = _device_f32(flat_p, "parameters", (sp.n_params,), device)
-    if denom is None:
-        denom = mask.sum()
-    denom = torch.as_tensor(denom, dtype=torch.float32,
-                            device=device).reshape(1)
-    f32 = dict(dtype=torch.float32, device=device)
-    if partial is None:
-        partial = torch.empty(n_blocks * (sp.n_params + 1), **f32)
-    elif partial.numel() != n_blocks * (sp.n_params + 1):
-        raise ValueError("partial buffer of another tiling")
-    out = torch.empty(sp.n_params + 1, **f32)
-    ptrs = (ctypes.c_void_p * 10)(
-        x.data_ptr(), theta.data_ptr() if n_cond else None, mask.data_ptr(),
-        denom.data_ptr(), flat_p.data_ptr(), packed.flat_mask.data_ptr(),
-        packed.flat_consts.data_ptr() if packed.flat_consts.numel() else None,
-        packed.prog.data_ptr(), partial.data_ptr(), out.data_ptr())
-    iargs = (ctypes.c_int * 4)(rows, n_tiles, sp.n_params, int(phases))
-    err = launch(ptrs, iargs, sp.threads(tile), packed.shared_bytes,
-                 int(n_blocks))
-    if err != 0:
-        raise RuntimeError(f"step_grads launch failed (CUDA error {err})")
-    return out
+    step = sp.launcher(x.shape[0], tile=tile, n_blocks=n_blocks, stage=stage)
+    return step(launch, flat_p, x, theta, mask, denom=denom, out=out,
+                phases=phases)
 
 
 def run_fused_grads(x, theta, mask, tparams, masks, cparams, *, plan,

@@ -358,3 +358,96 @@ def test_philox_normal_reference_is_standard_normal_and_counter_based():
     # columns and rows are uncorrelated
     c = np.corrcoef(r.T)
     assert np.abs(c - np.eye(5)).max() < 0.05
+
+
+def relu_logit_chain(d=5, n=2):
+    """Relu couplings (one without bias, one of three dense layers) and a
+    trailing LogitLayer over (0, 3): the two places where a hand-written
+    kernel could swallow a NaN (relu as max(u, 0), the logit's clamp)."""
+    ks = jax.random.split(jax.random.key(5), 3)
+    kw = dict(n=n, hidden_dim_s=8, hidden_dim_t=8, activation_s="relu",
+              activation_t="relu")
+    return randomize(df.flow_chain(
+        df.coupling_layer(d, [0, 1], key=ks[0], **kw),
+        df.coupling_layer(d, [2, 3, 4], key=ks[1], bias=False, **kw),
+        df.coupling_layer(d, [0, 1], key=ks[2], n_sublayers_s=2,
+                          n_sublayers_t=2, **kw),
+        df.logit_layer((np.zeros(d, np.float32), np.full(d, 3.0, np.float32))),
+    ), 41)
+
+
+def nan_rows(d, n, rows=29):
+    """Rows inside the logit's box; a NaN on an identity dim of the first
+    coupling (row 3), on a transformed dim (row 8) and in a condition
+    (row 12)."""
+    x, theta = inputs(d, n, rows, 13)
+    x = (np.abs(x) % 2.6 + 0.2).astype(np.float32)
+    x[3, 0] = np.nan
+    x[8, 4] = np.nan
+    theta[12, 1] = np.nan
+    return x, theta
+
+
+def assert_same_nan_pattern(got, want, **tol):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], **tol)
+
+
+@pytest.mark.parametrize("dirn", ["fwd", "inv"])
+def test_nan_rows_through_relu_and_logit_keep_the_jax_nan_pattern(dirn):
+    """A NaN in a row stays a NaN in that row's outputs and ldj, in the
+    plain chain path and in the kernels' program, as in the JAX Pallas
+    kernel (interpret mode): the kernels' relu and logit clamp must keep
+    it (chip_smoke.py holds the CUDA kernels to the plain version)."""
+    chain = relu_logit_chain()
+    x, theta = nan_rows(5, 2)
+    j_plan, j_params = JF._plan_params(chain, dirn)
+    want_y, want_l = JP.run_chain(j_plan, j_params, jnp.asarray(x),
+                                  jnp.asarray(theta), with_ldj=True,
+                                  interpret=True)
+    assert np.isnan(np.asarray(want_l)).sum() == 3
+    t_plan, t_params = TF._plan_params(to_torch(chain), dirn)
+    got_y, got_l = CK.run_chain(t_plan, t_params, t(x), t(theta),
+                                with_ldj=True)
+    assert_same_nan_pattern(got_y.numpy(), want_y, **LOOSE)
+    assert_same_nan_pattern(got_l.numpy(), want_l, **LOOSE)
+    packed = CK.pack_plan(t_plan, t_params, 5, 2)
+    ref_y, ref_l = CK.packed_apply_reference(packed, t(x), t(theta),
+                                             with_ldj=True)
+    assert_same_nan_pattern(ref_y.numpy(), want_y, **LOOSE)
+    assert_same_nan_pattern(ref_l.numpy(), want_l, **LOOSE)
+
+
+def test_nan_rows_log_prob_and_sample_keep_the_jax_nan_pattern():
+    """``Flow.log_prob`` on the chain route (forced, the kernels' plain
+    version on the CPU) and the per-layer route against JAX's; a NaN
+    condition row through the sampler's forward fold."""
+    chain = relu_logit_chain()
+    x, theta = nan_rows(5, 2)
+    meta = dict(hash="", d=5, n=2, theta_min=np.zeros(2),
+                theta_max=np.ones(2))
+    JL.set_fused_kernels(False)
+    try:
+        want = np.asarray(df.Flow(chain, df.MetaData(**meta)).log_prob(
+            jnp.asarray(x), jnp.asarray(theta)))
+        noise = inputs(5, 2, 29, 17)[0]
+        want_s = np.asarray(chain.forward_(jnp.asarray(noise),
+                                           jnp.asarray(theta)))
+    finally:
+        JL.set_fused_kernels("auto")
+    assert np.isnan(want).sum() == 3 and np.isnan(want_s[12]).all()
+    flow = dt.Flow(to_torch(chain), dt.MetaData(**meta), device="cpu")
+    for mode in (True, False):
+        dt.set_fused_kernels(mode)
+        try:
+            with torch.no_grad():
+                got = flow.log_prob(t(x), t(theta))
+        finally:
+            dt.set_fused_kernels("auto")
+        assert_same_nan_pattern(got.numpy(), want, **LOOSE)
+    plan, params = TF._plan_params(flow.model, "fwd")
+    got_s = CK.chain_sample_plain(plan, params, 29, 5, t(theta),
+                                  noise=t(noise))
+    assert_same_nan_pattern(got_s.numpy(), want_s, **LOOSE)

@@ -17,6 +17,7 @@ f32 math at hidden <= 16, summed in another order); 1e-5 on the losses and
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -404,15 +405,32 @@ def test_input_checks():
     with pytest.raises(ValueError, match="too wide"):
         CK.pick_tile("fwd", lambda tb: CK.fwd_shared_bytes(tb, None, wide,
                                                            4, 3))
-    # hidden 512 runs: a tile set too wide for it is halved until it fits
-    h512 = ([torch.zeros(24, 512), torch.zeros(512, 512),
-             torch.zeros(512, 16)], [], "relu")
+    # hidden 1024 runs the forward: a tile set too wide for it is halved
+    # until it fits
+    h1024 = ([torch.zeros(24, 1024), torch.zeros(1024, 1024),
+              torch.zeros(1024, 16)], [], "relu")
     CK.set_tile_rows(32)
     try:
-        assert CK.pick_tile("bwd", lambda tb: CK.bwd_shared_bytes(
-            tb, h512, h512, 24)) == 8
+        assert CK.pick_tile("fwd", lambda tb: CK.fwd_shared_bytes(
+            tb, h1024, h1024, 24, 16)) == 16
     finally:
         CK.set_tile_rows(None)
+    # the backward has no tile: products over all rows, dW in row segments;
+    # its workspace holds U, act(U) and the output per row, then the
+    # segments' dW / db partials
+    h512 = ([torch.zeros(24, 512), torch.zeros(512, 512),
+             torch.zeros(512, 16)], [torch.zeros(512), torch.zeros(512),
+                                     torch.zeros(16)], "relu")
+    assert CK.bwd_segments(8192) == 16 and CK.bwd_segments(100) == 1
+    assert CK.bwd_segments(1 << 20) == 32
+    one = ([torch.zeros(24, 16)], [], "relu")
+    assert CK.bwd_launches(h512, h512) == 7 and CK.bwd_launches(None, one) == 3
+    assert CK.bwd_launches(one, h512) == 7
+    per_row = 2 * (2 * 512) + 16
+    items = 25 * 512 + 513 * 512 + 513 * 16
+    assert CK.grad_items(h512, h512) == 2 * items
+    assert CK.workspace_floats(64, h512, h512, 3) == \
+        64 * 2 * per_row + 3 * 2 * items
     assert CK.launch_counts() == {"coupling_fwd": 0, "coupling_bwd": 0,
                                   "coupling_bwd_reduce": 0}
 
@@ -423,10 +441,11 @@ def test_input_checks():
 def emulated(tmp_path_factory):
     """``csrc/coupling_kernels.cu`` compiled as plain C++ (its
     DF_HOST_EMULATION mode with tests/cuda_host_emulation.h): ``fwd(threads,
-    reverse)`` / ``bwd(threads, reverse)`` give launchers for the wrappers'
+    reverse)`` / ``bwd(reverse)`` give launchers for the wrappers'
     ``_run_fwd`` / ``_run_bwd``. ``reverse`` bit 0: the threads of a phase
-    last first; bit 1: the tiles (and the reduction's items) last first.
-    Every tile starts from a NaN-filled shared array."""
+    last first; bit 1: the tiles and product blocks (and the elementwise
+    kernels' items) last first. Every tile and product block starts from a
+    NaN-filled shared array; a product block runs its 256 threads."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
@@ -444,8 +463,7 @@ def emulated(tmp_path_factory):
     P, I = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
     i = ctypes.c_int
     lib.df_coupling_fwd_emulated.argtypes = [P, I, i, i, i]
-    lib.df_coupling_bwd_emulated.argtypes = [P, I, i, i, ctypes.c_longlong,
-                                             i]
+    lib.df_coupling_bwd_emulated.argtypes = [P, I, ctypes.c_longlong, i, i]
 
     class Launch:
         @staticmethod
@@ -454,10 +472,9 @@ def emulated(tmp_path_factory):
                 p, ia, threads, shared, reverse)
 
         @staticmethod
-        def bwd(threads, reverse):
-            return lambda p, ia, _nt, shared, items, _ph: \
-                lib.df_coupling_bwd_emulated(p, ia, threads, shared, items,
-                                             reverse)
+        def bwd(reverse):
+            return lambda p, ia, ws_floats, segs: \
+                lib.df_coupling_bwd_emulated(p, ia, ws_floats, segs, reverse)
 
     return Launch
 
@@ -473,14 +490,13 @@ def _flat(out):
 
 
 def _emulate(emulated, case, direction, threads=64, reverse=0, tile=None,
-             with_ldj=True):
+             with_ldj=True, segs=None):
     s, t = case.plain_nets()
     h, y = _t(case.h), _t(case.y)
     fwd = CK._run_fwd(emulated.fwd(threads, reverse), s, t, h, y,
                       direction=direction, with_ldj=with_ldj, tile=tile)
-    bwd = CK._run_bwd(emulated.bwd(threads, reverse), s, t, h, y,
-                      _t(case.g_y), _t(case.g_ldj), direction=direction,
-                      tile=tile)
+    bwd = CK._run_bwd(emulated.bwd(reverse), s, t, h, y, _t(case.g_y),
+                      _t(case.g_ldj), direction=direction, segs=segs)
     return _flat(fwd), _flat(bwd)
 
 
@@ -576,6 +592,43 @@ def test_cuda_source_emulated_nan_row(emulated):
     assert not bool(torch.isnan(got_f[0][4]).any())
 
 
+@pytest.mark.parametrize("kind", ["nvp", "nice"])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_cuda_source_emulated_products_segments_and_odd_widths(
+        emulated, kind, direction):
+    """The backward's products at widths that are no multiple of the
+    register tile (K 7, hidden 37, A 5), a ragged row count (1001 rows: no
+    multiple of any tile or segment), relu with a NaN row, two nets of other
+    depths: against the plain version at 1, 3 and 7 row segments of the dW
+    products (1e-5, ``_close``; the segment counts agree to rounding), the
+    same bits with the product blocks and the elementwise items in either
+    order, and the plain version's NaN pattern."""
+    case = Case(kind, rows=1001, K=7, A=5, hidden=37, n_s=1, n_t=2,
+                act="relu", seed=15)
+    case.h[3, 2] = np.nan
+    want_f, want_b = _plain(case, direction)
+    runs = {}
+    for segs in (1, 3, 7):
+        _, got_b = _emulate(emulated, case, direction, segs=segs)
+        for a, b in zip(got_b, want_b):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            ok = ~torch.isnan(b)
+            _close(a[ok], b[ok])
+        runs[segs] = got_b
+    _, again = _emulate(emulated, case, direction, reverse=3, segs=3)
+    for a, b in zip(again, runs[3]):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)])
+    # dh and dy do not depend on the segments; dW / db differ by rounding
+    for a, b in zip(runs[7], runs[1]):
+        ok = ~torch.isnan(b)
+        _close(a[ok], b[ok])
+    # the NaN reaches dh through ds (RealNVP), and dW_0 through h itself
+    assert bool(torch.isnan(runs[1][0][3]).all()) == (kind == "nvp")
+    assert not bool(torch.isnan(runs[1][0][4]).any())
+    assert bool(torch.isnan(runs[1][2]).any())
+
+
 def test_cuda_source_refuses_too_little_shared_memory(emulated):
     case = Case("nvp", rows=8)
     s, t = case.plain_nets()
@@ -591,11 +644,14 @@ def test_coupling_kernel_source_is_hand_written():
                            "coupling_kernels.cu")) as f:
         text = f.read()
     for symbol in ("df_coupling_fwd", "df_coupling_bwd",
-                   "coupling_fwd_kernel", "coupling_bwd_kernel",
-                   "coupling_bwd_reduce_kernel", "__global__", "dact_fn",
+                   "coupling_fwd_kernel", "coupling_product_kernel",
+                   "coupling_pullback_kernel", "coupling_bwd_reduce_kernel",
+                   "tile_product", "df_cp_async4", "__global__", "dact_fn",
                    "u < 0.f ? 0.f : u", "expm1f", "log1pf",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert symbol in text
     for banned in ("atomicadd", "cublas", "cudnn", "cutlass",
-                   "torch/extension.h", "#include \""):
+                   "torch/extension.h", "wgmma", "mma.sync", "tf32"):
         assert banned not in text.lower()
+    # no header of the package but the cp.async one (no flow phases)
+    assert re.findall(r'#include "([^"]+)"', text) == ["async_copy.cuh"]

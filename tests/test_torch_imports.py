@@ -176,7 +176,8 @@ def test_step_kernel_and_loader_sources_are_package_data():
         assert symbol in text
     quoted = [line.split('"')[1] for line in text.splitlines()
               if line.startswith("#include \"")]
-    assert quoted == ["flow_phases.cuh"]
+    assert quoted == ["async_copy.cuh", "flow_phases.cuh"]
+    assert all(os.path.exists(os.path.join(csrc, name)) for name in quoted)
     with open(os.path.join(csrc, "flow_phases.cuh")) as f:
         shared = f.read()
     for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
@@ -198,12 +199,15 @@ def test_coupling_kernel_source_is_package_data():
     with open(os.path.join(csrc, "coupling_kernels.cu")) as f:
         text = f.read()
     for symbol in ("df_coupling_fwd", "df_coupling_bwd", "coupling_fwd_kernel",
-                   "coupling_bwd_kernel", "coupling_bwd_reduce_kernel",
-                   "__global__"):
+                   "coupling_product_kernel", "coupling_pullback_kernel",
+                   "coupling_bwd_reduce_kernel", "__global__"):
         assert symbol in text
-    # a source of its own: no header of the package, no library
-    assert not [line for line in text.splitlines()
-                if line.startswith("#include \"")]
+    # a source of its own: no header of the package but the cp.async one
+    # (package data beside it), no library
+    quoted = [line.split('"')[1] for line in text.splitlines()
+              if line.startswith("#include \"")]
+    assert quoted == ["async_copy.cuh"]
+    assert os.path.exists(os.path.join(csrc, "async_copy.cuh"))
     for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
                     "atomicadd"):
         assert library not in text.lower()

@@ -35,6 +35,14 @@ from _torch_parity import cond_data, randomize, to_torch
 
 ATOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# layers wide enough (N >= 32) for the kernel's register-tiled weight
+# gradients, at widths that are no multiple of 4
+CHAINS = dict(CHAINS, wide=lambda d, x: df.flow_chain(
+    df.coupling_layer(d, [0, 1, 2], key=jax.random.key(7), hidden_dim_s=34,
+                      hidden_dim_t=37),
+    df.coupling_layer(d, [2, 3, 4], key=jax.random.key(8), hidden_dim_s=33,
+                      hidden_dim_t=33, joint_conditioner=True),
+    df.normalization_layer(x, -1.0, 1.0)))
 VARIANTS = ["reference", "nice", "joint", "actnorm", "permutation",
             "clamped", "nobias_tanh", "deep", "unconditional"]
 
@@ -267,24 +275,19 @@ def test_a_conditioner_too_wide_for_one_row_declines_by_bytes(monkeypatch):
 
 # -- the CUDA source under host emulation ---------------------------------------------
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """``csrc/step_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
-    mode, with tests/cuda_host_emulation.h standing in for the CUDA
-    builtins): ``launch(threads, reverse)`` gives a launcher for
-    ``ops.step_kernels._step_grads`` that runs both kernels' bodies on CPU
-    tensors. ``reverse`` bit 0: threads of a phase last first; bit 1: blocks
-    (and the reduction's items) last first."""
+def _compile_emulated(tmp_path_factory, name, defines=()):
+    """``csrc/step_kernels.cu`` as plain C++ with ``defines``; ``None``
+    without a host compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        pytest.skip("needs a host C++ compiler")
-    out = str(tmp_path_factory.mktemp("emu") / "libstep_emulated.so")
+        return None
+    out = str(tmp_path_factory.mktemp("emu") / f"lib{name}.so")
     src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
                        "step_kernels.cu")
     # -ffp-contract=off: fmaf() stays the only fused multiply-add, as written
     proc = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-x", "c++", "-DDF_HOST_EMULATION", "-include",
+         "-x", "c++", "-DDF_HOST_EMULATION", *defines, "-include",
          os.path.join(ROOT, "tests", "cuda_host_emulation.h"), "-o", out,
          src],
         capture_output=True, text=True)
@@ -303,14 +306,40 @@ def emulated(tmp_path_factory):
     return launch
 
 
-def _emulate(case, launch, mask=None, denom=None, tile=8, n_blocks=None):
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``csrc/step_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
+    mode, with tests/cuda_host_emulation.h standing in for the CUDA
+    builtins): ``launch(threads, reverse)`` gives a launcher for
+    ``ops.step_kernels._step_grads`` that runs both kernels' bodies on CPU
+    tensors. ``reverse`` bit 0: threads of a phase last first; bit 1: blocks
+    (and the reduction's items) last first."""
+    launch = _compile_emulated(tmp_path_factory, "step_emulated")
+    if launch is None:
+        pytest.skip("needs a host C++ compiler")
+    return launch
+
+
+@pytest.fixture(scope="module")
+def emulated_flat(tmp_path_factory):
+    """The same source with flow_phases.cuh's dense instructions in place of
+    its register-tiled ones (-DDF_STEP_TILED=0)."""
+    launch = _compile_emulated(tmp_path_factory, "step_flat",
+                               ("-DDF_STEP_TILED=0",))
+    if launch is None:
+        pytest.skip("needs a host C++ compiler")
+    return launch
+
+
+def _emulate(case, launch, mask=None, denom=None, tile=8, n_blocks=None,
+             stage=None):
     sp = SK.StepPlan(case.plan, case.tparams, case.masks, case.slots,
                      case.cparams, case.d, case.n, case.tcounts)
     mask = case.mask if mask is None else mask
     out = SK._step_grads(
         launch, sp, sp.flatten(case.tparams), _t(case.x),
         _t(case.th) if case.n else None, _t(mask), denom=denom, tile=tile,
-        n_blocks=n_blocks)
+        n_blocks=n_blocks, stage=stage)
     return out[sp.n_params].clone(), sp.unflatten(out[:sp.n_params])
 
 
@@ -322,7 +351,7 @@ def _assert_same(got, want, atol):
         torch.testing.assert_close(a, b, rtol=0, atol=atol * scale)
 
 
-@pytest.mark.parametrize("variant", VARIANTS + ["sigmoid"])
+@pytest.mark.parametrize("variant", VARIANTS + ["sigmoid", "wide"])
 def test_cuda_source_emulated_equals_plain_version(emulated, variant):
     """6 tiles of 8 rows for 45 rows (a ragged last tile, padded rows with
     mask 0), weighted mask: loss and every gradient at 1e-5 (scaled)."""
@@ -372,6 +401,101 @@ def test_cuda_source_emulated_masked_tile_denominator_and_nan_row(emulated):
             assert bool((a[case.masks[slot] == 0] == 0).all())
 
 
+@pytest.mark.parametrize("variant", ["wide", "nice", "reference"])
+def test_cuda_source_emulated_tiled_dense_gives_flow_phases_bits(
+        emulated, emulated_flat, variant):
+    """The register-tiled weight gradients (layers of N >= 32: "wide" at 33
+    to 37 columns, "nice" at 32) sum every output in flow_phases.cuh's
+    order: the same bits as its b_dense, at tiles that are and are not
+    multiples of their four rows (45 rows), threads in either order."""
+    case = Case(variant)
+    for tile in (3, 4, 8, 16):
+        want = _emulate(case, emulated_flat(96, 0), tile=tile)
+        got = _emulate(case, emulated(64, 3), tile=tile)
+        _assert_same(got, want, 0.0)
+
+
+@pytest.mark.parametrize("tile,n_blocks", [(8, None), (16, 2), (4, 5)])
+def test_cuda_source_emulated_parameters_in_shared_or_device_memory(
+        emulated, tile, n_blocks):
+    """The residency switch: the parameters staged in shared memory (after
+    the tile's floats, copied by the block first) or read from device
+    memory give the same bits, at several tilings with a ragged last tile
+    (45 rows), a NaN row, threads and blocks in either order; both agree
+    with the plain version."""
+    case = Case("deep")
+    case.x[7, 2] = float("nan")
+    want = case.port(tile=tile)
+    runs = {}
+    for stage in (True, False):
+        for nt, rev in ((96, 0), (64, 3)):
+            runs[stage, rev] = _emulate(case, emulated(nt, rev), tile=tile,
+                                        n_blocks=n_blocks, stage=stage)
+    first = runs[True, 0]
+    for got in runs.values():
+        assert torch.equal(got[0], first[0]) or (
+            bool(torch.isnan(got[0])) and bool(torch.isnan(first[0])))
+        for a, b in zip(got[1], first[1]):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)])
+    assert bool(torch.isnan(first[0])) and bool(torch.isnan(want[0]))
+    for a, b, slot in zip(first[1], want[1], case.slots):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(b)
+        if bool(ok.any()):
+            torch.testing.assert_close(
+                a[ok], b[ok], rtol=0,
+                atol=ATOL * (1 + float(b[ok].abs().max())))
+        if slot is not None:
+            assert bool((a[case.masks[slot] == 0] == 0).all())
+
+
+def test_launcher_is_made_once_per_shape_and_owns_no_result(emulated,
+                                                           monkeypatch):
+    """``StepPlan.launcher`` keeps one launcher per batch shape; a call
+    returns a new buffer unless ``out=`` hands one in; the residency is
+    shared memory where the parameters fit beside the tile and device
+    memory where they do not; a launcher refuses another row count."""
+    case = Case("reference")
+    sp = SK.StepPlan(case.plan, case.tparams, case.masks, case.slots,
+                     case.cparams, case.d, case.n, case.tcounts)
+    flat = sp.flatten(case.tparams)
+    launcher = sp.launcher(45)
+    assert sp.launcher(45) is launcher and sp.launcher(44) is not launcher
+    # 45 rows give 6 tiles of 8, fewer than 16 blocks: tiles of 4
+    assert launcher.staged and launcher.tile == 4 and launcher.n_blocks == 12
+    assert sp.launch_shape(1024) == (8, 128, True)
+    assert sp.launch_shape(8192) == (64, 128, True)
+    assert sp.shared_bytes(8, True) == 4 * (2400 + 2816 + 12 + 32 + 50 * 16)
+    assert launcher.shared_bytes == sp.shared_bytes(4, True)
+    args = (_t(case.x), _t(case.th), _t(case.mask))
+    launch = emulated(64, 0)
+    a = launcher(launch, flat, *args)
+    b = launcher(launch, flat, *args)
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+    buf = torch.full((sp.n_params + 1,), float("nan"))
+    assert launcher(launch, flat, *args, out=buf) is buf
+    assert torch.equal(buf, a)
+    with pytest.raises(ValueError, match="45 rows"):
+        launcher(launch, flat, *(t[:40] for t in args))
+    with pytest.raises(ValueError, match="out must be"):
+        launcher(launch, flat, *args, out=buf[:-1])
+    # on the CPU, loss_and_grads writes the plain version into ``out``
+    out = torch.empty(sp.n_params + 1)
+    assert sp.loss_and_grads(flat, *args, out=out) is out
+    torch.testing.assert_close(out, sp.loss_and_grads(flat, *args))
+    # parameters that do not fit beside the caches stay in device memory
+    monkeypatch.setattr(SK, "MAX_SHARED_BYTES", sp.shared_bytes(8) + 64)
+    sp = SK.StepPlan(case.plan, case.tparams, case.masks, case.slots,
+                     case.cparams, case.d, case.n, case.tcounts)
+    assert sp.launch_shape(45) == (4, 12, False)
+    assert not sp.launcher(45).staged
+    with pytest.raises(ValueError, match="stage the parameters"):
+        sp.launcher(45, stage=True)
+    _assert_same(_emulate(case, launch, tile=4),
+                 (a[sp.n_params], sp.unflatten(a[:sp.n_params])), 0.0)
+
+
 def test_step_kernel_source_is_hand_written():
     csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
     with open(os.path.join(csrc, "step_kernels.cu")) as f:
@@ -380,6 +504,7 @@ def test_step_kernel_source_is_hand_written():
         shared = f.read()
     for symbol in ("df_step_grads", "step_grads_kernel", "step_reduce_kernel",
                    "__global__", "tile_loss", "#include \"flow_phases.cuh\"",
+                   "#include \"async_copy.cuh\"", "df_cp_async_floats",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert symbol in text
     for symbol in ("f_dense", "b_dense", "b_couple", "loss_cotangents",
