@@ -90,14 +90,19 @@ SEED = 0
 D, N_COND, HIDDEN, N_BLOCKS, ROWS = 32, 8, 256, 4, 1 << 18
 
 # Published peaks of one H100 SXM at its full 700 W limit: device memory
-# 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s. The kernels do all
-# their products as f32 FMA, so that is the rate their bound uses.
+# 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s, TF32 on the tensor
+# cores 495 TFLOP/s (dense). The training and coupling kernels do their
+# products as f32 FMA, so their bounds use the f32 rate; the chain kernels
+# do every product as three TF32 products (3xTF32), so theirs is three times
+# the products over the TF32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
-# kernel vs plain version: f32 FMA summed over K in the kernel's own order
-# against the library's f32 products (TF32 off), through up to 24 dense
-# layers and 8 exp() couplings
+# kernel vs plain version: the kernel's products (3xTF32 in the chain
+# kernels, f32 FMA elsewhere) summed over K in its own order against the
+# library's f32 products (TF32 off), through up to 24 dense layers and 8
+# exp() couplings
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 # train_run vs its plain version after 4 epochs of Adam on 137 rows: the same
@@ -333,20 +338,52 @@ def check_apply(chain, x, th, what, tiles=ck.TILE_ROWS):
     return worst
 
 
+def fitting_tiles(chain, d, n):
+    """The row tiles whose working set fits one block for this chain."""
+    plan, params = fc._plan_params(chain, "fwd")
+    ldh = ck.pack_plan(plan, params, d, n).ldh
+    return tuple(tb for tb in ck.TILE_ROWS
+                 if ck.shared_memory_bytes(tb, d, n, ldh)
+                 <= ck.MAX_SHARED_BYTES)
+
+
+def check_wide_hidden(rng, device):
+    """Hidden layers wider than one pass of 256 columns (300 and 520): two
+    hidden buffers, ping-pong, and every dense layer of that width in two
+    passes, the second narrower; chain_apply at every row tile that fits,
+    chain_sample at the default one against the plain fold of its draws."""
+    worst = 0.0
+    for h in (300, 520):
+        chain = mixed_chain(7, 3, h, rng, device, logit=True)
+        x, th = data(rng, 257, 7, 3, device)
+        worst = max(worst, check_apply(chain, x, th, f"mixed d7 n3 h{h}",
+                                       tiles=fitting_tiles(chain, 7, 3)))
+        plan, params = fc._plan_params(chain, "fwd")
+        y, r = ck.run_chain_sample(plan, params, 257, 7, th, seed=3,
+                                   return_noise=True)
+        torch.cuda.synchronize()
+        want = ck.chain_sample_plain(plan, params, 257, 7, th, noise=r)
+        worst = max(worst, require_close(y, want, f"mixed sample h{h}",
+                                         **KERNEL_TOL))
+    return worst
+
+
 def check_sample(chain, rows, d, th, what):
     """chain_sample with the base draws written out: the plain fold of the
     draws equals the kernel's samples; the draws are N(0, 1); two seeds
-    differ; one seed gives the same draws at both row tiles."""
+    differ; one seed gives the same draws at every row tile."""
     plan, params = fc._plan_params(chain, "fwd")
     outs = {}
     for tb in ck.TILE_ROWS:
         outs[tb] = ck.run_chain_sample(plan, params, rows, d, th, seed=1234,
                                        tile_rows=tb, return_noise=True)
         torch.cuda.synchronize()
-    (y, r), (y_b, r_b) = (outs[tb] for tb in ck.TILE_ROWS)
-    if not torch.equal(r, r_b):
-        fail(f"{what}: base draws depend on the row tile")
-    require_close(y_b, y, f"{what}: samples at two row tiles", 1e-6, 1e-6)
+    (y, r), *others = (outs[tb] for tb in ck.TILE_ROWS)
+    for y_b, r_b in others:
+        if not torch.equal(r, r_b):
+            fail(f"{what}: base draws depend on the row tile")
+        require_close(y_b, y, f"{what}: samples at two row tiles", 1e-6,
+                      1e-6)
     want = ck.chain_sample_plain(plan, params, rows, d, th, noise=r)
     err = require_close(y, want, f"{what}: samples vs plain fold of r_out",
                         **KERNEL_TOL)
@@ -413,10 +450,11 @@ def nan_relu_logit_chain(d, n, h, rng, device):
 
 def check_chain_nan(rng, device):
     """Rows holding a NaN (an identity dim, a transformed dim, a condition)
-    through a relu chain with a LogitLayer: chain_apply forward and inverse
-    at every row tile, chain_sample with a NaN condition row, and
-    ``Flow.log_prob`` on the chain route, each with the plain version's NaN
-    pattern."""
+    or a +-inf (x and conditions) through a relu chain with a LogitLayer:
+    chain_apply forward and inverse with ldj and chain_sample (NaN and
+    +-inf condition rows), each at every row tile, and ``Flow.log_prob`` on
+    the chain route, each with the plain version's pattern of NaN and of
+    +-inf entries."""
     d, n, rows = 7, 3, 1001
     chain = nan_relu_logit_chain(d, n, 18, rng, device)
     x = put(rng.uniform(-5, 5, size=(rows, d)), device)
@@ -424,30 +462,51 @@ def check_chain_nan(rng, device):
     x[3, 1] = float("nan")
     x[500, 5] = float("nan")
     th[11, 0] = float("nan")
+    # log_prob's per-layer route reads no folded zero rows, so inf * 0 = NaN
+    # is the folded route's own: the two routes are compared on NaN rows
+    x_nan, th_nan = x.clone(), th.clone()
+    inf_rows = (7, 640, 30, 901)
+    x[7, 2] = float("inf")
+    x[640, 6] = -float("inf")
+    th[30, 2] = -float("inf")
+    th[901, 1] = float("inf")
     worst, nan_rows = 0.0, {}
     for dirn in ("fwd", "inv"):
         plan, params = fc._plan_params(chain, dirn)
         want_y, want_l = ck.chain_apply_plain(plan, params, x, th,
                                               with_ldj=True)
         nan_rows[dirn] = int(torch.isnan(want_l).sum())
-        if nan_rows[dirn] != 3:
-            fail(f"chain NaN rows {dirn}: the plain version has "
-                 f"{nan_rows[dirn]} NaN rows, expected 3")
+        nan_rows[dirn + "_inf_entries"] = int(torch.isinf(want_y).sum())
+        # the NaN rows are NaN, and no row but those and the inf rows is
+        got_rows = set(torch.nonzero(torch.isnan(want_l)).flatten().tolist())
+        if not {3, 500, 11} <= got_rows <= {3, 500, 11, *inf_rows}:
+            fail(f"chain NaN rows {dirn}: the plain version's NaN rows are "
+                 f"{sorted(got_rows)}")
         for tb in ck.TILE_ROWS:
             y, ldj = ck.run_chain(plan, params, x, th, with_ldj=True,
                                   tile_rows=tb)
             torch.cuda.synchronize()
-            tag = f"chain_apply NaN rows {dirn} tile {tb}"
+            tag = f"chain_apply NaN / inf rows {dirn} tile {tb}"
             worst = max(worst, require_close_nan(y, want_y, tag + " y"),
                         require_close_nan(ldj, want_l, tag + " ldj"))
     plan, params = fc._plan_params(chain, "fwd")
-    y, r = ck.run_chain_sample(plan, params, rows, d, th, seed=5,
-                               return_noise=True)
-    torch.cuda.synchronize()
-    want = ck.chain_sample_plain(plan, params, rows, d, th, noise=r)
-    if not bool(torch.isnan(want[11]).all()):
-        fail("chain_sample NaN condition row: the plain version is finite")
-    worst = max(worst, require_close_nan(y, want, "chain_sample NaN rows"))
+    th_s = th.clone()
+    th_s[[7, 640]] = torch.tensor([[float("inf"), 0.5, 0.5],
+                                   [0.5, -float("inf"), 0.5]],
+                                  device=device)
+    for tb in ck.TILE_ROWS:
+        y, r = ck.run_chain_sample(plan, params, rows, d, th_s, seed=5,
+                                   return_noise=True, tile_rows=tb)
+        torch.cuda.synchronize()
+        want = ck.chain_sample_plain(plan, params, rows, d, th_s, noise=r)
+        if not bool(torch.isnan(want[11]).all()):
+            fail("chain_sample NaN condition row: the plain version is "
+                 "finite")
+        worst = max(worst, require_close_nan(
+            y, want, f"chain_sample NaN / inf rows tile {tb}"))
+    nan_rows["sample_nonfinite_rows"] = int(
+        (~torch.isfinite(want)).any(1).sum())
+    nan_rows["inf_rows"] = list(inf_rows)
     flow = dt.Flow(chain, dt.MetaData("", d, n, np.zeros(n), np.ones(n)),
                    device=device)
     lp = {}
@@ -455,7 +514,7 @@ def check_chain_nan(rng, device):
         dt.set_fused_kernels(mode)
         try:
             with torch.no_grad():
-                lp[mode] = flow.log_prob(x, th)
+                lp[mode] = flow.log_prob(x_nan, th_nan)
             torch.cuda.synchronize()
         finally:
             dt.set_fused_kernels("auto")
@@ -974,7 +1033,8 @@ def wide_stream(rng, device):
     kernel_ms = time_ms(lambda: stk.run_fused_train_stream(
         plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht, perms,
         batchsize=batch, step_plan=sp), warmup=1, runs=3)
-    tile, threads, shared, n_blocks = stk.device_launch_shape(sp, batch)
+    tile, threads, shared, n_blocks, staged = stk.device_launch_shape(
+        sp, batch)
     t0 = time.time()
     dt.train(plain, arrays, epochs=epochs, batchsize=batch, verbose=False,
              fused_kernel=False, _epoch_perms=perms)
@@ -997,6 +1057,7 @@ def wide_stream(rng, device):
                 plain_program_ms_per_step=1e3 * plain_seconds / steps,
                 folded_parameters=sp.n_params, tile_rows=tile,
                 threads=threads, shared_bytes=shared, blocks=n_blocks,
+                parameters_staged=staged,
                 valid_nll=flow.valid_loss, valid_nll_plain=plain.valid_loss,
                 valid_history_err_vs_plain=hist_err)
 
@@ -2056,7 +2117,8 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
         row_chunk=ft._EVAL_ROW_CHUNK) for xs, ths in ((xt, tht), (xv, thv))],
         warmup=1, runs=3)
 
-    tile, threads, shared, n_blocks = stk.device_launch_shape(sp, batch)
+    tile, threads, shared, n_blocks, staged = stk.device_launch_shape(
+        sp, batch)
     co_resident = stk.co_resident_blocks(threads, shared)
     n_batches = -(-n_train // batch)
     n_pad = n_batches * batch
@@ -2075,6 +2137,7 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
         plain_version_ms_per_step=plain / n_batches,
         eval_snapshots_ms_3_epochs_both_splits=eval_ms,
         tile_rows=tile, threads=threads, shared_bytes=shared, blocks=n_blocks,
+        parameters_staged=staged,
         co_resident_blocks=co_resident, folded_parameters=sp.n_params,
         drift_one_epoch_vs_plain=drift)
     return {
@@ -2143,10 +2206,15 @@ def bits_equal(a, b):
 
 
 def require_close_nan(got, want, what):
-    """KERNEL_TOL where the plain version is not NaN; NaN where it is."""
+    """KERNEL_TOL where the plain version is finite; NaN where it is NaN and
+    the same infinity where it is +-inf."""
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         fail(f"{what}: NaN pattern differs from the plain version")
-    ok = ~torch.isnan(want)
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf])):
+        fail(f"{what}: +-inf pattern differs from the plain version")
+    ok = torch.isfinite(want)
     if not bool(ok.any()):
         return 0.0
     return require_close(got[ok], want[ok], what, **KERNEL_TOL)
@@ -2629,8 +2697,10 @@ def state_bytes(chain):
                    list(chain.parameters()) + list(chain.buffers()))
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_F32_FLOPS
+def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    """The least time for ``flops`` at ``peak_flops`` and ``nbytes`` at the
+    memory rate, and which of the two bounds it."""
+    t_ops = flops / peak_flops
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -2658,8 +2728,12 @@ def kernel_rows(flow, x, theta, errs, launches):
         default_tile_rows=ck.pick_tile_rows(D, N_COND, packed.ldh))
     pbytes = state_bytes(chain)
     flops_per_row = needed_flops_per_row(chain)
-    b_ms, by = bound_ms(ROWS * flops_per_row,
-                        4 * ROWS * (2 * D + N_COND + 1) + pbytes)
+    # 3xTF32: three tensor-core products per f32 product; the f32 rate's
+    # bound (what the earlier f32 FMA design was held to) beside it
+    b_ms, by = bound_ms(3 * ROWS * flops_per_row,
+                        4 * ROWS * (2 * D + N_COND + 1) + pbytes,
+                        PEAK_TF32_FLOPS)
+    f32_ms = bound_ms(ROWS * flops_per_row, 0)[0]
     rows.append({
         "name": "chain_apply", "route": "cuda",
         "source": "densityflows_tpu_torch/csrc/chain_kernels.cu",
@@ -2670,7 +2744,8 @@ def kernel_rows(flow, x, theta, errs, launches):
                  f"{N_COND}), 8 split couplings hidden {HIDDEN} + affine",
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "needed_flops_per_row": flops_per_row,
-        "rows_per_s": ROWS / (ms * 1e-3),
+        "bound_rate": "3 x products at the TF32 tensor-core rate",
+        "bound_ms_f32_rate": f32_ms, "rows_per_s": ROWS / (ms * 1e-3),
     })
 
     plan_f, params_f = fc._plan_params(chain, "fwd")
@@ -2680,8 +2755,8 @@ def kernel_rows(flow, x, theta, errs, launches):
     gen = torch.Generator(device=x.device).manual_seed(7)
     plain = time_ms(lambda: ck.chain_sample_plain(plan_f, params_f, ROWS, D,
                                                   th1, generator=gen), runs=5)
-    b_ms, by = bound_ms(ROWS * flops_per_row,
-                        4 * (ROWS * D + N_COND) + pbytes)
+    b_ms, by = bound_ms(3 * ROWS * flops_per_row,
+                        4 * (ROWS * D + N_COND) + pbytes, PEAK_TF32_FLOPS)
     rows.append({
         "name": "chain_sample", "route": "cuda",
         "source": "densityflows_tpu_torch/csrc/chain_kernels.cu",
@@ -2692,7 +2767,8 @@ def kernel_rows(flow, x, theta, errs, launches):
                  f"theta (1, {N_COND}) broadcast",
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "needed_flops_per_row": flops_per_row,
-        "draws_per_s": ROWS / (ms * 1e-3),
+        "bound_rate": "3 x products at the TF32 tensor-core rate",
+        "bound_ms_f32_rate": f32_ms, "draws_per_s": ROWS / (ms * 1e-3),
     })
     return rows
 
@@ -2751,9 +2827,11 @@ def main():
     err_s, _ = check_sample(mixed, 1001, 7, th_s, "mixed sample, per-row theta")
     check_sample(uncond, 333, 6, None, "mixed sample, n = 0")
     err_g = check_gradient(mixed, x_s[:256], th_s[:256])
+    err_w = check_wide_hidden(np.random.default_rng(SEED + 29), device)
     say(phase="kernels_small", chain_apply_max_abs_err=err_a,
         chain_sample_max_abs_err=err_s, gradient_max_abs_err=err_g,
-        tolerance=KERNEL_TOL)
+        hidden_300_520_max_abs_err=err_w, tolerance=KERNEL_TOL)
+    err_a, err_s = max(err_a, err_w), max(err_s, err_w)
     err_nan, nan_rows = check_chain_nan(np.random.default_rng(SEED + 23),
                                         device)
     say(phase="chain_nan_rows", max_abs_err_finite_entries=err_nan,

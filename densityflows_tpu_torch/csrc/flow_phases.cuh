@@ -2,9 +2,11 @@
 // backward programs of a folded flow on one tile of rows.
 //
 // Included by train_kernels.cu (train_run: one persistent block, parameters
-// and gradients in shared memory) and step_kernels.cu (step_grads: one block
-// per batch tile, parameters read from device memory, gradients written to
-// the block's partial). A phase does not know which: it reads parameters
+// and gradients in shared memory), and by step_kernels.cu (step_grads) and
+// stream_kernels.cu (train_stream), which run it through grads_tile.cuh's
+// tile body (one block per batch tile, parameters staged in shared memory
+// or read from device memory, gradients written to the block's partial). A
+// phase does not know which: it reads parameters
 // through Mem::P, constants through Mem::C and writes gradients through
 // Mem::G, while the tile's rows and caches lie in the shared array Mem::S.
 //

@@ -11,39 +11,49 @@
 // The per-epoch histories are computed outside, from the snapshots.
 //
 // Residency. train_run (train_kernels.cu) keeps parameters, both moments and
-// the gradients in ONE block's shared memory, which caps the model. Here they
-// lie in device memory (L2 holds them at these sizes) and shared memory holds
-// one row tile's rows, caches and scratch only, laid out by
+// the gradients in ONE block's shared memory, which caps the model. Here
+// they lie in device memory (L2 holds them at these sizes), and a block's
+// shared memory holds one row tile's rows, caches and scratch, laid out by
 // ops/train_kernels.py::pack_train_plan(state_in_shared=False) as for
-// step_grads, plus DENOM_LANES floats after it. The envelope is the caches of
-// one row.
+// step_grads. Where they fit beside the tile (iargs `stage`; 39,264
+// parameters at d 16 / hidden 64 take 157 KB of the 227 KB), a block also
+// holds a copy of the parameters, staged anew after every update, and the
+// constants and the program, staged once per launch (grads_tile.cuh's
+// layout). The envelope is the caches of one row.
 //
 // Order. The TPU grid over epochs x batches runs in order on one core; here a
 // batch is split over many blocks, and every block must see the previous
 // step's update. The run is ONE persistent cooperative launch (no more blocks
-// than can be resident at once) with three grid-wide barriers per step:
-//   (a) tiles: block k takes the batch's row tiles k, k + grid, ... and leaves
-//       its gradient partial and its share of the loss in row k of the
-//       (grid, np + 1) partial buffer -- step_grads_body of step_kernels.cu,
-//       with the rows gathered through the permutation;
-//   (b) reduce: block k owns a contiguous slice of the np + 1 entries, sums
-//       the partial rows over the blocks in index order, applies the select
-//       mask and writes whether its slice is finite;
-//   (c) update: every block reads every slice's flag, so all blocks take the
-//       same decision and keep the same count of applied updates; each
-//       applies Adam to its own slice and, at an epoch's end, snapshots it.
+// than can be resident at once) with grid-wide barriers between the phases
+// of a step:
+//   (a) tiles: block k stages the parameters and takes the batch's row tiles
+//       k, k + grid, ... into row k of the (grid, np + 1) partial buffer:
+//       grads_tile.cuh's body, the one step_grads runs, with the rows
+//       gathered through the permutation;
+//   (b) reduce: block k owns a contiguous slice of the np + 1 entries and
+//       sums the partial rows over the blocks in index order, the select
+//       mask applied;
+//   (c) update: Adam on the block's slice and, at an epoch's end, its
+//       snapshot.
+// Without the guard, (b) and (c) are one phase: a block updates the entries
+// it has just summed, so a step has two barriers. With the guard, (b) also
+// writes whether its slice is finite, and (c) follows a third barrier:
+// every block reads every slice's flag, so all blocks take the same
+// decision and keep the same count of applied updates.
 // No float atomics: two launches give the same bits, for any order of blocks.
-// Every block computes the batch's denominator itself, in one fixed order.
+// The batch denominators (the sums of the mask, in 32 fixed lanes) come in
+// from the wrapper, computed before the launch.
 //
-// What bounds it on this card: latency. A step is about 55 block-wide phases
-// on a few hundred kFLOP per tile plus three grid barriers; neither the
-// arithmetic rate nor the memory rate is near. Nothing here is tuned.
+// What bounds it on this card: latency, as for step_grads (grads_tile.cuh):
+// some 55 block-wide phases on a few hundred kFLOP per tile, then the
+// barriers and the reduction of the partial buffer.
 //
 // Each grid phase is a function of (block, n_blocks, step) that carries
-// nothing in shared memory into the next one; what a block carries across
-// steps (its count of applied updates, the epoch's skips) is in `Counters`.
-// With DF_HOST_EMULATION defined the file compiles as plain C++ and the CPU
-// tests run each phase over all blocks, in either order, before the next.
+// nothing in shared memory into the next one but the staged constants and
+// program; what a block carries across steps (its count of applied
+// updates, the epoch's skips) is in `Counters`. With DF_HOST_EMULATION
+// defined the file compiles as plain C++ and the CPU tests run each phase
+// over all blocks, in either order, before the next.
 //
 // C interface (ctypes): df_train_stream (launches on the given stream,
 // allocates nothing, does not synchronise, returns the CUDA error code) and
@@ -65,16 +75,14 @@
     __syncthreads();
 #endif
 
+#include "async_copy.cuh"
 #include "flow_phases.cuh"
+#include "grads_tile.cuh"
 
 namespace {
 
-// scalars in shared memory: the block's loss so far, the batch's
-// denominator, a finite flag
-enum : int { S_LOSS = 0, S_DENOM = 1, S_OK = 2 };
-// the denominator is summed in this many strided lanes, then the lanes in
-// order: the same bits in every block, for any thread count
-constexpr int DENOM_LANES = 32;
+// scalar in shared memory besides grads_tile.cuh's S_LOSS: a finite flag
+enum : int { S_OK = 2 };
 
 struct StreamArgs {
     const float* x; const float* th; const float* w; const int* perm;
@@ -86,9 +94,45 @@ struct StreamArgs {
     float* snaps;                     // (epochs, np)
     float* skips;                     // epochs
     float* losses;                    // epochs * n_batches, or null
+    float* clocks;                    // DF_STREAM_CLOCKS: cycles, or null
+    const float* denoms;              // epochs * n_batches, clamped
     int epochs, n_batches, batchsize, n_train, n_tiles, count0, weighted,
-        guard;
+        guard, stage;
     float lr, b1, b2, eps, omb1, omb2, logb1, logb2;
+};
+
+// DF_STREAM_CLOCKS (a measurement build of tools/chip_probe.py --variants):
+// thread 0 of block 0 adds the cycles of each part of a step to its slot,
+// and writes the sums and the step count to StreamArgs::clocks at the end.
+// Slots that a design does not have stay 0 (CK_DENOM: the parent design's
+// in-kernel denominator; CK_SYNC_REDUCE and CK_UPDATE: the guard's path).
+enum : int { CK_DENOM = 0, CK_STAGE, CK_TILES, CK_SYNC_TILES, CK_REDUCE,
+             CK_SYNC_REDUCE, CK_UPDATE, CK_SYNC_UPDATE, CK_STEPS,
+             CK_SLOTS };
+struct Clock {
+#if defined(DF_STREAM_CLOCKS) && !defined(DF_HOST_EMULATION)
+    long long c[CK_SLOTS];
+    long long last;
+    DF_FN void start() {
+        for (int i = 0; i < CK_SLOTS; ++i) c[i] = 0;
+        last = clock64();
+    }
+    DF_FN void tick(int slot) {
+        if (blockIdx.x != 0 || threadIdx.x != 0) return;
+        const long long now = clock64();
+        c[slot] += now - last;
+        last = now;
+    }
+    DF_FN void write(float* out, int steps) {
+        if (out == nullptr || blockIdx.x != 0 || threadIdx.x != 0) return;
+        for (int i = 0; i < CK_STEPS; ++i) out[i] = (float)c[i];
+        out[CK_STEPS] = (float)steps;
+    }
+#else
+    DF_FN void start() {}
+    DF_FN void tick(int) {}
+    DF_FN void write(float*, int) {}
+#endif
 };
 
 // what a block carries from one step to the next; the same in every block
@@ -126,16 +170,6 @@ DF_FN void load_tile(const Mem& m, const StreamArgs& a, const int* perm_row,
     }
 }
 
-// The tile's share of the loss, added to the block's: thread 0, rows in
-// order. `first`: the block's first tile starts the sum.
-DF_FN void tile_loss(const Mem& m, float den, bool first, int tid) {
-    if (tid != 0) return;
-    float num = 0.f;
-    for (int r = 0; r < m.B; ++r) num = fmaf(m.LP[r], m.MASK[r], num);
-    const float loss = -num / den;
-    m.SCAL[S_LOSS] = first ? loss : m.SCAL[S_LOSS] + loss;
-}
-
 // the slice of the np + 1 entries (gradients, then the loss) a block owns
 DF_FN void block_slice(int len, int block, int n_blocks, int& lo, int& hi) {
     const int per = (len + n_blocks - 1) / n_blocks;
@@ -143,69 +177,119 @@ DF_FN void block_slice(int len, int block, int n_blocks, int& lo, int& hi) {
     hi = lo + per < len ? lo + per : len;
 }
 
-// ---- the three grid phases of one step ------------------------------------
+// Entry i of the batch's gradient (or the loss, i = np): the partial rows of
+// all blocks in index order, then the 0/1 mask as a select (inf * 0 would
+// be NaN). The loads go out sixteen at a time; the adds keep their order.
+DF_FN float reduced_entry(const StreamArgs& a, int np, int n_blocks, int i) {
+    const long long len = np + 1;
+    const float* col = a.partial + i;
+    float acc = 0.f;
+    int g = 0;
+    for (; g + 16 <= n_blocks; g += 16) {
+        float v[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) v[j] = col[(g + j) * len];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc += v[j];
+    }
+    for (; g < n_blocks; ++g) acc += col[g * len];
+    if (i < np && !(a.gmask[i] > 0.5f)) acc = 0.f;
+    return acc;
+}
 
-// (a) the block's tiles of batch b of epoch e into its partial row.
-// Uniform control flow: everything outside a DF_PHASE is computed alike by
-// every thread of the block from uniform values.
+// Adam on entry i with gradient g at bias corrections bc1, bc2
+DF_FN void adam_entry(const StreamArgs& a, int i, float g, float bc1,
+                      float bc2) {
+    const float mu = a.b1 * a.mu[i] + a.omb1 * g;
+    const float nu = a.b2 * a.nu[i] + a.omb2 * g * g;
+    a.p[i] = a.p[i] - a.lr * (mu / bc1) / (sqrtf(nu / bc2) + a.eps);
+    a.mu[i] = mu;
+    a.nu[i] = nu;
+}
+
+// ---- the phases of a launch ------------------------------------------------
+
+// Once per launch: the constants and the program into the block's shared
+// memory, where the parameters are staged too; they stay for the launch.
+DF_FN void stream_stage_once(const StreamArgs& a, float* S) {
+    if (!a.stage) return;
+    const Staged st = stage_buffers(S, a.prog);
+    const int nc = a.prog[H_NC];
+    DF_PHASE(
+        if (nc > 0) df_cp_async_floats(st.C, a.consts, nc, tid, nt);
+        df_cp_async_floats(st.I, reinterpret_cast<const float*>(a.prog),
+                           st.prog_words, tid, nt);
+        df_cp_async_wait_all();
+    )
+}
+
+// (a) the parameters staged, then the block's tiles of batch b of epoch e
+// into its partial row.
 DF_FN void stream_tiles(const StreamArgs& a, float* S, int block,
-                        int n_blocks, int e, int b) {
+                        int n_blocks, int e, int b, Clock& ck) {
     const int* hdr = a.prog;
     Mem m;
     tile_buffers(m, S, hdr);
     m.P = a.p;                               // read only in this phase
     m.C = const_cast<float*>(a.consts);
     m.MU = nullptr; m.NU = nullptr;
+    const int* prog = a.prog;
+    if (a.stage) {
+        const Staged st = stage_buffers(S, hdr);
+        DF_PHASE(
+            df_cp_async_floats(st.P, a.p, m.np, tid, nt);
+            df_cp_async_wait_all();
+        )
+        m.P = st.P;
+        m.C = st.C;
+        prog = reinterpret_cast<const int*>(st.I);
+    }
+    ck.tick(CK_STAGE);
     m.G = a.partial + (long long)block * (m.np + 1);
-    const int n_fwd = hdr[H_NFWD], n_bwd = hdr[H_NBWD];
-    const int* fwd = a.prog + HEADER_WORDS;
-    const int* bwd = fwd + n_fwd * INSTR_WORDS;
     const int* perm_row = a.perm + (long long)e * a.n_batches * a.batchsize;
     const int p0 = b * a.batchsize;
-    float* lanes = S + hdr[H_TOTAL];
-
-    // the batch's sum of the mask, clamped at 1e-12
-    DF_PHASE(
-        for (int l = tid; l < DENOM_LANES; l += nt) {
-            float s = 0.f;
-            for (int q = l; q < a.batchsize; q += DENOM_LANES)
-                s += batch_mask(a, perm_row, p0 + q);
-            lanes[l] = s;
-        }
-    )
-    DF_PHASE(
-        if (tid == 0) {
-            float s = 0.f;
-            for (int l = 0; l < DENOM_LANES; ++l) s += lanes[l];
-            m.SCAL[S_DENOM] = fmaxf(s, 1e-12f);
-        }
-    )
-    const float den = m.SCAL[S_DENOM];
-
-    for (int tile = block; tile < a.n_tiles; tile += n_blocks) {
-        const bool first = tile == block;
-        m.acc = first ? 0 : 1;
-        DF_PHASE(load_tile(m, a, perm_row, p0, tile * m.B, tid, nt))
-        for (int pc = 0; pc < n_fwd; ++pc) {
-            DF_PHASE(step(m, fwd + pc * INSTR_WORDS, tid, nt))
-        }
-        DF_PHASE(row_log_prob(m, tid, nt))
-        // the loss reads LP and MASK, the cotangents read MASK and Z and
-        // write JBAR and GZ: one phase
-        DF_PHASE(
-            tile_loss(m, den, first, tid);
-            loss_cotangents(m, den, tid, nt);
-        )
-        for (int pc = 0; pc < n_bwd; ++pc) {
-            DF_PHASE(step(m, bwd + pc * INSTR_WORDS, tid, nt))
-        }
-    }
-    DF_PHASE(if (tid == 0) m.G[m.np] = m.SCAL[S_LOSS])
+    const float den = a.denoms[e * a.n_batches + b];
+    PhaseTicks ticks;
+    ticks.start(nullptr);
+    grads_tiles(m, prog, a.n_tiles, block, n_blocks, den,
+                [&](int row0, int tid, int nt) {
+                    load_tile(m, a, perm_row, p0, row0, tid, nt);
+                },
+                ticks);
+    ck.tick(CK_TILES);
 }
 
-// (b) the block's slice: partial rows summed in block order, the 0/1 mask
-// as a select (inf * 0 would be NaN), the slice's finite flag; the owner of
-// the loss entry records the step's loss.
+// (b) + (c) without the guard: the block's slice summed and, where it holds
+// gradients, updated by Adam at once (and snapshot at an epoch's end); the
+// owner of the loss entry records the step's loss.
+DF_FN void stream_reduce_update(const StreamArgs& a, float* S, int block,
+                                int n_blocks, int e, int b, Counters& c) {
+    (void)S;
+    const int np = a.prog[H_NP];
+    int lo, hi;
+    block_slice(np + 1, block, n_blocks, lo, hi);
+    const float t = (float)(a.count0 + c.applied + 1);
+    const float bc1 = 1.f - expf(t * a.logb1);
+    const float bc2 = 1.f - expf(t * a.logb2);
+    const bool snap = b == a.n_batches - 1;
+    const int step_index = e * a.n_batches + b;
+    DF_PHASE(
+        for (int i = lo + tid; i < hi; i += nt) {
+            const float g = reduced_entry(a, np, n_blocks, i);
+            if (i == np) {
+                if (a.losses != nullptr) a.losses[step_index] = g;
+                continue;
+            }
+            adam_entry(a, i, g, bc1, bc2);
+            if (snap) a.snaps[(long long)e * np + i] = a.p[i];
+        }
+        if (snap && block == 0 && tid == 0) a.skips[e] = 0.f;
+    )
+    ++c.applied;
+}
+
+// (b) with the guard: the block's slice into the reduced gradient, the
+// slice's finite flag; the owner of the loss entry records the step's loss.
 DF_FN void stream_reduce(const StreamArgs& a, float* S, int block,
                          int n_blocks, int step_index) {
     const int np = a.prog[H_NP], len = np + 1;
@@ -215,10 +299,7 @@ DF_FN void stream_reduce(const StreamArgs& a, float* S, int block,
     DF_PHASE(if (tid == 0) scal[S_OK] = 1.f)
     DF_PHASE(
         for (int i = lo + tid; i < hi; i += nt) {
-            float acc = 0.f;
-            for (int g = 0; g < n_blocks; ++g)
-                acc += a.partial[(long long)g * len + i];
-            if (i < np && !(a.gmask[i] > 0.5f)) acc = 0.f;
+            const float acc = reduced_entry(a, np, n_blocks, i);
             a.grad[i] = acc;
             if (!finite_f(acc)) scal[S_OK] = 0.f;
         }
@@ -232,9 +313,10 @@ DF_FN void stream_reduce(const StreamArgs& a, float* S, int block,
     )
 }
 
-// (c) the guard's decision from every slice's flag, Adam on the block's
-// slice, and at the epoch's end its snapshot. Each thread reads back the
-// reduced entries it wrote itself in (b): the same slice, the same stride.
+// (c) with the guard: the decision from every slice's flag, Adam on the
+// block's slice, and at the epoch's end its snapshot. Each thread reads
+// back the reduced entries it wrote itself in (b): the same slice, the same
+// stride.
 DF_FN void stream_update(const StreamArgs& a, float* S, int block,
                          int n_blocks, int e, int b, Counters& c) {
     const int np = a.prog[H_NP];
@@ -244,9 +326,8 @@ DF_FN void stream_update(const StreamArgs& a, float* S, int block,
     if (hi > np) hi = np;
     DF_PHASE(if (tid == 0) scal[S_OK] = 1.f)
     DF_PHASE(
-        if (a.guard)
-            for (int g = tid; g < n_blocks; g += nt)
-                if (a.flags[g] == 0.f) scal[S_OK] = 0.f;
+        for (int g = tid; g < n_blocks; g += nt)
+            if (a.flags[g] == 0.f) scal[S_OK] = 0.f;
     )
     const bool ok = scal[S_OK] != 0.f;
     if (ok) {
@@ -255,14 +336,8 @@ DF_FN void stream_update(const StreamArgs& a, float* S, int block,
         const float bc1 = 1.f - expf(t * a.logb1);
         const float bc2 = 1.f - expf(t * a.logb2);
         DF_PHASE(
-            for (int i = lo + tid; i < hi; i += nt) {
-                const float g = a.grad[i];
-                const float mu = a.b1 * a.mu[i] + a.omb1 * g;
-                const float nu = a.b2 * a.nu[i] + a.omb2 * g * g;
-                a.p[i] = a.p[i] - a.lr * (mu / bc1) / (sqrtf(nu / bc2) + a.eps);
-                a.mu[i] = mu;
-                a.nu[i] = nu;
-            }
+            for (int i = lo + tid; i < hi; i += nt)
+                adam_entry(a, i, a.grad[i], bc1, bc2);
         )
         ++c.applied;
     } else {
@@ -289,31 +364,47 @@ StreamArgs make_stream_args(const void* const* p, const int* ia,
     a.partial = (float*)p[10]; a.grad = (float*)p[11];
     a.flags = (float*)p[12]; a.snaps = (float*)p[13];
     a.skips = (float*)p[14]; a.losses = (float*)p[15];
+    a.clocks = (float*)p[16]; a.denoms = (const float*)p[17];
     a.epochs = ia[0]; a.n_batches = ia[1]; a.batchsize = ia[2];
     a.n_train = ia[3]; a.n_tiles = ia[4]; a.count0 = ia[5];
-    a.weighted = ia[6]; a.guard = ia[7];
+    a.weighted = ia[6]; a.guard = ia[7]; a.stage = ia[8];
     a.lr = fa[0]; a.b1 = fa[1]; a.b2 = fa[2]; a.eps = fa[3];
     a.omb1 = fa[4]; a.omb2 = fa[5]; a.logb1 = fa[6]; a.logb2 = fa[7];
     return a;
 }
 
 #ifndef DF_HOST_EMULATION
-__global__ void __launch_bounds__(1024, 1) train_stream_kernel(StreamArgs a) {
+// at most 512 threads, as step_grads (ops/step_kernels.py::STEP_MAX_THREADS)
+__global__ void __launch_bounds__(512, 1) train_stream_kernel(StreamArgs a) {
     extern __shared__ float4 smem4[];
     float* S = reinterpret_cast<float*>(smem4);
     cooperative_groups::grid_group grid = cooperative_groups::this_grid();
     const int block = blockIdx.x, n_blocks = gridDim.x;
     Counters c = {0, 0};
+    Clock ck;
+    ck.start();
+    stream_stage_once(a, S);
     for (int e = 0; e < a.epochs; ++e) {
         for (int b = 0; b < a.n_batches; ++b) {
-            stream_tiles(a, S, block, n_blocks, e, b);
+            stream_tiles(a, S, block, n_blocks, e, b, ck);
             grid.sync();
-            stream_reduce(a, S, block, n_blocks, e * a.n_batches + b);
+            ck.tick(CK_SYNC_TILES);
+            if (a.guard) {
+                stream_reduce(a, S, block, n_blocks, e * a.n_batches + b);
+                ck.tick(CK_REDUCE);
+                grid.sync();
+                ck.tick(CK_SYNC_REDUCE);
+                stream_update(a, S, block, n_blocks, e, b, c);
+                ck.tick(CK_UPDATE);
+            } else {
+                stream_reduce_update(a, S, block, n_blocks, e, b, c);
+                ck.tick(CK_REDUCE);
+            }
             grid.sync();
-            stream_update(a, S, block, n_blocks, e, b, c);
-            grid.sync();
+            ck.tick(CK_SYNC_UPDATE);
         }
     }
+    ck.write(a.clocks, a.epochs * a.n_batches);
 }
 #endif
 
@@ -321,16 +412,22 @@ __global__ void __launch_bounds__(1024, 1) train_stream_kernel(StreamArgs a) {
 
 extern "C" {
 
-// ptrs (16 device pointers, null where absent): x (n_train, d), theta
+// ptrs (18 device pointers, null where absent): x (n_train, d), theta
 // (n_train, n), w (n_train), perm (int32, epochs x n_batches*batchsize),
 // flat 0/1 gradient mask, constants, program, parameters, mu, nu (all three
 // updated in place), partial buffer (n_blocks x (np + 1)), reduced gradient
 // (np + 1), flags (n_blocks), snapshots (epochs x np), skips (epochs),
-// per-step losses (epochs x n_batches) or null.
+// per-step losses (epochs x n_batches) or null, cycle counts (CK_SLOTS,
+// the DF_STREAM_CLOCKS build) or null, the batches' denominators (epochs x
+// n_batches, each the sum of the batch's mask in DENOM_LANES lanes of
+// ops/stream_kernels.py, clamped at 1e-12).
 // iargs: epochs, n_batches, batchsize, n_train, n_tiles, count0, weighted,
-// guard. fargs: lr, b1, b2, eps, 1-b1, 1-b2, log b1, log b2.
+// guard, stage. fargs: lr, b1, b2, eps, 1-b1, 1-b2, log b1, log b2.
 // n_blocks <= n_tiles (every block has a tile) and no more than can be
-// resident at once (df_train_stream_max_blocks): the launch is cooperative.
+// resident at once (df_train_stream_max_blocks, asked with the same threads
+// and shared bytes): the launch is cooperative. stage: the parameters, the
+// constants and the program go to shared memory after the tile's floats
+// (shared_bytes then counts them).
 #ifndef DF_HOST_EMULATION
 int df_train_stream_max_blocks(int threads, int shared_bytes, int* out) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -368,9 +465,11 @@ int df_train_stream(const void* const* ptrs, const int* iargs,
 }
 #else
 // The same run on host pointers: each grid phase over all blocks (reverse
-// bit 1: last block first) before the next, each block with a fresh shared
-// array; the threads of a block phase in the order the -include'd header is
-// told (reverse bit 0: last thread first).
+// bit 1: last block first) before the next. Every block has a shared array
+// of its own, refilled with NaN before each grid phase but for the staged
+// constants and program, which the kernel keeps for the launch; the threads
+// of a block phase run in the order the -include'd header is told (reverse
+// bit 0: last thread first).
 int df_train_stream_emulated(const void* const* ptrs, const int* iargs,
                              const float* fargs, int threads,
                              int shared_bytes, int n_blocks, int reverse) {
@@ -379,20 +478,38 @@ int df_train_stream_emulated(const void* const* ptrs, const int* iargs,
     df_emulation_reverse = reverse & 1;
     df_emulation_block_reverse = (reverse >> 1) & 1;
     const int floats = shared_bytes / 4;
-    float* S = new float[floats];
+    // what a grid phase may not find again: all but the constants and the
+    // program when they are staged
+    const int fresh = a.stage ? align4(a.prog[H_TOTAL]) + align4(a.prog[H_NP])
+                              : floats;
+    float* S = new float[(long long)n_blocks * floats];
+    for (long long i = 0; i < (long long)n_blocks * floats; ++i) S[i] = NAN;
     Counters* c = new Counters[n_blocks];
     for (int k = 0; k < n_blocks; ++k) c[k] = Counters{0, 0};
+    Clock ck;
+    df_grid_phase_kept(n_blocks, S, floats, floats, [&](int k, float* Sk) {
+        stream_stage_once(a, Sk);
+    });
     for (int e = 0; e < a.epochs; ++e) {
         for (int b = 0; b < a.n_batches; ++b) {
-            df_grid_phase(n_blocks, S, floats, [&](int k) {
-                stream_tiles(a, S, k, n_blocks, e, b);
+            df_grid_phase_kept(n_blocks, S, floats, fresh, [&](int k, float* Sk) {
+                stream_tiles(a, Sk, k, n_blocks, e, b, ck);
             });
-            df_grid_phase(n_blocks, S, floats, [&](int k) {
-                stream_reduce(a, S, k, n_blocks, e * a.n_batches + b);
-            });
-            df_grid_phase(n_blocks, S, floats, [&](int k) {
-                stream_update(a, S, k, n_blocks, e, b, c[k]);
-            });
+            if (a.guard) {
+                df_grid_phase_kept(n_blocks, S, floats, fresh,
+                              [&](int k, float* Sk) {
+                    stream_reduce(a, Sk, k, n_blocks, e * a.n_batches + b);
+                });
+                df_grid_phase_kept(n_blocks, S, floats, fresh,
+                              [&](int k, float* Sk) {
+                    stream_update(a, Sk, k, n_blocks, e, b, c[k]);
+                });
+            } else {
+                df_grid_phase_kept(n_blocks, S, floats, fresh,
+                              [&](int k, float* Sk) {
+                    stream_reduce_update(a, Sk, k, n_blocks, e, b, c[k]);
+                });
+            }
         }
     }
     delete[] c;

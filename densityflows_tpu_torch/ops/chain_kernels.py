@@ -34,9 +34,10 @@ Kernels (``csrc/chain_kernels.cu``, built by ``_build.py`` at first use):
   TPU's.
 
 Both are bound by arithmetic on an H100 (a few MFLOP of conditioner products
-per row against a few hundred bytes of I/O). The weights stay in device
-memory / L2 and are read with 16-byte loads; the row tile's activations stay
-in shared memory; all products are f32 FMA in the kernel's own body.
+per row against a few hundred bytes of I/O). Their products run on the
+tensor cores in 3xTF32 (``wgmma`` in the kernel's own body), with f32
+accuracy; the weights stream from L2 in the tiled layout of
+:func:`tile_weights`; the row tile's activations stay in shared memory.
 
 A wrapper uses the plain version (``chain_apply_plain`` /
 ``chain_sample_plain``) only for a tensor that lies on the CPU. For a CUDA
@@ -78,7 +79,10 @@ _INSTR_WORDS = 8
 # shared memory a block can have on sm_90 (227 KB) and the row-tile sizes
 # the kernels are instantiated for
 MAX_SHARED_BYTES = 232448
-TILE_ROWS = (64, 32)
+TILE_ROWS = (64, 32, 16)
+# the kernels' weight stream: four slots of a chunk and its remainders,
+# each of at most 256 columns x 16 rows, then 12 mbarriers
+_RING_FLOATS = 4 * 2 * 256 * 16 + 24
 
 
 def _act(name: str, u: torch.Tensor) -> torch.Tensor:
@@ -312,8 +316,10 @@ def _float_bits(v: float) -> int:
 @dataclasses.dataclass
 class PackedPlan:
     """A plan lowered for the kernels: ``prog`` (n_instr, 8) int32
-    program words and ``flat``, one f32 buffer holding every parameter
-    (matrices row-major with both extents zero-padded to a multiple of 4)."""
+    program words, ``flat``, one f32 buffer holding every parameter
+    (matrices row-major with both extents zero-padded to a multiple of 4),
+    and ``tiled``, the dense layers' weights as the kernels' products
+    stream them (:func:`tile_weights`)."""
 
     plan: tuple
     d: int
@@ -321,6 +327,7 @@ class PackedPlan:
     hmax4: int          # widest padded hidden layer (0 without couplings)
     prog: torch.Tensor
     flat: torch.Tensor
+    tiled: torch.Tensor
 
     @property
     def n_instr(self) -> int:
@@ -466,13 +473,56 @@ def pack_plan(plan, params, d: int, n: int) -> PackedPlan:
             raise ValueError(f"unknown chain op {tag!r}")
     prog = torch.tensor(pk.instrs, dtype=torch.int32, device=device)
     flat = torch.cat(pk.chunks).contiguous()
-    return PackedPlan(tuple(plan), d, n, pk.hmax4, prog, flat)
+    return PackedPlan(tuple(plan), d, n, pk.hmax4, prog, flat,
+                      tile_weights(flat, pk.instrs))
 
 
-def packed_apply_reference(packed: PackedPlan, x, theta, *, with_ldj):
+# the kernels' chunk of weights: _CHUNK_ROWS rows (K) by 32, 128 or 256
+# columns (N), by the columns a pass of 256 has left (chunk_cols in
+# csrc/chain_kernels.cu)
+_CHUNK_ROWS = 16
+_PASS_COLS = 256
+
+
+def _chunk_cols(left: int) -> int:
+    return 32 if left <= 32 else (128 if left <= 128 else _PASS_COLS)
+
+
+def tile_weights(flat: torch.Tensor, instrs) -> torch.Tensor:
+    """The weight matrices of the dense instructions, in the order and the
+    layout in which the kernels' tensor-core products consume them: for each
+    dense instruction, each pass of 256 columns, each chunk of 16 rows, one
+    contiguous (cols x 16) tile in wgmma's K-major no-swizzle core-matrix
+    layout — core matrix (n // 8, k // 4) of 8 x 4 floats at ((n // 8) * 4
+    + k // 4) * 32 floats, element (n % 8, k % 4) at (n % 8) * 4 + k % 4 —
+    zero past the matrix. A chunk is then one bulk copy."""
+    tiles = []
+    for ins in instrs:
+        if ins[0] != _OP_DENSE:
+            continue
+        k4, n4, off = ins[3], ins[4], ins[5]
+        w = flat[off:off + k4 * n4].view(k4, n4)
+        k16 = -(-k4 // _CHUNK_ROWS) * _CHUNK_ROWS
+        for c0 in range(0, n4, _PASS_COLS):
+            cw = _chunk_cols(n4 - c0)
+            part = flat.new_zeros(k16, cw)
+            part[:k4, :min(cw, n4 - c0)] = w[:, c0:c0 + cw]
+            # [chunk, k // 4, k % 4, n // 8, n % 8] -> [chunk, n // 8,
+            # k // 4, n % 8, k % 4]
+            tiles.append(part.view(k16 // _CHUNK_ROWS, 4, 4, cw // 8, 8)
+                         .permute(0, 3, 1, 4, 2).reshape(-1))
+    if not tiles:
+        return flat.new_zeros(4)
+    return torch.cat(tiles).contiguous()
+
+
+def packed_apply_reference(packed: PackedPlan, x, theta, *, with_ldj,
+                           matmul=None):
     """Execute a packed program instruction by instruction in PyTorch, on the
     padded buffers the kernel uses. It checks the lowering (offsets, padding,
-    buffer routing) where no GPU is available; it is not a fast path."""
+    buffer routing) where no GPU is available; it is not a fast path.
+    ``matmul(a, w)``: the product of a dense instruction (default ``a @
+    w``), for a model of the kernel's arithmetic."""
     d, n = packed.d, packed.n
     n4, d4 = _up4(n), _up4(d)
     rows = x.shape[0]
@@ -495,7 +545,7 @@ def packed_apply_reference(packed: PackedPlan, x, theta, *, with_ldj):
             _, src, dst, k4, m4, w_off, b_off, act = ins
             a = tile[:, n4:n4 + k4] if src == _BUF_X else bufs[src][:, :k4]
             w = flat[w_off:w_off + k4 * m4].reshape(k4, m4)
-            u = a @ w
+            u = a @ w if matmul is None else matmul(a, w)
             if b_off >= 0:
                 u = u + flat[b_off:b_off + m4]
             bufs[dst] = _act(act_names[act], u)
@@ -543,19 +593,24 @@ def packed_apply_reference(packed: PackedPlan, x, theta, *, with_ldj):
 # -- launch configuration ------------------------------------------------------
 
 def shared_memory_bytes(tile_rows: int, d: int, n: int, ldh: int) -> int:
-    """Dynamic shared memory one block needs (mirrors ``tile_floats`` in
-    csrc/chain_kernels.cu)."""
-    floats = (tile_rows * (_up4(n) + _up4(d) + 4) + 2 * tile_rows * ldh
+    """Dynamic shared memory one block needs: the tile's buffers rounded up
+    to 16 bytes, then the weight stream (mirrors ``block_floats`` in
+    csrc/chain_kernels.cu). One hidden buffer, updated in place, where no
+    hidden layer is wider than 256 columns; two else."""
+    hidden = 1 if ldh - 4 <= _PASS_COLS else 2
+    floats = (tile_rows * (_up4(n) + _up4(d) + 4) + hidden * tile_rows * ldh
               + 2 * tile_rows * (_up4(d) + 4) + tile_rows)
-    return 4 * floats
+    return 4 * (_up4(floats) + _RING_FLOATS)
 
 
 def pick_tile_rows(d: int, n: int, ldh: int) -> int:
-    """The default row tile (the smallest instantiated one: it measured
-    faster than the larger at d 32, hidden 256 on an H100); raises when its
-    working set exceeds a block's shared memory (the kernels' static
+    """The default row tile: the first of ``TILE_ROWS`` whose working set
+    fits a block's shared memory (the larger tile measured faster at d 32,
+    hidden 256 on an H100); raises when none does (the kernels' static
     limit)."""
-    tb = min(TILE_ROWS)
+    tb = next((t for t in TILE_ROWS
+               if shared_memory_bytes(t, d, n, ldh) <= MAX_SHARED_BYTES),
+              min(TILE_ROWS))
     if shared_memory_bytes(tb, d, n, ldh) > MAX_SHARED_BYTES:
         raise ValueError(
             f"chain too wide for the chain kernels: d={d}, n={n}, padded "
@@ -575,11 +630,12 @@ def _library():
 
         lib = load_library("chain_kernels")
         p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.c_longlong
         lib.df_chain_apply.argtypes = [
-            p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, i, p]
+            p, p, p, p, p, i, p, p, ll, i, i, i, i, p]
         lib.df_chain_apply.restype = i
         lib.df_chain_sample.argtypes = [
-            p, p, p, i, p, i, p, ctypes.c_longlong, i, i, i,
+            p, p, p, i, p, i, p, p, ll, i, i, i,
             ctypes.c_uint, ctypes.c_uint, i, p]
         lib.df_chain_sample.restype = i
         _LIB = lib
@@ -661,7 +717,7 @@ def run_chain(plan, params, x, theta, *, with_ldj, packed=None,
             x.data_ptr(), theta.data_ptr() if theta is not None else None,
             y.data_ptr(), ldj.data_ptr() if with_ldj else None,
             packed.prog.data_ptr(), packed.n_instr, packed.flat.data_ptr(),
-            rows, d, n, packed.ldh, tb, stream)
+            packed.tiled.data_ptr(), rows, d, n, packed.ldh, tb, stream)
     if err != 0:
         raise RuntimeError(f"chain_apply launch failed (CUDA error {err})")
     run_chain.launches += 1
@@ -726,7 +782,8 @@ def run_chain_sample(plan, params, rows, d, theta, *, generator=None,
             theta.data_ptr() if theta is not None else None,
             1 if theta is not None and theta.shape[0] == 1 else 0,
             packed.prog.data_ptr(), packed.n_instr, packed.flat.data_ptr(),
-            rows, d, n, packed.ldh, seed & 0xFFFFFFFF, seed >> 32, tb, stream)
+            packed.tiled.data_ptr(), rows, d, n, packed.ldh,
+            seed & 0xFFFFFFFF, seed >> 32, tb, stream)
     if err != 0:
         raise RuntimeError(f"chain_sample launch failed (CUDA error {err})")
     run_chain_sample.launches += 1

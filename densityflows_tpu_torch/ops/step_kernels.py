@@ -79,9 +79,9 @@ _TARGET_TILES = 128
 _MAX_BLOCKS = 528
 _MAX_THREADS = 1024
 # ``pick_tile`` / ``grid`` / ``threads`` above are also train_stream's launch
-# rule (ops/stream_kernels.py::launch_shape), which keeps them as they are.
-# A step_grads block has at most STEP_MAX_THREADS threads (the kernel's
-# launch bound: 128 registers a thread; the phases loop over their items)
+# rule (ops/stream_kernels.py::launch_shape). A step_grads or train_stream
+# block has at most STEP_MAX_THREADS threads (the kernels' launch bound: 128
+# registers a thread; the phases loop over their items)
 STEP_MAX_THREADS = 512
 # fewer blocks than this: the tile is halved (down to 4 rows)
 _STEP_MIN_BLOCKS = 16

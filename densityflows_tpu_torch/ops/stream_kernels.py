@@ -32,7 +32,9 @@ weights multiply the mask.
   stacked snapshots, in row chunks.
 - :func:`stream_reason` / :func:`stream_shared_bytes` / :func:`launch_shape`
   — the envelope (the caches of one row in one block's shared memory) and
-  the row tile, threads and grid of a launch.
+  the row tile, threads, residency and grid of a launch.
+- :func:`batch_denominators` — every batch's ``Σ mask`` in the kernel's
+  fixed lane order, computed before the launch.
 """
 
 from __future__ import annotations
@@ -43,7 +45,12 @@ import numpy as np
 import torch
 
 from .chain_kernels import MAX_SHARED_BYTES
-from .step_kernels import StepPlan, _full_f32, step_grads_plain
+from .step_kernels import (
+    STEP_MAX_THREADS,
+    StepPlan,
+    _full_f32,
+    step_grads_plain,
+)
 from .train_kernels import (
     _adam_scalars,
     _adam_step,
@@ -54,20 +61,18 @@ from .train_kernels import (
 
 __all__ = ["run_fused_train_stream", "fused_train_stream_plain",
            "eval_snapshots", "stream_reason", "stream_shared_bytes",
-           "launch_shape", "MAX_SHARED_BYTES"]
+           "launch_shape", "batch_denominators", "MAX_SHARED_BYTES"]
 
-# floats of shared memory after the plan's layout: the lanes of the batch's
-# denominator (DENOM_LANES in csrc/stream_kernels.cu)
-_DENOM_LANES = 32
-_EXTRA_BYTES = 4 * _DENOM_LANES
+# a batch's denominator is summed in this many strided lanes, then the lanes
+# in order: one fixed order of f32 adds
+DENOM_LANES = 32
 
 
 def stream_reason(sp: StepPlan):
     """``None`` when ``train_stream`` can run the plan, else why not: the
-    activation caches of ONE row (and the denominator's lanes) must fit one
-    block's shared memory. Parameters, moments and gradients lie in device
+    activation caches of ONE row must fit one block's shared memory. Parameters, moments and gradients lie in device
     memory, so their size does not count."""
-    need = sp.shared_bytes(1) + _EXTRA_BYTES
+    need = sp.shared_bytes(1)
     if need > MAX_SHARED_BYTES:
         return (f"train_stream needs {need} bytes of shared memory for the "
                 f"activation caches of one row and a block has "
@@ -78,35 +83,56 @@ def stream_reason(sp: StepPlan):
 
 def _stream_tile(sp: StepPlan, batchsize: int) -> int:
     """The step kernel's row tile for the batch, narrower while its caches
-    and the lanes do not fit one block."""
+    do not fit one block."""
     reason = stream_reason(sp)
     if reason is not None:
         raise ValueError(reason)
     tile = sp.pick_tile(batchsize)
-    while sp.shared_bytes(tile) + _EXTRA_BYTES > MAX_SHARED_BYTES:
+    while sp.shared_bytes(tile) > MAX_SHARED_BYTES:
         tile //= 2
     return tile
 
 
+def _stream_block(sp: StepPlan, batchsize: int, stage=None):
+    """``(tile, threads, shared_bytes, staged)`` of one block: the tile of
+    :func:`_stream_tile`, step_grads' threads (at most
+    ``STEP_MAX_THREADS``, the kernels' launch bound), the parameters,
+    constants and program staged in shared memory wherever they fit beside
+    the tile (``stage`` forces it either way; True where they do not fit
+    raises ``ValueError``)."""
+    tile = _stream_tile(sp, batchsize)
+    fits = sp.shared_bytes(tile, True) <= MAX_SHARED_BYTES
+    staged = fits if stage is None else bool(stage)
+    if staged and not fits:
+        raise ValueError(
+            f"train_stream: {sp.shared_bytes(tile, True)} bytes of shared "
+            f"memory to stage the parameters at a tile of {tile} rows "
+            f"(limit {MAX_SHARED_BYTES})")
+    return (tile, min(STEP_MAX_THREADS, sp.threads(tile)),
+            sp.shared_bytes(tile, staged), staged)
+
+
 def stream_shared_bytes(sp: StepPlan, batchsize: int) -> int:
     """Dynamic shared memory of one block for batches of ``batchsize``
-    rows."""
-    return sp.shared_bytes(_stream_tile(sp, batchsize)) + _EXTRA_BYTES
+    rows (the parameters staged where they fit)."""
+    return _stream_block(sp, batchsize)[2]
 
 
 def launch_shape(sp: StepPlan, batchsize: int, co_resident=None,
-                 n_blocks=None):
-    """``(tile, threads, shared_bytes, n_blocks)`` of a launch, all in one
-    place: the step kernel's tile and threads (``StepPlan.pick_tile`` /
-    ``threads``) and its grid (one block per tile, at most its cap), at most
-    ``co_resident`` blocks — a cooperative launch needs every block resident
-    at once. An explicit ``n_blocks`` beyond either limit is refused."""
-    tile = _stream_tile(sp, batchsize)
+                 n_blocks=None, stage=None):
+    """``(tile, threads, shared_bytes, n_blocks, staged)`` of a launch, all
+    in one place: the step kernel's tile and threads (``StepPlan.pick_tile``
+    / ``threads``, at most ``STEP_MAX_THREADS``), the parameters staged in
+    shared memory wherever they fit beside the tile (``stage`` forces it),
+    and the grid (one block per tile, at most its cap), at most
+    ``co_resident`` blocks of that shape — a cooperative launch needs every
+    block resident at once. An explicit ``n_blocks`` beyond either limit is
+    refused."""
+    tile, threads, shared, staged = _stream_block(sp, batchsize, stage)
     n_tiles = -(-batchsize // tile)
-    shared = sp.shared_bytes(tile) + _EXTRA_BYTES
     if co_resident is not None and co_resident < 1:
         raise ValueError(
-            f"train_stream: no block of {sp.threads(tile)} threads and "
+            f"train_stream: no block of {threads} threads and "
             f"{shared} bytes of shared memory can be resident, or the device "
             "has no cooperative launch")
     if n_blocks is None:
@@ -116,13 +142,42 @@ def launch_shape(sp: StepPlan, batchsize: int, co_resident=None,
     if co_resident is not None and n_blocks > co_resident:
         raise ValueError(
             f"train_stream: a grid of {n_blocks} blocks, but only "
-            f"{co_resident} blocks of {sp.threads(tile)} threads and "
+            f"{co_resident} blocks of {threads} threads and "
             f"{shared} bytes of shared memory can be resident at once")
     if not 1 <= n_blocks <= n_tiles:
         raise ValueError(
             f"train_stream: {n_blocks} blocks for {n_tiles} row tiles; every "
             "block needs a tile")
-    return tile, sp.threads(tile), shared, int(n_blocks)
+    return tile, threads, shared, int(n_blocks), staged
+
+
+def batch_denominators(idx, n_rows: int, batchsize: int, w=None):
+    """``(epochs · n_batches,)`` float32: every batch's ``Σ mask`` clamped at
+    1e-12, for the kernel. ``idx``: the padded ``(epochs, n_batches ·
+    batchsize)`` order (:func:`pad_epoch_perms`), as a tensor on the
+    kernel's device; a position's mask is 1 inside the ``n_rows`` training
+    rows and 0 on the pad, times ``w`` of its row where weights are given.
+    Position q of a batch goes to lane q mod DENOM_LANES, each lane a sum in
+    q order from 0, then the lanes in order from 0, and the clamp keeps 1e-12
+    for a NaN sum (as ``fmaxf`` does)."""
+    epochs, n_pad = idx.shape
+    n_batches = n_pad // batchsize
+    mask = (torch.arange(n_pad, device=idx.device) < n_rows).to(
+        torch.float32).expand(epochs, n_pad)
+    if w is not None:
+        mask = mask * w.reshape(-1)[idx.long()]
+    rounds = -(-batchsize // DENOM_LANES)
+    lanes_in = mask.new_zeros(epochs, n_batches, rounds * DENOM_LANES)
+    lanes_in[:, :, :batchsize] = mask.reshape(epochs, n_batches, batchsize)
+    lanes_in = lanes_in.reshape(epochs, n_batches, rounds, DENOM_LANES)
+    lanes = mask.new_zeros(epochs, n_batches, DENOM_LANES)
+    for r in range(rounds):
+        lanes = lanes + lanes_in[:, :, r]
+    total = mask.new_zeros(epochs, n_batches)
+    for lane in range(DENOM_LANES):
+        total = total + lanes[:, :, lane]
+    floor = torch.full_like(total, 1e-12)
+    return torch.where(total >= floor, total, floor).reshape(-1).contiguous()
 
 
 # -- the plain version ----------------------------------------------------------
@@ -247,20 +302,21 @@ def co_resident_blocks(threads: int, shared_bytes: int) -> int:
 
 def device_launch_shape(sp: StepPlan, batchsize: int, n_blocks=None):
     """:func:`launch_shape` on the current CUDA device, its grid capped at
-    the blocks the device can hold at once."""
-    tile = _stream_tile(sp, batchsize)
+    the blocks of that shape (threads, shared memory with the staged
+    parameters where they are staged) the device can hold at once."""
     return launch_shape(sp, batchsize, co_resident_blocks(
-        sp.threads(tile), sp.shared_bytes(tile) + _EXTRA_BYTES), n_blocks)
+        *_stream_block(sp, batchsize)[1:3]), n_blocks)
 
 
 def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
                   epoch_perms, *, batchsize, count0, lr, b1, b2, eps, w,
-                  guard_nonfinite, with_losses, shape):
+                  guard_nonfinite, with_losses, shape, clocks=None):
     """Check the arguments, lay out the buffers on ``x``'s device and hand
     them to ``launch(ptrs, iargs, fargs, threads, shared_bytes, n_blocks) →
     error code``, the C entry point of ``csrc/stream_kernels.cu``.
     ``shape``: :func:`launch_shape`'s ``(tile, threads, shared_bytes,
-    n_blocks)``."""
+    n_blocks, staged)``. ``clocks``: a float32 buffer on the device for the cycle
+    counts of the ``DF_STREAM_CLOCKS`` build, or None."""
     device = x.device
     n_rows, d = x.shape
     n_cond = theta.shape[-1] if theta is not None else 0
@@ -272,7 +328,7 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     if sp.device != device:
         raise ValueError(
             f"plan parameters are on {sp.device}, data on {device}")
-    tile, threads, shared, n_blocks = shape
+    tile, threads, shared, n_blocks, staged = shape
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"train_stream needs {shared} bytes of shared "
                          f"memory (limit {MAX_SHARED_BYTES})")
@@ -301,18 +357,20 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     snaps = torch.empty(epochs, n_p, **f32)
     skips = torch.empty(epochs, **f32)
     losses = torch.empty(epochs * n_batches if with_losses else 0, **f32)
+    denoms = batch_denominators(perm, n_rows, batchsize, w)
 
     def ptr(t):
         return t.data_ptr() if t is not None and t.numel() else None
 
-    ptrs = (ctypes.c_void_p * 16)(
+    ptrs = (ctypes.c_void_p * 18)(
         ptr(x), ptr(theta if n_cond else None), ptr(w), ptr(perm),
         ptr(packed.flat_mask), ptr(packed.flat_consts), ptr(packed.prog),
         ptr(state[0]), ptr(state[1]), ptr(state[2]), ptr(partial), ptr(grad),
-        ptr(flags), ptr(snaps), ptr(skips), ptr(losses))
-    iargs = (ctypes.c_int * 8)(
+        ptr(flags), ptr(snaps), ptr(skips), ptr(losses), ptr(clocks),
+        ptr(denoms))
+    iargs = (ctypes.c_int * 9)(
         epochs, n_batches, batchsize, n_rows, n_tiles, int(count0),
-        int(w is not None), int(bool(guard_nonfinite)))
+        int(w is not None), int(bool(guard_nonfinite)), int(staged))
     hp = _adam_scalars(lr, b1, b2, eps)
     fargs = (ctypes.c_float * 8)(*(float(hp[k]) for k in (
         "lr", "b1", "b2", "eps", "omb1", "omb2", "logb1", "logb2")))
@@ -333,7 +391,7 @@ def run_fused_train_stream(plan, tparams, masks, mask_slots, cparams, mu, nu,
                            x, theta, epoch_perms, *, batchsize, count0=0,
                            lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, w=None,
                            guard_nonfinite=False, with_losses=False,
-                           step_plan=None, n_blocks=None):
+                           step_plan=None, n_blocks=None, clocks=None):
     """Run ``len(epoch_perms)`` epochs of training on folded parameters as
     one streaming kernel.
 
@@ -354,7 +412,10 @@ def run_fused_train_stream(plan, tparams, masks, mask_slots, cparams, mu, nu,
     On CUDA tensors this launches ``train_stream`` on the current stream or
     raises; on CPU tensors it runs :func:`fused_train_stream_plain`.
     ``step_plan``: the plan lowered once (:class:`StepPlan`), else lowered
-    here. ``n_blocks``: the grid (default :func:`launch_shape`'s)."""
+    here. ``n_blocks``: the grid (default :func:`launch_shape`'s).
+    ``clocks``: a float32 CUDA buffer for the cycle counts of a
+    ``DF_STREAM_CLOCKS`` build of the kernel (``tools/chip_probe.py``),
+    else None."""
     device = x.device
     kw = dict(batchsize=batchsize, count0=count0, lr=lr, b1=b1, b2=b2,
               eps=eps, w=w, guard_nonfinite=guard_nonfinite,
@@ -376,7 +437,7 @@ def run_fused_train_stream(plan, tparams, masks, mask_slots, cparams, mu, nu,
         out = _train_stream(
             lambda *a: _library().df_train_stream(*a, stream), sp,
             list(tparams), list(mu), list(nu), x, theta, epoch_perms,
-            shape=shape, **kw)
+            shape=shape, clocks=clocks, **kw)
     run_fused_train_stream.launches += 1
     return out
 

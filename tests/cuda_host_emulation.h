@@ -5,9 +5,11 @@
 // ascending or descending order; a result that depends on that order shows a
 // race inside a phase. A phase of a grid (df_grid_phase: the work between two
 // grid-wide barriers of a cooperative launch) runs its blocks one after
-// another, in ascending or descending order, each with a fresh shared array
-// filled with NaN, so that a result that depends on the order of the blocks
-// or on shared memory carried across a grid barrier shows. What the emulation
+// another, in ascending or descending order, each with a shared array
+// refilled with NaN (df_grid_phase_kept: each block its own, but for what
+// the kernel keeps for its launch), so that a result that depends on the
+// order of the blocks or on shared memory carried across a grid barrier
+// shows. What the emulation
 // cannot show is a missing barrier between the phases of a block.
 #pragma once
 
@@ -37,6 +39,22 @@ static inline void df_grid_phase(int n_blocks, float* S, int floats,
     for (int k = 0; k < n_blocks; ++k) {
         for (int i = 0; i < floats; ++i) S[i] = NAN;
         body(df_emulation_block_reverse ? n_blocks - 1 - k : k);
+    }
+}
+
+// body(block, S_block) for every block of the grid, for a kernel whose
+// blocks keep part of their shared memory across grid barriers: S holds
+// n_blocks shared arrays of `floats` floats, one per block, and the first
+// `fresh` floats of a block's array are refilled with NaN before its body
+// runs (the rest is what the block keeps)
+template <class Body>
+static inline void df_grid_phase_kept(int n_blocks, float* S, int floats,
+                                      int fresh, Body&& body) {
+    for (int k = 0; k < n_blocks; ++k) {
+        const int b = df_emulation_block_reverse ? n_blocks - 1 - k : k;
+        float* Sb = S + (long long)b * floats;
+        for (int i = 0; i < fresh; ++i) Sb[i] = NAN;
+        body(b, Sb);
     }
 }
 

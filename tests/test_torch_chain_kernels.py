@@ -145,7 +145,9 @@ def test_packed_plan_sizes_at_the_wide_config():
     plan, params = TF._plan_params(chain, "inv")
     packed = CK.pack_plan(plan, params, d, n)
     assert packed.hmax4 == 256 and packed.ldh == 260
-    assert CK.pick_tile_rows(d, n, packed.ldh) == 32
+    assert CK.pick_tile_rows(d, n, packed.ldh) == 64
+    # per net (4): K 40 in 3 chunks of 16 rows x 256, 256 x 256, 256 x 32
+    assert packed.tiled.numel() == 4 * (48 * 256 + 256 * 256 + 256 * 32)
     for tb in CK.TILE_ROWS:
         assert CK.shared_memory_bytes(tb, d, n, packed.ldh) \
             <= CK.MAX_SHARED_BYTES
@@ -451,3 +453,184 @@ def test_nan_rows_log_prob_and_sample_keep_the_jax_nan_pattern():
     got_s = CK.chain_sample_plain(plan, params, 29, 5, t(theta),
                                   noise=t(noise))
     assert_same_nan_pattern(got_s.numpy(), want_s, **LOOSE)
+
+
+# -- the 3xTF32 error budget of the chain kernels' products ------------------
+#
+# The kernels multiply on the tensor cores in 3xTF32 (csrc/chain_kernels.cu).
+# These helpers model that arithmetic on the CPU; they are test helpers, not
+# a path of the package. TF32 keeps 10 mantissa bits; the product of two
+# TF32 values is exact in float32, so a float32 product of rounded operands
+# models one tensor-core product.
+
+def _f32(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32`` by bit masks: the magnitude rounded to 10
+    mantissa bits, ties away from zero; inf and NaN pass."""
+    bits = v.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(v), r, v)
+
+
+def _split3(v):
+    """The kernels' split: the TF32 rounding, that where v is finite (else
+    0), and the remainder rounded to TF32 where v is finite (else 0)."""
+    big = _tf32(v)
+    fin = torch.isfinite(v)
+    zero = torch.zeros_like(v)
+    return big, torch.where(fin, big, zero), torch.where(fin, _tf32(v - big),
+                                                         zero)
+
+
+def _matmul_3xtf32(a, w):
+    """small_a.big_w + big_a.small_w first, then big_a.big_w, in float32
+    (the activations and the weights split as the kernels split them)."""
+    ab, af, as_ = _split3(a)
+    wb, _wf, ws = _split3(w)
+    acc = as_ @ wb
+    acc = acc + af @ ws
+    return acc + ab @ wb
+
+
+def _matmul_tf32(a, w):
+    return _tf32(a) @ _tf32(w)
+
+
+def _wide_serving_chain(rng):
+    """The serving config of chip_smoke.py (d 32, n 8, 4 coupling blocks =
+    8 RealNVP couplings of hidden 256, a normalization layer), glorot-uniform
+    weights from numpy with the final layers scaled by 0.1."""
+    d, n, h = 32, 8, 256
+    chain = dt.flow_chain(
+        *[dt.coupling_block(d, None, n=n, hidden_dim_s=h, hidden_dim_t=h,
+                            device="cpu") for _ in range(4)],
+        dt.normalization_layer(rng.normal(size=(512, d)).astype(np.float32),
+                               -1.0, 1.0, device="cpu"))
+    with torch.no_grad():
+        for layer in TF._iter_layers(chain, "fwd"):
+            for net in TF._conditioner_nets(layer):
+                last = len(net.weights) - 1
+                for i, w in enumerate(net.weights):
+                    lim = np.sqrt(6.0 / sum(w.shape))
+                    a = rng.uniform(-lim, lim, size=tuple(w.shape))
+                    w.copy_(_f32(a * (0.1 if i == last else 1.0)))
+                for b in net.biases:
+                    b.copy_(_f32(rng.normal(size=tuple(b.shape)) * 0.05))
+    return chain, d, n
+
+
+def _gate_ratio(got, want, rtol=1e-4, atol=1e-4):
+    """max |got - want| / (atol + rtol |want|): at most 1 passes the chip
+    gate of chip_smoke.py's check_apply (KERNEL_TOL, the stricter of the
+    chain gates)."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+@pytest.mark.parametrize("shape", ["narrow", "wide"])
+def test_3xtf32_products_stay_inside_the_chain_gate(shape):
+    """The chain's folded program with every product in modelled 3xTF32
+    against the plain float32 version (the kernels' reference on the card):
+    inverse fold with ldj and forward fold, the error at most a tenth of the
+    gate, at the narrow odd-width chain and at the wide serving config
+    (256 x 256 layers, a few hundred rows). One TF32 product per f32 product
+    fails the gate at both: the split is what keeps the kernels inside
+    it."""
+    rng = np.random.default_rng(11)
+    if shape == "narrow":
+        chain_ = to_torch(odd_chain())
+        d, n, rows = 7, 3, 257
+        x = _f32(rng.normal(size=(rows, d)) * 0.5)
+    else:
+        chain_, d, n = _wide_serving_chain(rng)
+        rows = 384
+        x = _f32(rng.normal(size=(rows, d)) * 0.5)
+    th = _f32(rng.uniform(size=(rows, n)))
+    ratios = {}
+    for dirn in ("inv", "fwd"):
+        plan, params = TF._plan_params(chain_, dirn)
+        packed = CK.pack_plan(plan, params, d, n)
+        want_y, want_l = CK.chain_apply_plain(plan, params, x, th,
+                                              with_ldj=True)
+        for name, mm in (("3xtf32", _matmul_3xtf32), ("tf32", _matmul_tf32)):
+            y, ldj = CK.packed_apply_reference(packed, x, th, with_ldj=True,
+                                               matmul=mm)
+            ratios[dirn, name] = max(_gate_ratio(y, want_y),
+                                     _gate_ratio(ldj, want_l))
+    for dirn in ("inv", "fwd"):
+        assert ratios[dirn, "3xtf32"] <= 0.1, ratios
+    assert max(ratios["inv", "tf32"], ratios["fwd", "tf32"]) > 1.0, ratios
+
+
+def _untile(packed):
+    """The dense instructions' (K4, N4) matrices read back from
+    ``packed.tiled``, walking it as the kernels' weight ring does: per
+    instruction, per pass of 256 columns, per chunk of 16 rows, a (cols x
+    16) core-matrix tile, cols 32, 128 or 256 by the columns left; and the
+    zero padding of every tile past its matrix."""
+    tiled, at, mats, pads = packed.tiled, 0, [], []
+    for op, _src, _dst, k4, n4, off, _b, _a in packed.prog.tolist():
+        if op != 0:
+            continue
+        k16 = -(-k4 // 16) * 16
+        w = torch.zeros(k16, n4)
+        for c0 in range(0, n4, 256):
+            left = n4 - c0
+            cw = 32 if left <= 32 else (128 if left <= 128 else 256)
+            for kc in range(k16 // 16):
+                tile = tiled[at:at + cw * 16]
+                at += cw * 16
+                # core matrix (n // 8, k // 4), element (n % 8, k % 4)
+                part = (tile.view(cw // 8, 4, 8, 4).permute(1, 3, 0, 2)
+                        .reshape(16, cw))
+                w[kc * 16:kc * 16 + 16, c0:c0 + min(cw, left)] = \
+                    part[:, :min(cw, left)]
+                pads.append(part[:, min(cw, left):])
+        pads.append(w[k4:])
+        mats.append((off, k4, n4, w[:k4]))
+    return mats, pads, at
+
+
+def test_packed_weights_are_tiled_as_the_kernels_consume_them():
+    """``pack_plan``'s tiled weights hold every dense layer's matrix, chunk
+    by chunk in the program's order, in the core-matrix layout the kernels'
+    wgmma operands read, zeros past each matrix, and nothing more; at an odd
+    width (K4 not a multiple of 16, N4 of 8) and at the wide config's passes
+    of 256 and 32 columns."""
+    for chain_, d, n in ((to_torch(odd_chain()), 7, 3),
+                         (_wide_serving_chain(np.random.default_rng(1))[0],
+                          32, 8)):
+        plan, params = TF._plan_params(chain_, "inv")
+        packed = CK.pack_plan(plan, params, d, n)
+        mats, pads, used = _untile(packed)
+        assert used == packed.tiled.numel() and mats
+        for off, k4, n4, w in mats:
+            assert torch.equal(w, packed.flat[off:off + k4 * n4]
+                               .view(k4, n4))
+        assert all(not bool(p.any()) for p in pads)
+
+
+def test_tf32_model_rounds_like_cvt_rna():
+    """The model's TF32 rounding: 10 mantissa bits kept, ties away from
+    zero in magnitude, both signs, inf and NaN passed through; the split's
+    parts sum back to the value where it is finite."""
+    one_ulp = 2.0 ** -10
+    v = torch.tensor([1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 4, 3.0e38, float("inf"),
+                      -float("inf"), float("nan")], dtype=torch.float32)
+    r = _tf32(v)
+    assert r[0] == 1.0 and r[1] == 1.0 + one_ulp and r[2] == -(1.0 + one_ulp)
+    assert r[3] == 1.0
+    assert (r.view(torch.int32)[:5] & 0x1FFF == 0).all()
+    assert torch.isinf(r[5]) and r[5] > 0 and torch.isinf(r[6]) and r[6] < 0
+    assert torch.isnan(r[7])
+    w = _f32(np.random.default_rng(2).normal(size=1000) * 10.0 ** np.arange(
+        -15, 15, 0.03)[:1000])
+    big, big_f, small = _split3(w)
+    assert torch.equal(big, big_f)
+    assert float(((big + small - w).abs() / w.abs()).max()) < 2.0 ** -21
+    big, big_f, small = _split3(v)
+    assert float(big_f[5]) == 0.0 and float(small[5]) == 0.0
+    assert float(big_f[7]) == 0.0 and float(small[7]) == 0.0

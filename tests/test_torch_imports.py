@@ -140,7 +140,9 @@ def test_kernel_sources_are_package_data():
     with open(src) as f:
         text = f.read()
     for symbol in ("df_chain_apply", "df_chain_sample", "philox4x32_10",
-                   "chain_apply_kernel", "chain_sample_kernel"):
+                   "chain_apply_kernel", "chain_sample_kernel",
+                   "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
+                   "cvt.rna.tf32.f32"):
         assert symbol in text
     # the products are computed in the kernel's own body
     for library in ("cublas", "cutlass", "torch/extension.h"):
@@ -176,10 +178,12 @@ def test_step_kernel_and_loader_sources_are_package_data():
         assert symbol in text
     quoted = [line.split('"')[1] for line in text.splitlines()
               if line.startswith("#include \"")]
-    assert quoted == ["async_copy.cuh", "flow_phases.cuh"]
+    assert quoted == ["async_copy.cuh", "flow_phases.cuh", "grads_tile.cuh"]
     assert all(os.path.exists(os.path.join(csrc, name)) for name in quoted)
-    with open(os.path.join(csrc, "flow_phases.cuh")) as f:
-        shared = f.read()
+    shared = ""
+    for header in ("flow_phases.cuh", "grads_tile.cuh"):
+        with open(os.path.join(csrc, header)) as f:
+            shared += f.read()
     for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
                     "atomicadd"):
         assert library not in text.lower() and library not in shared.lower()

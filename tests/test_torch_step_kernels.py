@@ -351,6 +351,31 @@ def _assert_same(got, want, atol):
         torch.testing.assert_close(a, b, rtol=0, atol=atol * scale)
 
 
+@pytest.mark.parametrize("variant", ["reference", "nice", "joint", "actnorm",
+                                     "permutation", "unconditional"])
+def test_cuda_source_emulated_equals_the_pallas_kernel_interpreted(
+        emulated, variant):
+    """The CUDA source itself (grads_tile.cuh's tile body, the parameters
+    staged) against ``densityflows_tpu.ops.pallas_step.run_fused_grads`` in
+    interpret mode, tiles of 16 rows and an explicit denominator: loss and
+    unfolded gradients at 1e-5, as the plain version is held."""
+    case = Case(variant)
+    (jplan, jtc, jtp, jmasks, jslots, jcp, _fs, junfold) = \
+        JFT.chain_train_fold(case.jchain)
+    denom = float(case.mask.sum()) * 1.7
+    jloss, jgrads = JS.run_fused_grads(
+        jnp.asarray(case.x), jnp.asarray(case.th) if case.n else None,
+        jnp.asarray(case.mask), tuple(jtp), tuple(jmasks), tuple(jcp),
+        plan=jplan, tcounts=tuple(jtc), mask_slots=tuple(jslots), tile=16,
+        interpret=True, denom=jnp.float32(denom))
+    jtree = junfold(list(jgrads),
+                    jax.tree_util.tree_map(jnp.zeros_like, case.jchain))
+    loss, grads = _emulate(case, emulated(64, 3), denom=denom, tile=16)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=0,
+                               atol=ATOL * (1 + abs(float(jloss))))
+    case.assert_grads_match(jtree, grads)
+
+
 @pytest.mark.parametrize("variant", VARIANTS + ["sigmoid", "wide"])
 def test_cuda_source_emulated_equals_plain_version(emulated, variant):
     """6 tiles of 8 rows for 45 rows (a ragged last tile, padded rows with
@@ -500,15 +525,19 @@ def test_step_kernel_source_is_hand_written():
     csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
     with open(os.path.join(csrc, "step_kernels.cu")) as f:
         text = f.read()
-    with open(os.path.join(csrc, "flow_phases.cuh")) as f:
-        shared = f.read()
+    shared = ""
+    for header in ("flow_phases.cuh", "grads_tile.cuh"):
+        with open(os.path.join(csrc, header)) as f:
+            shared += f.read()
     for symbol in ("df_step_grads", "step_grads_kernel", "step_reduce_kernel",
-                   "__global__", "tile_loss", "#include \"flow_phases.cuh\"",
+                   "__global__", "#include \"flow_phases.cuh\"",
+                   "#include \"grads_tile.cuh\"",
                    "#include \"async_copy.cuh\"", "df_cp_async_floats",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert symbol in text
     for symbol in ("f_dense", "b_dense", "b_couple", "loss_cotangents",
-                   "row_log_prob", "put_grad"):
+                   "row_log_prob", "put_grad", "tile_loss", "b_dense4",
+                   "grads_tiles"):
         assert symbol in shared
     # the sum over tiles is per-block partials and a reduction in index
     # order, never a float atomic

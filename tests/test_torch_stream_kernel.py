@@ -37,6 +37,7 @@ from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.models.fused_train import trainable_leaves
 from densityflows_tpu_torch.ops import step_kernels as SK
 from densityflows_tpu_torch.ops import stream_kernels as SKM
+from densityflows_tpu_torch.ops import train_kernels as TK
 
 from _torch_parity import (
     TRAIN_ATOL, TRAIN_CHAINS as CHAINS, assert_leaves_close,
@@ -368,29 +369,33 @@ def test_outside_both_envelopes_raises_with_both_reasons(cond, monkeypatch):
         FT.chain_train_fold(flow.model)
     sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 5, 1, tc)
     assert SKM.stream_reason(sp) is None
-    assert SKM.stream_shared_bytes(sp, 64) == sp.shared_bytes(8) + 128
+    assert SKM.stream_shared_bytes(sp, 64) == sp.shared_bytes(8, True)
     monkeypatch.setattr(FT, "MAX_SHARED_BYTES", 1000)
-    monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", sp.shared_bytes(1) + 100)
+    monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", sp.shared_bytes(1) - 28)
     with pytest.raises(dt.UnsupportedFusedTrain) as err:
         dt.train(flow, td, epochs=1, verbose=False, fused_kernel=True)
     msg = str(err.value)
     assert "resident whole-run kernel" in msg and "train_stream needs" in msg
-    assert f"{sp.shared_bytes(1) + 128} bytes" in msg
+    assert f"{sp.shared_bytes(1)} bytes" in msg
     assert flow.train_loss == []
 
 
 def test_launch_shape_tiles_grid_and_co_residency(cond, monkeypatch):
-    """The row tile and threads are the step kernel's; the grid one block per
-    tile, capped at the blocks that can be resident at once; an explicit grid
-    past that cap, or past the tiles, is refused with a message; narrower
-    tiles where a tile's caches and the lanes do not fit."""
+    """The row tile and threads are the step kernel's (at most 512 threads);
+    the parameters are staged where they fit beside the tile, and the shared
+    bytes count them; the grid one block per tile, capped at the blocks that
+    can be resident at once; an explicit grid past that cap, or past the
+    tiles, is refused with a message, as is staging where it does not fit;
+    narrower tiles where a tile's caches do not fit."""
     jd, td, x = cond
     chain = to_torch(CHAINS["reference"](jd, x))
     plan, tc, tparams, masks, slots, cparams, _f, _u = \
         FT.chain_train_fold(chain)
     sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 5, 1, tc)
-    assert SKM.launch_shape(sp, 1024) == (8, 128, sp.shared_bytes(8) + 128,
-                                          128)
+    assert SKM.launch_shape(sp, 1024) == (8, 128, sp.shared_bytes(8, True),
+                                          128, True)
+    assert SKM.launch_shape(sp, 1024, stage=False) == (
+        8, 128, sp.shared_bytes(8), 128, False)
     assert SKM.launch_shape(sp, 1024, co_resident=100)[3] == 100
     assert SKM.launch_shape(sp, 1024, co_resident=264)[3] == 128
     assert SKM.launch_shape(sp, 60)[3] == 8           # a ragged last tile
@@ -401,6 +406,10 @@ def test_launch_shape_tiles_grid_and_co_residency(cond, monkeypatch):
         SKM.launch_shape(sp, 1024, co_resident=0)
     with pytest.raises(ValueError, match="every block needs a tile"):
         SKM.launch_shape(sp, 64, n_blocks=9)
+    monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", sp.shared_bytes(8) + 200)
+    assert SKM.launch_shape(sp, 1024)[4] is False     # no room to stage
+    with pytest.raises(ValueError, match="to stage the parameters"):
+        SKM.launch_shape(sp, 1024, stage=True)
     monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", sp.shared_bytes(4) + 200)
     assert SKM.launch_shape(sp, 1024)[0] == 4
     with pytest.raises(ValueError, match="unsupported device"):
@@ -474,7 +483,7 @@ class StreamCase:
         self.zeros = [torch.zeros_like(p) for p in self.tparams]
 
     def run(self, launch=None, n_blocks=None, perms=None, state=None,
-            **kw):
+            stage=None, **kw):
         tparams, mu, nu = state or (self.tparams, self.zeros, self.zeros)
         perms = self.perms if perms is None else perms
         args = (tparams, mu, nu, self.x, self.th, perms)
@@ -488,7 +497,8 @@ class StreamCase:
         full.update(kw)
         return SKM._train_stream(
             launch, self.sp, *args, shape=SKM.launch_shape(
-                self.sp, full["batchsize"], n_blocks=n_blocks), **full)
+                self.sp, full["batchsize"], n_blocks=n_blocks, stage=stage),
+            **full)
 
 
 def _assert_runs(got, want, atol):
@@ -542,6 +552,81 @@ def test_cuda_source_emulated_is_independent_of_thread_and_block_order(
         _assert_runs(a, want, TRAIN_ATOL)
 
 
+@pytest.mark.parametrize("guard", [False, True])
+@pytest.mark.parametrize("n_blocks", [None, 3])
+def test_cuda_source_emulated_parameters_in_shared_or_device_memory(
+        emulated, guard, n_blocks):
+    """The tile body with the parameters, constants and program staged in
+    shared memory (the constants and program kept across the grid barriers
+    of the launch, the parameters staged anew every step) and with all three
+    read from device memory: the same bits, threads and blocks in either
+    order and at another thread count, with the guard's three phases a step
+    or the two without it."""
+    case = StreamCase("nobias_tanh")
+    runs = {(stage, nt, rev): case.run(emulated(nt, rev), n_blocks=n_blocks,
+                                       stage=stage, guard_nonfinite=guard)
+            for stage in (True, False)
+            for nt, rev in ((96, 0), (32, 3), (128, 2))}
+    want = runs[True, 96, 0]
+    for other in runs.values():
+        _assert_runs(other, want, 0)
+    _assert_runs(want, case.run(guard_nonfinite=guard), TRAIN_ATOL)
+
+
+def _lane_denominators(idx, n_rows, batchsize, w):
+    """The batch denominators as the kernel summed them before they came in
+    from the wrapper: per batch, lane l sums positions l, l + 32, ... in
+    order from 0 in float32, then the lanes in order, then fmaxf(s, 1e-12)
+    (1e-12 for a NaN sum)."""
+    epochs, n_pad = idx.shape
+    out = []
+    for e in range(epochs):
+        for b in range(n_pad // batchsize):
+            lanes = []
+            for lane in range(32):
+                s = np.float32(0)
+                for q in range(lane, batchsize, 32):
+                    pos = b * batchsize + q
+                    mk = np.float32(1 if pos < n_rows else 0)
+                    if w is not None:
+                        mk = np.float32(mk * w[idx[e, pos]])
+                    s = np.float32(s + mk)
+                lanes.append(s)
+            s = np.float32(0)
+            for v in lanes:
+                s = np.float32(s + v)
+            out.append(s if s >= np.float32(1e-12) else np.float32(1e-12))
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("batchsize,weighted", [
+    (32, False), (50, True), (1024, True), (1000, False)])
+def test_batch_denominators_equal_the_kernel_lane_order(batchsize,
+                                                        weighted):
+    """The denominators the wrapper computes before the launch equal, bit
+    for bit, the 32-lane sums the kernel took in every block: ragged last
+    batches (pad positions masked), importance weights of mixed scale, a
+    row of weight 0, and a NaN weight whose batches clamp to 1e-12."""
+    rng = np.random.default_rng(batchsize)
+    n_rows, epochs = 2 * batchsize + 7, 2
+    perms = np.stack([rng.permutation(n_rows) for _ in range(epochs)])
+    idx = TK.pad_epoch_perms(perms, n_rows, batchsize)
+    w = None
+    if weighted:
+        w = (rng.uniform(0.0, 3.0, size=n_rows)
+             * 10.0 ** rng.integers(-3, 4, size=n_rows)).astype(np.float32)
+        w[perms[0, 3]] = 0.0
+        w[perms[1, 5]] = np.nan
+    got = SKM.batch_denominators(
+        torch.as_tensor(idx), n_rows, batchsize,
+        None if w is None else torch.as_tensor(w)).numpy()
+    want = _lane_denominators(idx, n_rows, batchsize, w)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+    if weighted:
+        assert got[(epochs - 1) * (len(got) // epochs)] == np.float32(1e-12)
+
+
 def test_cuda_source_emulated_guard_skips_and_chunks(emulated):
     """NaN rows poison the batches that gather them: with the guard the
     kernel skips the same steps as the plain version, keeps the parameters
@@ -575,6 +660,54 @@ def test_cuda_source_emulated_guard_skips_and_chunks(emulated):
     assert got[4].tolist() == a[4].tolist() + b[4].tolist()
 
 
+@pytest.mark.parametrize("stage", [True, False])
+def test_cuda_source_emulated_matches_the_jax_stream_kernel(
+        cond, monkeypatch, emulated, stage):
+    """``train()`` in the stream mode with the CUDA source itself in place of
+    the wrapper's launch (the parameters staged in shared memory, or read
+    from device memory), against the JAX streaming kernel in interpret mode:
+    weighted, a joint clamped layer, 3 epochs of batch 32; histories,
+    parameters and Adam moments at TRAIN_ATOL, as the plain version is
+    held."""
+    _force_stream(monkeypatch)
+    jd, td, x = cond
+    w = np.random.default_rng(7).uniform(0.2, 3.0, size=137).astype(
+        np.float32)
+    f_s = df.Flow(_clamped_chain(jd, x), jd)
+    f_t = torch_flow(df.Flow(_clamped_chain(jd, x), jd), td)
+    kw = dict(epochs=3, batchsize=32, verbose=False, weights=w)
+    os_s = JFT.train_fused(f_s, jd, key=jax.random.key(5), **kw)
+    assert f_s.fused_kernel_mode == "stream"
+    launch, calls = emulated(64, 2), []
+
+    def run(plan, tparams, masks, mask_slots, cparams, mu, nu, x, theta,
+            epoch_perms, *, batchsize, step_plan=None, n_blocks=None,
+            clocks=None, **kw):
+        sp = step_plan or SK.StepPlan(plan, list(tparams), masks, mask_slots,
+                                      cparams, x.shape[-1],
+                                      theta.shape[-1] if theta is not None
+                                      else 0)
+        calls.append(len(epoch_perms))
+        kw = dict(dict(count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, w=None,
+                       guard_nonfinite=False, with_losses=False), **kw)
+        return SKM._train_stream(
+            launch, sp, list(tparams), list(mu), list(nu), x, theta,
+            epoch_perms, batchsize=batchsize,
+            shape=SKM.launch_shape(sp, batchsize, stage=stage), **kw)
+
+    monkeypatch.setattr(SKM, "run_fused_train_stream", run)
+    perms = jax_epoch_perms(jax.random.key(5), 3, len(jd.partition.training))
+    os_t = dt.train(f_t, td, fused_kernel=True, _epoch_perms=perms, **kw)
+    assert calls and sum(calls) == 3
+    assert f_t.trained_path == "fused" and f_t.fused_kernel_mode == "stream"
+    np.testing.assert_allclose(f_t.train_loss, f_s.train_loss,
+                               atol=TRAIN_ATOL)
+    np.testing.assert_allclose(f_t.valid_loss, f_s.valid_loss,
+                               atol=TRAIN_ATOL)
+    assert_leaves_close(f_s.model, f_t.model, TRAIN_ATOL)
+    assert_opt_state_close(os_s, f_t.model, os_t, TRAIN_ATOL)
+
+
 def test_stream_kernel_source_is_hand_written():
     csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
     with open(os.path.join(csrc, "stream_kernels.cu")) as f:
@@ -584,6 +717,7 @@ def test_stream_kernel_source_is_hand_written():
                    "cudaOccupancyMaxActiveBlocksPerMultiprocessor",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize",
                    "#include \"flow_phases.cuh\"",
+                   "#include \"grads_tile.cuh\"",
                    "pallas_train_stream.py::_stream_kernel"):
         assert symbol in text
     for banned in ("atomicadd", "cublas", "cudnn", "cutlass",
