@@ -819,7 +819,54 @@ def check_train_small(rng, device):
     for p in got[0] + got[1] + got[2]:
         if not bool(torch.isfinite(p).all()):
             fail("train_run guard (lr 100): non-finite parameters")
-    return errs, {"nan_rows": skipped, "lr_100": exploded}
+    # the layouts the lowering falls back to, and small evaluation tiles
+    # (ragged in both splits): the same run on each, against the plain
+    # version
+    d, n_cond = case.arrays[0].shape[1], case.arrays[1].shape[1]
+    case = TrainCase(ref, data, device, rng)
+    want = case.run(tk.fused_train_plain, w=case.w, w_valid=case.wv,
+                    track_best=True)
+    layouts = {}
+    for paired, segs, rows in ((True, 4, 7), (True, 2, None),
+                               (False, 1, 50)):
+        packed = tk.pack_train_plan(case.plan, case.tparams, case.masks,
+                                    case.slots, case.cparams, d, n_cond,
+                                    case.batchsize, paired=paired,
+                                    grad_segments=segs, eval_rows=rows)
+        name = f"paired_{paired}_segments_{segs}_eval_rows_{packed.eval_rows}"
+        errs[name] = require_runs_close(
+            case.run(tk.run_fused_train, w=case.w, w_valid=case.wv,
+                     track_best=True, packed=packed),
+            want, f"train_run {name}", TRAIN_TOL)
+        layouts[name] = tk.run_layout(packed, case.n_rows,
+                                      case.arrays[2].shape[0])
+    # the last layout the lowering tries (the batch's partial sums in the
+    # scalar area): what it picks under a limit of the state's floats plus
+    # the step kernel's layout of one batch
+    head = (case.plan, case.tparams, case.masks, case.slots, case.cparams,
+            d, n_cond, case.batchsize)
+    step = tk.pack_train_plan(*head, state_in_shared=False)
+    limit, tk.MAX_SHARED_BYTES = tk.MAX_SHARED_BYTES, 4 * (
+        4 * step.n_params + step.flat_consts.numel() + step.total_floats)
+    try:
+        packed = tk.pack_train_plan(*head)
+        if packed.shared_bytes > tk.MAX_SHARED_BYTES:
+            fail(f"train_run: no layout within {tk.MAX_SHARED_BYTES} bytes, "
+                 f"the state plus one batch")
+    finally:
+        tk.MAX_SHARED_BYTES = limit
+    name = f"smallest_partial_sums_{packed.prog[tk._H_PARTS].item()}"
+    errs[name] = require_runs_close(
+        case.run(tk.run_fused_train, w=case.w, w_valid=case.wv,
+                 track_best=True, packed=packed),
+        want, f"train_run {name}", TRAIN_TOL)
+    layouts[name] = tk.run_layout(packed, case.n_rows, case.arrays[2].shape[0])
+    default = tk.pack_train_plan(*head)
+    layouts["default"] = dict(
+        tk.run_layout(default, case.n_rows, case.arrays[2].shape[0]),
+        grad_segments=default.grad_segments)
+    return errs, {"nan_rows": skipped, "lr_100": exploded,
+                  "layouts": layouts}
 
 
 # -- training: the main path ------------------------------------------------------
@@ -1148,7 +1195,7 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
                 packed=packed)
     by_threads = {t: time_ms(lambda: tk._launch_train_run(
         *head, *arrays, perms, threads=t, **full), warmup=0, runs=3)
-        for t in (256, 512, 1024)}
+        for t in (256, 512)}
     plain = time_ms(lambda: tk.fused_train_plain(
         *head, *arrays, perms, **kw), warmup=0, runs=3)
 
@@ -1171,9 +1218,12 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
                   + 7 * packed.n_params + packed.flat_consts.numel()
                   + packed.prog.numel() + 3 * epochs)
     b_ms, by = bound_ms(flops, nbytes)
+    layout = tk.run_layout(packed, n_train, n_valid)
+    layout.update(grad_segments=packed.grad_segments,
+                  threads=tk._block_threads(packed))
     say(phase="train_times", card=card, epochs=epochs,
         train_run_ms=ms, train_run_ms_per_epoch=ms / epochs,
-        train_run_ms_by_threads=by_threads,
+        train_run_ms_by_threads=by_threads, train_run_layout=layout,
         default_threads=tk._block_threads(packed),
         plain_version_ms=plain, plain_program_ms=program_ms,
         plain_program_ms_per_epoch=program_ms / epochs,
@@ -1194,6 +1244,7 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
                  f"against the plain version over the first 4 epochs",
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "program_ms": program_ms,
+        "layout": layout, "eval_tile_rows": packed.eval_rows,
         "needed_flops": flops, "needed_bytes": nbytes,
         "ms_per_epoch": ms / epochs,
         "program_ms_per_epoch": program_ms / epochs,
@@ -1954,9 +2005,13 @@ def reset_counts():
 
 
 def read_counts():
+    # coupling_fwd's calls on the tensor cores are each a weight tiling
+    # launch and a fold launch
     return dict(ck.launch_counts(), train_run=tk.run_fused_train.launches,
                 step_grads=sk.run_fused_grads.launches,
                 train_stream=stk.run_fused_train_stream.launches,
+                coupling_fwd_tc=cpk.coupling_fwd.tc_launches,
+                coupling_fwd_tile=cpk.coupling_fwd.tile_launches,
                 **cpk.launch_counts())
 
 
@@ -1996,6 +2051,7 @@ def drive_train_stream(x, th, device):
              f"({flow.fused_decline_reason}), expected the stream mode")
     if launches != dict(chain_apply=0, chain_sample=0, train_run=0,
                         step_grads=0, train_stream=chunks, coupling_fwd=0,
+                        coupling_fwd_tc=0, coupling_fwd_tile=0,
                         coupling_bwd=0, coupling_bwd_reduce=0):
         fail(f"train_stream main path launches {launches}, expected "
              f"{chunks} train_stream launch(es) and no other kernel")
@@ -2220,34 +2276,68 @@ def require_close_nan(got, want, what):
     return require_close(got[ok], want[ok], what, **KERNEL_TOL)
 
 
+def gate_ratio(got, want, rtol, atol):
+    """max |got - want| / (atol + rtol |want|) where the plain version is
+    finite: at most 1 passes the gate."""
+    ok = torch.isfinite(want)
+    if not bool(ok.any()):
+        return 0.0
+    got, want = got[ok].detach(), want[ok].detach()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def check_coupling_case(rng, device, name, rows, K=6, A=4, hidden=18, n_s=2,
                         n_t=2, act="relu", bias=True, kinds=("nvp", "nice"),
-                        nan_row=False):
+                        nan_row=False, tc=True, ratios=None):
     """Both kernels against their plain versions, both directions, the
-    forward with and without ldj, the backward with a non-zero g_ldj and
-    twice (the same bits). K 6 / A 4 / hidden 18 is d 7, n 3, h 18."""
+    forward with and without ldj, twice (the same bits) and on the body
+    the shape takes (``tc``: the tensor cores, else the FMA body), the
+    backward with a non-zero g_ldj and twice. K 6 / A 4 / hidden 18 is d 7, n 3,
+    h 18. ``nan_row``: a NaN in a row of h; for the forward also +inf in
+    another row of h, NaN and -inf in rows of y. ``ratios``: a dict that
+    gets each kernel's largest gate ratio (KERNEL_TOL)."""
     worst = 0.0
+    ratios = {} if ratios is None else ratios
+    ratios.update(fwd=0.0, bwd=0.0)
     for kind in kinds:
         s, t = coupling_nets(rng, kind, K, A, hidden, n_s, n_t, act, bias,
                              device)
         h = rng.normal(size=(rows, K))
+        y = rng.normal(size=(rows, A))
+        h_f, y_f = h.copy(), y.copy()
         if nan_row:
-            h[min(3, rows - 1), 1] = np.nan
-        h, y, gy = (put(a, device) for a in
-                    (h, rng.normal(size=(rows, A)), rng.normal(size=(rows, A))))
+            h[min(3, rows - 1), 1] = h_f[min(3, rows - 1), 1] = np.nan
+            h_f[min(5, rows - 1), 0] = np.inf
+            y_f[min(7, rows - 1), A - 1] = -np.inf
+            y_f[min(9, rows - 1), 0] = np.nan
+        h, y, gy, h_f, y_f = (put(a, device) for a in
+                              (h, y, rng.normal(size=(rows, A)), h_f, y_f))
         gl = put(rng.normal(size=rows), device)
         for direction in ("forward", "inverse"):
             tag = f"coupling {name} {kind} {direction}"
             for with_ldj in (True, False):
-                got = cpk.coupling_fwd(s, t, h, y, direction=direction,
+                before = cpk.coupling_fwd.tc_launches
+                got = cpk.coupling_fwd(s, t, h_f, y_f, direction=direction,
                                        with_ldj=with_ldj)
+                again = cpk.coupling_fwd(s, t, h_f, y_f, direction=direction,
+                                         with_ldj=with_ldj)
                 torch.cuda.synchronize()
-                want = cpk.coupling_fwd_plain(s, t, h, y, direction=direction,
+                if (cpk.coupling_fwd.tc_launches - before == 2) != tc:
+                    fail(f"{tag}: coupling_fwd did not take the "
+                         f"{'tensor-core' if tc else 'FMA'} body "
+                         f"({cpk.tc_reason(s, t, K, A)})")
+                if not all(bits_equal(a, b) for a, b in zip(
+                        flat_tensors(got), flat_tensors(again))):
+                    fail(f"{tag}: two coupling_fwd launches differ")
+                want = cpk.coupling_fwd_plain(s, t, h_f, y_f,
+                                              direction=direction,
                                               with_ldj=with_ldj)
                 for i, (a, b) in enumerate(zip(flat_tensors(got),
                                                flat_tensors(want))):
                     worst = max(worst, require_close_nan(
                         a, b, f"{tag} coupling_fwd ldj={with_ldj} out {i}"))
+                    ratios["fwd"] = max(ratios["fwd"],
+                                        gate_ratio(a, b, **KERNEL_TOL))
             got = flat_tensors(cpk.coupling_bwd(s, t, h, y, gy, gl,
                                                 direction=direction))
             again = flat_tensors(cpk.coupling_bwd(s, t, h, y, gy, gl,
@@ -2262,34 +2352,66 @@ def check_coupling_case(rng, device, name, rows, K=6, A=4, hidden=18, n_s=2,
             for i, (a, b) in enumerate(zip(got, want)):
                 worst = max(worst, require_close_nan(
                     a, b, f"{tag} coupling_bwd output {i}"))
+                ratios["bwd"] = max(ratios["bwd"],
+                                    gate_ratio(a, b, **KERNEL_TOL))
             if not all(bits_equal(a, b) for a, b in zip(got, again)):
                 fail(f"{tag}: two coupling_bwd launches differ")
     return worst
 
 
 def check_coupling_small(device):
+    """Every case's largest error (KERNEL_TOL) and each kernel's largest
+    gate ratio, by case."""
     rng = np.random.default_rng(SEED + 5)
-    errs = {
-        "d7_n3_h18_rows_1001": check_coupling_case(rng, device, "d7", 1001),
-        "rows_37": check_coupling_case(rng, device, "rows 37", 37,
-                                       act="tanh"),
-        "rows_5_below_one_tile": check_coupling_case(rng, device, "rows 5", 5),
-        "n_s_1_n_t_3": check_coupling_case(rng, device, "n_s 1 n_t 3", 300,
-                                           n_s=1, n_t=3, kinds=("nvp",)),
-        "one_dense_layer": check_coupling_case(rng, device, "one layer", 300,
-                                               n_s=0, n_t=0),
-        "no_bias": check_coupling_case(rng, device, "no bias", 300,
-                                       bias=False, act="elu"),
-        "nan_row": check_coupling_case(rng, device, "NaN row", 64,
-                                       nan_row=True),
-        "main_shape": check_coupling_case(
-            rng, device, "K24 A16 H256", COUPLING["batch"], K=24, A=16,
-            hidden=256, kinds=("nvp",)),
-    }
+    errs, ratios = {}, {}
+
+    def case(key, *args, **kw):
+        ratios[key] = {}
+        errs[key] = check_coupling_case(rng, device, *args,
+                                        ratios=ratios[key], **kw)
+
+    case("d7_n3_h18_rows_1001", "d7", 1001)
+    case("rows_37", "rows 37", 37, act="tanh")
+    case("rows_5_below_one_tile", "rows 5", 5)
+    case("n_s_1_n_t_3", "n_s 1 n_t 3", 300, n_s=1, n_t=3, kinds=("nvp",))
+    case("one_dense_layer", "one layer", 300, n_s=0, n_t=0)
+    case("no_bias", "no bias", 300, bias=False, act="elu")
+    case("nan_row", "NaN row", 64, nan_row=True)
+    case("main_shape", "K24 A16 H256", COUPLING["batch"], K=24, A=16,
+         hidden=256, kinds=("nvp",))
     for act in ACTIVATIONS:
-        errs[f"act_{act}"] = check_coupling_case(
-            rng, device, f"act {act}", 257, act=act, kinds=("nvp",))
-    return errs
+        case(f"act_{act}", f"act {act}", 257, act=act, kinds=("nvp",))
+    # the tensor-core forward at its other row tiles (64 is the default at
+    # every shape above), NaN and +-inf rows at each
+    for tb in (32, 16):
+        cpk.set_tile_rows(tb)
+        try:
+            case(f"tc_tile_{tb}_rows_1001", f"tile {tb}", 1001, act="gelu")
+            case(f"tc_tile_{tb}_nan_inf_rows", f"tile {tb} NaN/inf", 77,
+                 nan_row=True)
+        finally:
+            cpk.set_tile_rows(None)
+    # hidden widths whose weights tile in 128-column chunks (100), in passes
+    # of 256 columns and a 128-column chunk (300, row tile 32) and a
+    # 32-column one (520, row tile 16), each on NaN and +-inf rows too.
+    # Smooth activations at these widths: relu's derivative jumps at 0, and
+    # among 10^5..10^6 pre-activations one lies within f32 rounding of 0
+    # often enough that two correct sum orders take opposite sides of it
+    # (a whole delta entry apart in the backward; measured against float64
+    # at hidden 3,000 and 300 rows)
+    for hid in (100, 300, 520):
+        case(f"tc_hidden_{hid}", f"hidden {hid}", 301, K=9, A=5, hidden=hid,
+             act="silu")
+        case(f"tc_hidden_{hid}_nan_inf_rows", f"hidden {hid} NaN/inf", 77,
+             hidden=hid, nan_row=True, act="gelu")
+    # the FMA body where the fold's tile does not fit (the stated shape
+    # rule, cpk.tc_reason): a hidden layer of 3,000, both kinds, on NaN and
+    # +-inf rows too
+    case("fma_hidden_3000", "hidden 3000", 300, hidden=3000, act="tanh",
+         tc=False)
+    case("fma_hidden_3000_nan_inf_rows", "hidden 3000 NaN/inf", 64,
+         hidden=3000, nan_row=True, act="tanh", tc=False)
+    return errs, ratios
 
 
 def coupling_pool(device):
@@ -2376,13 +2498,16 @@ def coupling_grads_each_step(start, batches, steps):
     return errs
 
 
-def coupling_counts(fwd, bwd, per_bwd=0):
-    """Launch counts of ``fwd`` coupling_fwd calls and ``bwd`` coupling_bwd
-    calls of ``per_bwd`` launches each (``cpk.bwd_launches``: a product
-    launch per layer of the forward and of the backward, and the pullback)
-    plus one reduction each."""
+def coupling_counts(fwd, bwd, per_bwd=0, tc=None):
+    """Launch counts of ``fwd`` coupling_fwd calls (``tc`` of them, all by
+    default, on the tensor cores: the weight tiling and the fold) and
+    ``bwd`` coupling_bwd calls of ``per_bwd`` launches each
+    (``cpk.bwd_launches``: a product launch per layer of the forward and of
+    the backward, and the pullback) plus one reduction each."""
+    tc = fwd if tc is None else tc
     return dict(chain_apply=0, chain_sample=0, train_run=0, step_grads=0,
-                train_stream=0, coupling_fwd=fwd, coupling_bwd=bwd * per_bwd,
+                train_stream=0, coupling_fwd=fwd, coupling_fwd_tc=tc,
+                coupling_fwd_tile=tc, coupling_bwd=bwd * per_bwd,
                 coupling_bwd_reduce=bwd)
 
 
@@ -2561,8 +2686,15 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
     rng = np.random.default_rng(SEED + 17)
     gy = put(rng.normal(size=(B, A)), device)
     gl = put(rng.normal(size=B), device)
-    ms_f = time_ms(lambda: cpk.coupling_fwd(s, t, h, y, direction="inverse"),
-                   runs=15)
+    def fwd():
+        return cpk.coupling_fwd(s, t, h, y, direction="inverse")
+
+    ms_f = time_ms(fwd, runs=15)
+    # the forward split: host enqueue and back-to-back pace per call, each
+    # kernel's device time (the weight tiling, the fold)
+    host_f, pace_f = host_split_ms(fwd, reps=200)
+    dev_f = device_ms_by_kernel(fwd)
+    tc_plan = cpk.tc_plan(s, t, K, A, "inverse")
     ms_b = time_ms(lambda: cpk.coupling_bwd(s, t, h, y, gy, gl,
                                             direction="inverse"), runs=15)
     plain_f = time_ms(lambda: cpk.coupling_fwd_plain(
@@ -2585,17 +2717,15 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
             lambda *a: cpk._library().df_coupling_bwd(*a, stream), s, t, h, y,
             gy, gl, direction="inverse", workspace=workspace, segs=n_segs)
 
-    # the forward at the row tiles it can take (the default: 8); the
+    # the forward at the row tiles the fold takes (the default: 64); the
     # backward at other row segment counts of its dW products
-    need = {"fwd": lambda r: cpk.fwd_shared_bytes(r, s, t, K, A)}
     by_tile = {}
-    for tb in (8, 16, 32, 64):
+    for tb in ck.TILE_ROWS:
         cpk.set_tile_rows(tb)
         try:
             by_tile[tb] = dict(
-                tile_taken=cpk.pick_tile("fwd", need["fwd"]),
-                fwd=time_ms(lambda: cpk.coupling_fwd(
-                    s, t, h, y, direction="inverse"), runs=7))
+                tile_taken=cpk.tc_plan(s, t, K, A, "inverse").tile_rows,
+                fwd=time_ms(fwd, runs=7))
         finally:
             cpk.set_tile_rows(None)
     by_segs = {}
@@ -2627,14 +2757,20 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
     n_par = sum(int(p.numel()) for n_ in (s, t) for p in n_[0] + n_[1])
     flops_f = 2 * B * mats
     bytes_f = 4 * (B * (K + A) + n_par + B * A + B)
-    bf_ms, bf_by = bound_ms(flops_f, bytes_f)
+    # the forward on the tensor cores: three TF32 products per f32 product
+    bf_ms, bf_by = bound_ms(3 * flops_f, bytes_f, PEAK_TF32_FLOPS)
+    bf32_ms = bound_ms(flops_f, bytes_f)[0]
     bytes_b = 4 * (B * (K + 2 * A + 1) + n_par + B * (K + A) + n_par)
     bb_ms, bb_by = bound_ms(3 * flops_f, bytes_b)
     n_c = sum(isinstance(c, dt.RNVPCouplingLayer)
               for c in fc._iter_layers(start, "fwd"))
-    tiles = {"fwd": cpk.pick_tile("fwd", need["fwd"])}
     say(phase="coupling_times", card=card, rows=B, K=K, A=A, hidden=HIDDEN,
-        coupling_fwd_ms=ms_f, coupling_bwd_ms=ms_b,
+        coupling_fwd_ms=ms_f, coupling_fwd_host_enqueue_ms=host_f,
+        coupling_fwd_back_to_back_ms=pace_f,
+        coupling_fwd_device_ms_by_kernel=dev_f,
+        coupling_fwd_workspace_bytes=4 * (tc_plan.bias_floats
+                                          + tc_plan.tiled_floats),
+        coupling_bwd_ms=ms_b,
         coupling_bwd_device_ms_by_kernel=by_kernel,
         coupling_bwd_device_ms_by_launch=by_launch,
         coupling_bwd_host_enqueue_ms=host_ms, coupling_bwd_segments=segs,
@@ -2642,9 +2778,11 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
         coupling_bwd_launches_per_call=cpk.bwd_launches(s, t),
         coupling_fwd_plain_ms=plain_f,
         coupling_bwd_plain_ms=plain_b, coupling_fwd_bound_ms=bf_ms,
+        coupling_fwd_bound_ms_f32_rate=bf32_ms,
         coupling_bwd_bound_ms=bb_ms, step_ms_per_layer_kernels=step_ms[True],
         step_ms_plain_autograd=step_ms[False],
-        step_kernel_bound_ms=n_c * (bf_ms + bb_ms), tile_rows=tiles,
+        step_kernel_bound_ms=n_c * (bf_ms + bb_ms),
+        tile_rows=tc_plan.tile_rows,
         ms_by_tile_rows=by_tile,
         workspace_bytes=4 * cpk.workspace_floats(B, s, t, segs))
     shape = (f"one coupling, inverse, h ({B}, {K}), y ({B}, {A}), two nets "
@@ -2659,13 +2797,25 @@ def coupling_kernel_rows(start, batches, launches, errs, card):
              replaces="densityflows_tpu/ops/pallas_coupling.py:226",
              launches=launches["coupling_fwd"], max_abs_err=errs["fwd"],
              ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms, bound_by=bf_by,
-             needed_flops=flops_f, needed_bytes=bytes_f,
-             tile_rows=tiles["fwd"], **common),
+             bound_rate="TF32 (3 products per f32 product)",
+             bound_ms_f32_rate=bf32_ms,
+             needed_flops=3 * flops_f, needed_bytes=bytes_f,
+             gate_ratio_small_cases=errs["fwd_gate_ratio"],
+             gate_ratio_main_shape=errs["fwd_gate_ratio_main_shape"],
+             tile_rows=tc_plan.tile_rows, host_enqueue_ms=host_f,
+             device_ms_by_kernel=dev_f,
+             tensor_core_launches=launches["coupling_fwd_tc"],
+             tiling_launches=launches["coupling_fwd_tile"],
+             body=("tensor cores, 3xTF32 (csrc/wgmma_fold.cuh), after a "
+                   "weight tiling launch; the f32 FMA body where the "
+                   "fold's tile does not fit (cpk.tc_reason)"),
+             **common),
         dict(name="coupling_bwd",
              replaces="densityflows_tpu/ops/pallas_coupling.py:263",
              launches=launches["coupling_bwd"], max_abs_err=errs["bwd"],
              ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
              needed_flops=3 * flops_f, needed_bytes=bytes_b,
+             gate_ratio_small_cases=errs["bwd_gate_ratio"],
              device_ms_by_kernel=by_kernel, device_ms_by_launch=by_launch,
              host_enqueue_ms=host_ms,
              launches_per_call=cpk.bwd_launches(s, t),
@@ -2875,9 +3025,10 @@ def main():
         two_chunked_calls_equal_one_call="bit for bit")
 
     # phase 3g: coupling_fwd / coupling_bwd against their plain versions
-    coupling_errs = check_coupling_small(device)
+    coupling_errs, coupling_ratios = check_coupling_small(device)
     say(phase="coupling_kernel_small", max_abs_err_by_case=coupling_errs,
-        tolerance=KERNEL_TOL, two_launches_equal="bit for bit")
+        gate_ratio_by_case=coupling_ratios, tolerance=KERNEL_TOL,
+        two_launches_equal="bit for bit")
 
     # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
@@ -2989,7 +3140,10 @@ def main():
     kernels.extend(coupling_kernel_rows(
         *coupled, coupling_launches,
         {"fwd": max(small, report["declined_chain_max_abs_err"]),
-         "bwd": max(small, report["each_step_max_abs_err_same_weights"])},
+         "bwd": max(small, report["each_step_max_abs_err_same_weights"]),
+         "fwd_gate_ratio": max(r["fwd"] for r in coupling_ratios.values()),
+         "bwd_gate_ratio": max(r["bwd"] for r in coupling_ratios.values()),
+         "fwd_gate_ratio_main_shape": coupling_ratios["main_shape"]["fwd"]},
         card))
 
     # the numbers of the earlier lines once more, near the end of the output

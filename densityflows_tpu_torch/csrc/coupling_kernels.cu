@@ -11,17 +11,23 @@
 //
 // What bounds them on this card: arithmetic. At the opt-in train step's
 // shapes (K 24, A 16, H 256, three dense layers per net, 8192 rows) the
-// forward does 2.5 GFLOP against 2.5 MB of I/O, the backward 7.5 GFLOP. All
-// products are f32 FMA on the CUDA cores in this file's own loops (no tensor
-// cores, no library).
+// forward does 2.5 GFLOP against 2.5 MB of I/O, the backward 7.5 GFLOP. No
+// library: the backward's products are f32 FMA on the CUDA cores in this
+// file's own loops; the forward's run on the tensor cores in 3xTF32 in the
+// chain kernels' fold (wgmma_fold.cuh, hand-written too).
 //
-// coupling_fwd. One block per tile of TB rows. The tile's input rows, two
-// ping-pong hidden buffers and the two net outputs lie in shared memory; the
-// weights of a coupling (610 KB at hidden 256) do not fit there, so they stay
-// in device memory and the L2 cache serves the blocks' re-reads. A thread of
-// a dense layer owns one output column of RM rows, so one weight load serves
-// RM FMAs. The ragged last tile is masked here: rows past B read zeros and
-// are not written.
+// coupling_fwd. The coupling as a one-coupling program of the chain
+// kernels' format, folded on the tensor cores (coupling_fwd_tc_kernel, see
+// "coupling_fwd on the tensor cores" below): 0.07 ms of device time at the
+// shapes above on an H100, against 0.24 ms for the FMA body it replaced.
+// Where the fold's tile does not fit a block at 16 rows (a hidden layer of
+// some thousands), the FMA body runs (coupling_fwd_kernel): one block per
+// tile of TB rows; the tile's input rows, two ping-pong hidden buffers and
+// the two net outputs lie in shared memory; the weights of a coupling (610
+// KB at hidden 256) do not fit there, so they stay in device memory and the
+// L2 cache serves the blocks' re-reads. A thread of a dense layer owns one
+// output column of RM rows, so one weight load serves RM FMAs. The ragged
+// last tile is masked here: rows past B read zeros and are not written.
 //
 // coupling_bwd. Every product of the backward is a matrix product over all B
 // rows: the forward again, U_i = A_i W_i + b_i (A_0 = h, A_{i+1} = act(U_i));
@@ -55,12 +61,14 @@
 //
 // With DF_HOST_EMULATION defined the file compiles as plain C++ and the CPU
 // tests run it, threads and blocks in either order (a thread's register tile
-// is then its slice of a block-wide array: DF_PRIVATE / DF_MINE).
+// is then its slice of a block-wide array: DF_PRIVATE / DF_MINE); the
+// tensor-core fold (inline PTX) is left out, its weight tiling is not.
 //
-// C interface (ctypes): df_coupling_fwd, df_coupling_bwd. Each launches on
-// the given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() (or -2 when the shared memory or the workspace handed
-// in is too small).
+// C interface (ctypes): df_coupling_fwd_tc, df_coupling_fwd (the FMA body),
+// df_coupling_bwd. Each launches on the given stream, allocates nothing,
+// does not synchronise, and returns cudaGetLastError() (or -2 when the
+// shared memory or the workspace handed in is too small or the layout
+// disagrees with the nets).
 
 #ifndef DF_HOST_EMULATION
 #include <cuda_runtime.h>
@@ -90,6 +98,9 @@
 #endif
 
 #include "async_copy.cuh"
+#ifndef DF_HOST_EMULATION
+#include "wgmma_fold.cuh"
+#endif
 
 namespace {
 
@@ -840,6 +851,76 @@ DF_FN void fwd_body(const Args& a, float* S, int tile) {
     DF_PHASE(couple_fwd(a, so, to, row0, TB, tid, nt))
 }
 
+// ---- coupling_fwd on the tensor cores --------------------------------------
+//
+// The coupling as a one-coupling program of the chain kernels' format
+// (ops/coupling_kernels.py::tc_plan: each net's dense layers, the s-net's
+// into BUF_S and the t-net's into BUF_T, then OP_COUPLE), folded by
+// wgmma_fold.cuh's apply_tile with h as the tile's theta part and y as its
+// x part. Its weights change with every train step, so each call first
+// lays them out as the fold streams them: coupling_tile_kernel writes the
+// biases, each zero-padded to a multiple of 4, then every dense layer's
+// chunks in the order and the core-matrix layout of
+// ops/chain_kernels.py::tile_weights, into the workspace (one thread per
+// float, read from the row-major weights as they lie).
+
+constexpr int TC_LAYERS = 2 * MAX_LAYERS;
+
+// the dense layers of both nets in program order (ops/coupling_kernels.py::
+// tc_plan gives K, N and the two offsets of each)
+struct TcPack {
+    int n_layers;
+    long long bias_floats, total;   // the bias area; it + the chunks
+    const float* w[TC_LAYERS];
+    const float* b[TC_LAYERS];
+    int K[TC_LAYERS], N[TC_LAYERS];
+    long long t_off[TC_LAYERS];     // first float of its chunks, after the
+                                    // bias area
+    int b_off[TC_LAYERS];           // its bias in the bias area, or -1
+    float* ws;
+};
+
+// columns of a chunk by the columns a pass of 256 has left (wgmma_fold.cuh's
+// chunk_cols, which the host build does not see)
+DF_HD int tc_chunk_cols(int left) {
+    return left <= 32 ? 32 : (left <= 128 ? 128 : 256);
+}
+
+// float i of the workspace
+DF_HD void tile_item(const TcPack& p, long long i) {
+    if (i < p.bias_floats) {
+        for (int l = 0; l < p.n_layers; ++l) {
+            const int bo = p.b_off[l];
+            if (bo < 0 || i < bo || i >= bo + ((p.N[l] + 3) & ~3)) continue;
+            const int j = (int)(i - bo);
+            p.ws[i] = j < p.N[l] ? p.b[l][j] : 0.f;
+            return;
+        }
+        p.ws[i] = 0.f;
+        return;
+    }
+    const long long o = i - p.bias_floats;
+    int l = 0;
+    while (l + 1 < p.n_layers && o >= p.t_off[l + 1]) ++l;
+    long long off = o - p.t_off[l];
+    const int K = p.K[l], N = p.N[l];
+    const int K4 = (K + 3) & ~3, N4 = (N + 3) & ~3, k16 = (K4 + 15) / 16 * 16;
+    for (int c0 = 0; c0 < N4; c0 += 256) {
+        const int cw = tc_chunk_cols(N4 - c0);
+        const long long pass = (long long)k16 * cw;
+        if (off >= pass) {
+            off -= pass;
+            continue;
+        }
+        const int chunk = (int)(off / (16 * cw)), e = (int)(off % (16 * cw));
+        const int cm = e / 32, q = e % 32;
+        const int n = c0 + (cm / 4) * 8 + q / 4;
+        const int k = chunk * 16 + (cm % 4) * 4 + q % 4;
+        p.ws[i] = k < K && n < N ? p.w[l][(long long)k * N + n] : 0.f;
+        return;
+    }
+}
+
 // ---- arguments ------------------------------------------------------------
 
 // iargs: kind, dirn, with_ldj, B, K, A, tile, then per net (s, t): n, act,
@@ -905,11 +986,60 @@ int plan_bwd(const Args& a, long long ws_floats, int segs, BwdPlan& bp) {
     return 0;
 }
 
+// layout: per dense layer of the program K, N, chunk offset, bias offset
+// (ops/coupling_kernels.py::tc_plan). Returns -2 where it disagrees with the
+// nets' shapes.
+int make_tc_pack(const Args& a, const int* layout, int n_layers,
+                 long long bias_floats, long long tiled_floats, TcPack& p) {
+    if (n_layers < 1 || n_layers > TC_LAYERS) return -2;
+    p.n_layers = n_layers;
+    p.bias_floats = bias_floats;
+    p.total = bias_floats + tiled_floats;
+    p.ws = a.ws;
+    int l = 0;
+    for (int w = 0; w < 2; ++w) {
+        const Net& net = a.net[w];
+        for (int i = 0; i < net.n; ++i, ++l) {
+            if (l >= n_layers) return -2;
+            const int* q = layout + 4 * l;
+            if (q[0] != net.dims[i] || q[1] != net.dims[i + 1]) return -2;
+            p.w[l] = net.w[i];
+            p.b[l] = net.b[i];
+            p.K[l] = q[0];
+            p.N[l] = q[1];
+            p.t_off[l] = q[2];
+            p.b_off[l] = net.b[i] != nullptr ? q[3] : -1;
+        }
+    }
+    return l == n_layers ? 0 : -2;
+}
+
 #ifndef DF_HOST_EMULATION
 __global__ void __launch_bounds__(256)
 coupling_fwd_kernel(const __grid_constant__ Args a) {
     extern __shared__ float4 smem4[];
     fwd_body(a, reinterpret_cast<float*>(smem4), blockIdx.x);
+}
+
+__global__ void __launch_bounds__(256)
+coupling_tile_kernel(const __grid_constant__ TcPack p) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < p.total) tile_item(p, i);
+}
+
+// rows blockIdx.x * TB .. + TB: y (B, A) as the tile's x part, h (B, K) as
+// its theta part
+template <int TB>
+__global__ void __launch_bounds__(wgf::THREADS, 1)
+coupling_fwd_tc_kernel(const float* __restrict__ y,
+                       const float* __restrict__ h, float* __restrict__ out,
+                       float* __restrict__ ldj, const int* __restrict__ prog,
+                       int n_instr, const float* __restrict__ P,
+                       const float* __restrict__ tiled, long long rows, int A,
+                       int K, int ldh) {
+    extern __shared__ float4 smem4[];
+    wgf::apply_tile<TB>(reinterpret_cast<float*>(smem4), y, h, out, ldj, prog,
+                        n_instr, P, tiled, rows, A, K, ldh);
 }
 
 __global__ void __launch_bounds__(PT, 2)
@@ -947,6 +1077,22 @@ coupling_bwd_reduce_kernel(const __grid_constant__ Args a, int segs,
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < items) reduce_item(a, segs, i);
 }
+
+template <int TB>
+int launch_fwd_tc(const Args& a, const int* prog, int n_instr,
+                  long long bias_floats, int ldh, cudaStream_t s) {
+    static int attr_bytes[64] = {};
+    const int bytes = (int)(wgf::block_floats(TB, a.A, a.K, ldh) *
+                            sizeof(float));
+    const int err = raise_shared((const void*)coupling_fwd_tc_kernel<TB>,
+                                 bytes, attr_bytes);
+    if (err != 0) return err;
+    const unsigned grid = (unsigned)((a.B + TB - 1) / TB);
+    coupling_fwd_tc_kernel<TB><<<grid, wgf::THREADS, bytes, s>>>(
+        a.y, a.h, a.out, a.ldj, prog, n_instr, a.ws, a.ws + bias_floats, a.B,
+        a.A, a.K, ldh);
+    return (int)cudaGetLastError();
+}
 #endif
 
 }  // namespace
@@ -966,6 +1112,35 @@ int df_coupling_fwd(const long long* ptrs, const int* iargs, int threads,
     coupling_fwd_kernel<<<n_tiles, threads, shared_bytes,
                           static_cast<cudaStream_t>(stream)>>>(a);
     return (int)cudaGetLastError();
+}
+
+// The tensor-core forward: the weight tiling, then the fold, in order on
+// one stream. ptrs and iargs as df_coupling_fwd's, ptrs[8] the workspace of
+// bias_floats + tiled_floats floats; layout, n_layers: tc_plan's; prog,
+// n_instr: the one-coupling program (8 words an instruction); ldh: the
+// hidden buffers' row stride; tile_rows: 64, 32 or 16.
+int df_coupling_fwd_tc(const long long* ptrs, const int* iargs,
+                       const int* layout, int n_layers,
+                       long long bias_floats, long long tiled_floats,
+                       const int* prog, int n_instr, int ldh, int tile_rows,
+                       void* stream) {
+    const Args a = make_args(ptrs, iargs, 0);
+    TcPack pack;
+    if (make_tc_pack(a, layout, n_layers, bias_floats, tiled_floats,
+                     pack) != 0 || bias_floats % 4 != 0)
+        return -2;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    coupling_tile_kernel<<<(unsigned)((pack.total + 255) / 256), 256, 0, s>>>(
+        pack);
+    const cudaError_t tiled = cudaGetLastError();
+    if (tiled != cudaSuccess) return (int)tiled;
+    if (tile_rows == 64)
+        return launch_fwd_tc<64>(a, prog, n_instr, bias_floats, ldh, s);
+    if (tile_rows == 32)
+        return launch_fwd_tc<32>(a, prog, n_instr, bias_floats, ldh, s);
+    if (tile_rows == 16)
+        return launch_fwd_tc<16>(a, prog, n_instr, bias_floats, ldh, s);
+    return -1;
 }
 
 // ws: a workspace of ws_floats floats (U, A and net outputs of every row,
@@ -1019,6 +1194,24 @@ int df_coupling_fwd_emulated(const long long* ptrs, const int* iargs,
     df_grid_phase((a.B + a.tile - 1) / a.tile, S, floats,
                   [&](int tile) { fwd_body(a, S, tile); });
     delete[] S;
+    return 0;
+}
+
+// The weight tiling on host pointers, the floats last first with reverse.
+int df_coupling_tile_emulated(const long long* ptrs, const int* iargs,
+                              const int* layout, int n_layers,
+                              long long bias_floats, long long tiled_floats,
+                              int reverse) {
+    const Args a = make_args(ptrs, iargs, 0);
+    TcPack* pack = new TcPack;
+    if (make_tc_pack(a, layout, n_layers, bias_floats, tiled_floats,
+                     *pack) != 0 || bias_floats % 4 != 0) {
+        delete pack;
+        return -2;
+    }
+    for (long long i = 0; i < pack->total; ++i)
+        tile_item(*pack, reverse ? pack->total - 1 - i : i);
+    delete pack;
     return 0;
 }
 

@@ -44,12 +44,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import chain_kernels as ck
 from .chain_kernels import MAX_SHARED_BYTES
 from .step_kernels import _full_f32
 
 __all__ = [
     "fused_coupling", "fused_coupling_nvp", "fused_coupling_nice",
-    "set_tile_rows", "kernels_available", "coupling_fwd", "coupling_bwd",
+    "set_tile_rows", "kernels_available", "coupling_fwd",
+    "coupling_bwd", "tc_plan", "tc_reason", "tc_model", "TcPlan",
     "coupling_fwd_plain", "coupling_bwd_plain", "reset_launch_counts",
     "launch_counts", "bwd_launches", "bwd_segments", "ACT_CODES",
     "TILE_ROWS", "MAX_LAYERS",
@@ -80,8 +82,10 @@ _DIRECTION = {"forward": 0, "inverse": 1}
 
 def set_tile_rows(tb: int | None) -> None:
     """Override the rows per block of ``coupling_fwd`` (``None``: the
-    default, 8). A tile whose shared memory does not fit one block is halved
-    all the same."""
+    defaults, 8 for the FMA body, the first of 64 / 32 / 16 that fits for
+    the tensor cores, which take the value where it is one of those). A
+    tile whose shared memory does not fit one block is halved all the
+    same."""
     global _TILE
     if tb is not None and tb not in TILE_ROWS:
         raise ValueError(f"tile rows must be one of {TILE_ROWS}")
@@ -362,6 +366,162 @@ def pick_tile(which: str, need) -> int:
     return tb
 
 
+# -- the tensor-core path of coupling_fwd ----------------------------------------
+
+class TcPlan(NamedTuple):
+    """``coupling_fwd``'s tensor-core path at one shape: the coupling as a
+    one-coupling program of the chain kernels' format (``prog``: 8 words an
+    instruction, each net's dense layers then ``OP_COUPLE``); per dense
+    layer in program order ``(K, N, chunk offset, bias offset)``
+    (``layout``); the workspace's bias area and weight chunks (floats; the
+    chunks start after the bias area); the hidden buffers' row stride and
+    the row tile (``ops/chain_kernels.py::pick_tile_rows``)."""
+    prog: list
+    layout: list
+    bias_floats: int
+    tiled_floats: int
+    ldh: int
+    tile_rows: int
+
+
+def _chunk_floats(k4: int, n4: int) -> int:
+    """Floats of one dense layer's chunks (``tile_weights``' layout)."""
+    k16 = -(-k4 // ck._CHUNK_ROWS) * ck._CHUNK_ROWS
+    return sum(ck._chunk_cols(n4 - c0) * k16
+               for c0 in range(0, n4, ck._PASS_COLS))
+
+
+def tc_plan(s, t, K, A, direction):
+    """Lower one coupling for the tensor-core path, or None where its tile
+    does not fit a block at any of the chain kernels' row tiles (then
+    ``coupling_fwd`` runs the FMA body; :func:`tc_reason` says why)."""
+    prog, layout = [], []
+    bias_run = tiled_run = hmax4 = 0
+    for net, dst in ((s, ck._BUF_S), (t, ck._BUF_T)):
+        if net is None:
+            continue
+        ws, bs, act = net
+        src, k4 = ck._BUF_IN, ck._up4(K)
+        for i, w in enumerate(ws):
+            k, n = int(w.shape[0]), int(w.shape[1])
+            n4 = ck._up4(n)
+            last = i == len(ws) - 1
+            out = dst if last else (ck._BUF_HA if i % 2 == 0 else ck._BUF_HB)
+            b_off = -1
+            if bs:
+                b_off, bias_run = bias_run, bias_run + n4
+            prog.append([ck._OP_DENSE, src, out, k4, n4, tiled_run, b_off,
+                         ck.ACT_CODES["identity" if last else act]])
+            layout.append([k, n, tiled_run, b_off])
+            tiled_run += _chunk_floats(k4, n4)
+            if not last:
+                hmax4 = max(hmax4, n4)
+            src, k4 = out, n4
+    prog.append([ck._OP_COUPLE, ck._KIND_NVP if s is not None
+                 else ck._KIND_NICE, _DIRECTION[direction],
+                 ck._float_bits(0.0), 0, 0, 0, 0])
+    ldh = hmax4 + 4 if hmax4 else 0
+    # the set_tile_rows value where it is one of the fold's tiles and fits,
+    # else the first of them that fits
+    tiles = ((_TILE,) if _TILE in ck.TILE_ROWS else ()) + ck.TILE_ROWS
+    tile = next((tb for tb in tiles
+                 if ck.shared_memory_bytes(tb, A, K, ldh) <= MAX_SHARED_BYTES),
+                None)
+    if tile is None or K < 1:
+        return None
+    return TcPlan(prog, layout, bias_run, tiled_run, ldh, tile)
+
+
+def tc_reason(s, t, K, A):
+    """Why ``coupling_fwd`` runs the FMA body at this shape, or None where
+    it runs on the tensor cores."""
+    if tc_plan(s, t, K, A, "forward") is not None:
+        return None
+    if K < 1:
+        return "no conditioner input"
+    hid = max([0] + [int(w.shape[1]) for net in (s, t) if net is not None
+                     for w in net[0][:-1]])
+    return (f"the tensor-core tile does not fit a block: K {K}, A {A}, "
+            f"hidden {hid} need "
+            f"{ck.shared_memory_bytes(min(ck.TILE_ROWS), A, K, ck._up4(hid) + 4)}"
+            f" bytes at {min(ck.TILE_ROWS)} rows (limit {MAX_SHARED_BYTES})")
+
+
+def tc_model(plan: TcPlan, s, t, K, A):
+    """The tensor-core path's program as an ``ops/chain_kernels.py``
+    ``PackedPlan`` on the CPU: the workspace's bias area, then each layer's
+    weights row-major with both extents padded to 4 (the program's weight
+    offsets moved there), so that ``packed_apply_reference`` executes it
+    and ``tile_weights`` gives the chunks the tiling kernel writes."""
+    mats, instrs, off = [], [], plan.bias_floats
+    flat = [torch.zeros(plan.bias_floats)]
+    nets = [net for net in (s, t) if net is not None]
+    layers = [(w, net[1][i] if net[1] else None)
+              for net in nets for i, w in enumerate(net[0])]
+    bias = flat[0]
+    for ins, (w, b), lay in zip(plan.prog, layers, plan.layout):
+        k4, n4 = ins[3], ins[4]
+        m = torch.zeros(k4, n4)
+        m[:w.shape[0], :w.shape[1]] = w.detach().float().cpu()
+        mats.append(m.reshape(-1))
+        instrs.append(ins[:5] + [off] + ins[6:])
+        off += k4 * n4
+        if b is not None:
+            bias[lay[3]:lay[3] + b.numel()] = b.detach().float().cpu()
+    instrs.append(plan.prog[-1])
+    flat = torch.cat([bias] + mats)
+    hmax4 = plan.ldh - 4 if plan.ldh else 0
+    return ck.PackedPlan((), A, K, hmax4,
+                         torch.tensor(instrs, dtype=torch.int32), flat,
+                         ck.tile_weights(flat, instrs))
+
+
+class _TcLaunch(NamedTuple):
+    """What a tensor-core call needs that depends on the shape only, made
+    once per shape: the plan, its program on the device and the ctypes
+    integer arguments."""
+    plan: TcPlan
+    prog: torch.Tensor
+    layout: object
+    iargs: object
+
+
+_TC_LAUNCHES: dict = {}
+
+
+def _tc_launch(s, t, direction, with_ldj, B, K, A, device):
+    """The launcher of a shape, or None where the FMA body runs it."""
+    key = (str(device), direction, bool(with_ldj), B, K, A, _net_key(s),
+           _net_key(t), _TILE)
+    if key not in _TC_LAUNCHES:
+        plan = tc_plan(s, t, K, A, direction)
+        _TC_LAUNCHES[key] = None if plan is None else _TcLaunch(
+            plan, torch.tensor(plan.prog, dtype=torch.int32, device=device),
+            (ctypes.c_int * (4 * len(plan.layout)))(
+                *[v for lay in plan.layout for v in lay]),
+            _iargs(s, t, direction, with_ldj, B, K, A, 0))
+    return _TC_LAUNCHES[key]
+
+
+def _run_fwd_tc(launch, tcl, s, t, h, y, *, with_ldj):
+    """The tensor-core forward's buffers and ``launch(ptrs, iargs, layout,
+    n_layers, bias_floats, tiled_floats, prog, n_instr, ldh, tile_rows) →
+    error code``: the weight tiling, then the fold."""
+    plan = tcl.plan
+    out = torch.empty_like(y)
+    ldj = torch.empty(y.shape[0], dtype=torch.float32, device=y.device) \
+        if with_ldj else None
+    ws = torch.empty(plan.bias_floats + plan.tiled_floats,
+                     dtype=torch.float32, device=y.device)
+    err = launch(_ptrs((h, y, None, None, out, ldj, None, None, ws), s, t),
+                 tcl.iargs, tcl.layout, len(plan.layout), plan.bias_floats,
+                 plan.tiled_floats, tcl.prog.data_ptr(), len(plan.prog),
+                 plan.ldh, plan.tile_rows)
+    if err != 0:
+        raise RuntimeError(f"coupling_fwd launch failed (CUDA error {err})")
+    return (out, ldj) if with_ldj else out
+
+
 # -- the launches ----------------------------------------------------------------
 
 def _iargs(s, t, direction, with_ldj, B, K, A, tile):
@@ -507,6 +667,9 @@ def _library():
         lib.df_coupling_fwd.restype = i
         lib.df_coupling_bwd.argtypes = [P, I, ctypes.c_longlong, i, v]
         lib.df_coupling_bwd.restype = i
+        ll = ctypes.c_longlong
+        lib.df_coupling_fwd_tc.argtypes = [P, I, I, i, ll, ll, v, i, i, i, v]
+        lib.df_coupling_fwd_tc.restype = i
         _LIB = lib
     return _LIB
 
@@ -535,13 +698,24 @@ def coupling_fwd(s, t, h, y, *, direction, with_ldj=True):
     _require_cuda_rows(device, B)
     with torch.cuda.device(device):
         stream = _stream(device)
-        out = _run_fwd(lambda *a: _library().df_coupling_fwd(*a, stream),
-                       s, t, h, y, direction=direction, with_ldj=with_ldj)
+        tcl = _tc_launch(s, t, direction, with_ldj, B, K, A, device)
+        if tcl is not None:
+            out = _run_fwd_tc(
+                lambda *a: _library().df_coupling_fwd_tc(*a, stream), tcl,
+                s, t, h, y, with_ldj=with_ldj)
+            coupling_fwd.tile_launches += 1
+            coupling_fwd.tc_launches += 1
+        else:
+            out = _run_fwd(lambda *a: _library().df_coupling_fwd(*a, stream),
+                           s, t, h, y, direction=direction,
+                           with_ldj=with_ldj)
     coupling_fwd.launches += 1
     return out
 
 
 coupling_fwd.launches = 0
+coupling_fwd.tc_launches = 0
+coupling_fwd.tile_launches = 0
 
 
 def coupling_bwd(s, t, h, y, g_y, g_ldj, *, direction):
@@ -574,6 +748,8 @@ coupling_bwd.reduce_launches = 0
 
 def reset_launch_counts() -> None:
     coupling_fwd.launches = 0
+    coupling_fwd.tc_launches = 0
+    coupling_fwd.tile_launches = 0
     coupling_bwd.launches = 0
     coupling_bwd.reduce_launches = 0
 

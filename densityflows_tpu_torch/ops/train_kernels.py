@@ -67,7 +67,7 @@ __all__ = [
     "TRAIN_ACTS", "train_op_param_count", "folded_batch_grads",
     "fused_train_plain", "PackedTrainPlan", "pack_train_plan",
     "packed_batch_grads", "packed_train_reference", "run_fused_train",
-    "pad_epoch_perms", "MAX_SHARED_BYTES",
+    "pad_epoch_perms", "run_phase_names", "run_layout", "MAX_SHARED_BYTES",
 ]
 
 TRAIN_ACTS = ("relu", "tanh", "sigmoid", "identity")
@@ -521,13 +521,36 @@ def fused_train_plain(plan, tparams, masks, mask_slots, cparams, mu, nu, x,
 (_F_DENSE, _F_COUPLE, _F_ANORM, _F_AFFINE,
  _B_COUPLE, _B_DENSE, _B_ANORM, _B_AFFINE) = range(8)
 _INSTR_WORDS = 16
+# words of an instruction that train_run's phases read (the step kernels'
+# lowering leaves them 0): the phase's items before this instruction's, and
+# 1 where the instruction runs in the same phase as the one before it
+_W_START, _W_JOIN = 14, 15
 _KIND_NVP, _KIND_NICE = 0, 1
 # header words at the start of the program buffer
 (_H_NP, _H_NC, _H_B, _H_D, _H_N, _H_P, _H_MU, _H_NU, _H_G, _H_C, _H_TH,
  _H_X0, _H_Z, _H_GZ, _H_LDJ, _H_MASK, _H_JBAR, _H_LP, _H_SCAL, _H_NFWD,
  _H_NBWD, _H_TOTAL) = range(22)
+# train_run's words: where the program is staged in shared memory (-1: read
+# from device memory), the rows of an evaluation tile, the partial sums over
+# rows (their count and where they lie); in the evaluation program's header
+# the per-row products lp·m and masks and the accumulators of both splits
+_H_PROG_S, _H_EVAL_ROWS, _H_PARTS, _H_PART = 22, 23, 24, 25
+# ... and the gradient's copies: how many segments of the batch's rows a
+# weight or bias gradient is summed in (1: one), where the copies of the
+# gradient buffer for segments 1 .. lie
+_H_GSEGS, _H_GCOPY = 26, 27
+_E_LPM, _E_MW, _E_PARTS, _E_ACC = 22, 23, 24, 25
 _HEADER_WORDS = 32
 _SCALAR_FLOATS = 8     # loss, denominator, ok flag, 2 x (eval sum, weight sum)
+# train_run reads only the ok flag (word 2) of the scalars: where a batch's
+# partial sums over rows number at most two, they lie in words 3 to 6
+_SCAL_PART, _SCAL_MAX_PARTS = 3, 2
+
+
+def _parts(rows: int) -> int:
+    """Partial sums a reduction over ``rows`` rows is cut into (each over
+    consecutive rows, added in index order): about sqrt(rows), at most 32."""
+    return max(1, min(32, math.isqrt(max(rows - 1, 0)) + 1))
 
 
 @dataclasses.dataclass
@@ -541,7 +564,16 @@ class PackedTrainPlan:
     folded tensors (row-major, no padding); ``flat_mask`` is the 0/1 select
     mask in the same order (1 where a tensor has no mask) and ``flat_consts``
     the Normalization constants. Offsets of weights and biases in the
-    instructions are relative to the start of the parameter buffer."""
+    instructions are relative to the start of the parameter buffer.
+
+    The resident layout (``train_run``'s) also has ``eval_prog``, ``[header
+    | forward program]`` lowered for evaluation tiles of ``eval_rows`` rows
+    whose buffers reuse the batch caches' floats; ``paired``: the s- and
+    t-nets' backward steps share phases (each net has its own scratch);
+    ``staged``: both programs are copied into the block's shared memory;
+    ``grad_segments``: the weight and bias gradients are summed over that
+    many segments of the batch's rows into copies of the gradient buffer,
+    added in order by the mask phase."""
 
     plan: tuple
     d: int
@@ -559,6 +591,13 @@ class PackedTrainPlan:
     n_bwd: int
     total_floats: int
     cache_floats: int     # activation caches and scratch of one batch
+    eval_prog: torch.Tensor | None = None
+    eval_header: dict | None = None
+    eval_rows: int = 0
+    n_eval: int = 0
+    paired: bool = False
+    staged: bool = False
+    grad_segments: int = 1
 
     @property
     def shared_bytes(self) -> int:
@@ -591,14 +630,27 @@ class _Dense:
 
 
 class _TrainPacker:
-    def __init__(self, d, n, batchsize, shapes, offs):
+    """Hands out the block's floats and collects the instructions.
+
+    ``evaluation``: the forward program alone, for tiles whose buffers are
+    reused (hidden layers ping-pong per net, the coupling caches into one
+    discarded buffer); no backward is emitted. ``paired``: the nets of a
+    coupling run side by side (their layers in shared phases), each with its
+    own pair of backward scratch buffers."""
+
+    def __init__(self, d, n, batchsize, shapes, offs, *, evaluation=False,
+                 paired=False):
         self.d, self.n, self.bsz = d, n, batchsize
         self.shapes, self.offs = shapes, offs
+        self.evaluation, self.paired = evaluation, paired
         self.top = 0          # floats of shared memory handed out
         self.fwd = []
         self.bwd_groups = []  # per op; emitted in reverse op order
         self.th_off = -1
         self.scratch = (-1, -1)
+        self.net_scratch = None   # paired: ((s0, s1), (t0, t1))
+        self.hidden_bufs = None   # evaluation: per net, two buffers
+        self.discard = -1         # evaluation: the caches' buffer
 
     def alloc(self, floats: int) -> int:
         off = self.top
@@ -608,10 +660,21 @@ class _TrainPacker:
     def rows(self, width: int) -> int:
         return self.alloc(self.bsz * width)
 
+    def hidden(self, net: int, layer: int, width: int) -> int:
+        """Where layer ``layer`` of net ``net`` leaves its activations: its
+        own cache, or (evaluation) the net's ping-pong buffer."""
+        if self.evaluation:
+            return self.hidden_bufs[net][layer % 2]
+        return self.rows(width)
+
+    def cache(self) -> int:
+        """A coupling's d-wide cache (e or the clamped s)."""
+        return self.discard if self.evaluation else self.rows(self.d)
+
     @staticmethod
     def instr(*words):
         words = [int(w) for w in words]
-        if len(words) > _INSTR_WORDS:
+        if len(words) > _W_START:
             raise AssertionError("instruction too long")
         return words + [0] * (_INSTR_WORDS - len(words))
 
@@ -630,12 +693,15 @@ class _TrainPacker:
         """Weight gradient of one input block, the bias gradient when
         ``bias_k`` is given, and — when ``dout`` ≥ 0 — the input cotangent
         ``(delta @ Wᵀ [+ what dout holds]) · dact(input values)``."""
+        if self.evaluation:
+            return
         src, k, wi = block
         self.bwd_groups[-1].append(self.instr(
             _B_DENSE, src, k, self._off(wi), width, delta, self._off(bias_k),
             dout, acc, ACT_CODES[dact]))
 
-    def stack_fwd(self, k0, n_stack, bias_k, act, has_th, has_id, x_in):
+    def stack_fwd(self, k0, n_stack, bias_k, act, has_th, has_id, x_in,
+                  net=0):
         """The first ``n_stack`` dense layers of a net, each followed by the
         activation. ``k0``: index of the net's first folded tensor;
         ``bias_k``: index of its first bias tensor or None. Returns the
@@ -656,23 +722,27 @@ class _TrainPacker:
             width = self.shapes[blocks[0][2]][1]
             dense = _Dense(blocks, width,
                            bias_k + layer if bias_k is not None else None,
-                           self.rows(width))
+                           self.hidden(net, layer, width))
             self.dense_fwd(dense, act)
             layers.append(dense)
         return layers, i
 
-    def net_bwd(self, layers, act, delta, gz, flip=0):
+    def net_bwd(self, layers, act, delta, gz, flip=0, scratch=None):
         """Backward of the dense layers ``layers`` (forward order) whose last
         output cotangent lies at ``delta``. Hidden cotangents alternate
         between the two scratch buffers, starting with ``scratch[flip]``
         (which must not be ``delta``); the first layer's x block accumulates
         into the x cotangent ``gz`` and its θ block has no input
-        cotangent."""
+        cotangent. Returns the instructions' step lengths: one step per
+        layer, the first layer's blocks one step."""
+        scratch = scratch or self.scratch
+        steps = []
         for dense in reversed(layers[1:]):
-            dout = self.scratch[flip]
+            dout = scratch[flip]
             flip ^= 1
             self.dense_bwd(dense.blocks[0], dense.width, delta, dense.bias_k,
                            dout, 0, act)
+            steps.append(1)
             delta = dout
         first = layers[0]
         for j, block in enumerate(first.blocks):
@@ -681,6 +751,52 @@ class _TrainPacker:
                 block, first.width, delta,
                 first.bias_k if j == len(first.blocks) - 1 else None,
                 gz if is_x else -1, 1 if is_x else 0, "identity")
+        steps.append(len(first.blocks))
+        return steps
+
+
+def _interleave(lists):
+    """The forward instructions of the nets of a coupling, layer by layer
+    across the nets, each layer's instructions one phase."""
+    out = []
+    for j in range(max(len(x) for x in lists)):
+        group = [x[j] for x in lists if j < len(x)]
+        for k, ins in enumerate(group):
+            ins[_W_JOIN] = 1 if k else 0
+        out += group
+    return out
+
+
+def _pair_backward(nets):
+    """The backward steps of a coupling's nets side by side: step j of each
+    net in one phase, except that two instructions adding into the x
+    cotangent (the first layers' x blocks) never share one. ``nets``: per
+    net its instructions and step lengths."""
+    per_net = []
+    for instrs, steps in nets:
+        cut, k = [], 0
+        for n_ins in steps:
+            cut.append(instrs[k:k + n_ins])
+            k += n_ins
+        per_net.append(cut)
+    out = []
+    for j in range(max(len(c) for c in per_net)):
+        group, late = [], []
+        for cut in per_net:
+            if j >= len(cut):
+                continue
+            for ins in cut[j]:
+                adds_gz = ins[0] == _B_DENSE and ins[8] == 1
+                if adds_gz and any(g[0] == _B_DENSE and g[8] == 1
+                                   for g in group):
+                    late.append(ins)
+                else:
+                    group.append(ins)
+        for phase in (group, late):
+            for k, ins in enumerate(phase):
+                ins[_W_JOIN] = 1 if k else 0
+            out += phase
+    return out
 
 
 def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
@@ -693,11 +809,12 @@ def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
     if kind not in ("nvp", "nice", "joint"):
         raise ValueError(f"unknown coupling kind {kind!r}")
     fb = int(has_th) + int(has_id)
-    e_buf, sc_buf = pk.rows(pk.d), pk.rows(pk.d)
+    e_buf, sc_buf = pk.cache(), pk.cache()
     knd = _KIND_NICE if kind == "nice" else _KIND_NVP
     cbits = _float_bits(clamp)
-    pk.bwd_groups[-1].append(pk.instr(
-        _B_COUPLE, knd, gz, x_out, e_buf, sc_buf, s_buf, t_buf, cbits))
+    if not pk.evaluation:
+        pk.bwd_groups[-1].append(pk.instr(
+            _B_COUPLE, knd, gz, x_out, e_buf, sc_buf, s_buf, t_buf, cbits))
     if kind == "joint":
         if act_s not in TRAIN_ACTS:
             raise ValueError(f"unsupported activation for fused train: {act_s}")
@@ -722,9 +839,11 @@ def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
                      pk.scratch[0], 1, act_s)
         pk.net_bwd(stack, act_s, pk.scratch[0], gz, flip=1)
     else:
-        k0 = ti
-        for is_s, n_l, act, has_b, dst in ((True, n_s, act_s, bias_s, s_buf),
-                                           (False, n_t, act_t, bias_t, t_buf)):
+        k0 = 0 + ti
+        fwd, bwd = [], []
+        for net, (is_s, n_l, act, has_b, dst) in enumerate(
+                ((True, n_s, act_s, bias_s, s_buf),
+                 (False, n_t, act_t, bias_t, t_buf))):
             if is_s and kind != "nvp":
                 continue
             if act not in TRAIN_ACTS:
@@ -735,60 +854,78 @@ def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
                     "a folded conditioner needs at least 2 layers")
             n_w = fb + n_l - 1
             bias_k = k0 + n_w if has_b else None
+            f0 = len(pk.fwd)
             layers, i = pk.stack_fwd(k0, n_l - 1, bias_k, act, has_th, has_id,
-                                     x_in)
+                                     x_in, net=net)
             final = _Dense([(layers[-1].out, layers[-1].width, i)], pk.d,
                            bias_k + n_l - 1 if has_b else None, dst)
             pk.dense_fwd(final, "identity")
-            pk.net_bwd(layers + [final], act, dst, gz)
+            fwd.append(pk.fwd[f0:])
+            del pk.fwd[f0:]
+            if not pk.evaluation:
+                b0 = len(pk.bwd_groups[-1])
+                steps = pk.net_bwd(
+                    layers + [final], act, dst, gz,
+                    scratch=pk.net_scratch[net] if pk.paired else None)
+                bwd.append((pk.bwd_groups[-1][b0:], steps))
+                del pk.bwd_groups[-1][b0:]
             k0 += n_w + (n_l if has_b else 0)
+        if pk.paired or pk.evaluation:
+            pk.fwd += _interleave(fwd)
+        else:
+            pk.fwd += [ins for net in fwd for ins in net]
+        if not pk.evaluation:
+            if pk.paired:
+                pk.bwd_groups[-1] += _pair_backward(bwd)
+            else:
+                pk.bwd_groups[-1] += [ins for net in bwd for ins in net[0]]
     pk.fwd.append(pk.instr(_F_COUPLE, knd, x_in, x_out, s_buf, t_buf, e_buf,
                            sc_buf, cbits))
 
 
-def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
-                    batchsize: int, *,
-                    state_in_shared: bool = True) -> PackedTrainPlan:
-    """Lower a training plan into the kernel's forward and backward programs
-    and lay out the block's shared memory for batches of ``batchsize`` rows.
-    Depends on the shapes of ``tparams`` and on the values of the masks and
-    constants.
+def _items(ins, bsz, d, segs=1):
+    """Work items of an instruction: the loop bound of its handler in
+    train_run (f_dense4 / b_dense4 of csrc/train_kernels.cu, their weight
+    and bias gradients in ``segs`` row segments; the others are
+    csrc/flow_phases.cuh's)."""
+    op = ins[0]
+    groups = -(-bsz // 4)
+    if op == _F_DENSE:
+        return groups * ins[7]
+    if op in (_F_COUPLE, _F_ANORM, _F_AFFINE):
+        return bsz
+    if op in (_B_COUPLE, _B_AFFINE):
+        return bsz * d
+    if op == _B_DENSE:
+        k, n = ins[2], ins[4]
+        return segs * (k * -(-n // 4) + (n if ins[6] >= 0 else 0)) + (
+            groups * k if ins[7] >= 0 else 0)
+    if op == _B_ANORM:
+        return d
+    raise ValueError(f"opcode {op}")
 
-    ``state_in_shared=False`` is the layout of the step kernel
-    (``ops/step_kernels.py``): parameters, gradients and constants stay in
-    device memory, the header names no offset for them (-1), and the shared
-    array holds one tile's rows, caches and scratch only."""
-    device = tparams[0].device
-    shapes = [tuple(int(s) for s in p.shape) for p in tparams]
-    if any(len(s) != 2 for s in shapes):
-        raise ValueError("folded tensors must be 2-D")
-    offs, o = [], 0
-    for s in shapes:
-        offs.append(o)
-        o += int(np.prod(s))
-    n_params = o
-    hmax = max([s[1] for s in shapes] + [d])
-    pk = _TrainPacker(d, n, batchsize, shapes, offs)
-    n_consts = sum(int(c.numel()) for c in cparams)
-    if state_in_shared:
-        hdr = {name: pk.alloc(n_params) for name in ("P", "MU", "NU", "G")}
-        hdr["C"] = pk.alloc(n_consts)
-    else:
-        hdr = dict.fromkeys(("P", "MU", "NU", "G", "C"), -1)
-    cache0 = pk.top
-    pk.th_off = hdr["TH"] = pk.rows(n) if n else -1
-    x_in = hdr["X0"] = pk.rows(d)
-    s_buf, t_buf = pk.rows(d), pk.rows(d)
-    gz = hdr["GZ"] = pk.rows(d)
-    pk.scratch = (pk.rows(hmax), pk.rows(hmax))
-    for name in ("LDJ", "MASK", "JBAR", "LP"):
-        hdr[name] = pk.alloc(batchsize)
-    hdr["SCAL"] = pk.alloc(_SCALAR_FLOATS)
 
+def _phase_starts(instrs, bsz, d, segs=1):
+    """Word _W_START of each instruction: the items of the instructions
+    before it in its phase, so that the phase's threads take the items of
+    all its instructions in one round."""
+    start = 0
+    for ins in instrs:
+        if not ins[_W_JOIN]:
+            start = 0
+        ins[_W_START] = start
+        start += _items(ins, bsz, d, segs=segs)
+
+
+def _lower_ops(pk, plan, d, x_in, s_buf, t_buf, gz, x_outs):
+    """Every op of ``plan`` in order; ``x_outs(i)`` gives the buffer op ``i``
+    writes its output rows to. Returns the final rows' offset and the
+    constants consumed."""
     ti = c0 = 0
-    for op in plan:
+    offs = pk.offs
+    for k, op in enumerate(plan):
         tag = op[0]
-        x_out = pk.rows(d)
+        x_out = x_outs(k)
         pk.bwd_groups.append([])
         if tag == "coupling":
             _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz)
@@ -804,26 +941,193 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
             c0 += 2 * d + 1
         ti += train_op_param_count(op)
         x_in = x_out
+    return x_in, ti, c0
+
+
+def _header(values) -> list:
+    header = [0] * _HEADER_WORDS
+    for word, val in values:
+        header[word] = int(val)
+    return header
+
+
+def _eval_layout(plan, shapes, offs, d, n, rows, base):
+    """The evaluation program for tiles of ``rows`` rows, its buffers from
+    float ``base`` on: (packer, header dict, words of header + program)."""
+    hmax = max([s[1] for s in shapes] + [d])
+    pk = _TrainPacker(d, n, rows, shapes, offs, evaluation=True)
+    pk.top = base
+    hdr = {}
+    pk.th_off = hdr["TH"] = pk.rows(n) if n else -1
+    xs = (pk.rows(d), pk.rows(d))
+    hdr["X0"] = xs[0]
+    s_buf, t_buf = pk.rows(d), pk.rows(d)
+    pk.discard = pk.rows(d)
+    pk.hidden_bufs = [(pk.rows(hmax), pk.rows(hmax)) for _ in range(2)]
+    for name in ("LDJ", "MASK", "LP", "LPM", "MW"):
+        hdr[name] = pk.alloc(rows)
+    parts = _parts(rows)
+    hdr["ACC"] = pk.alloc(4 * parts)
+    z, _, _ = _lower_ops(pk, plan, d, xs[0], s_buf, t_buf, -1,
+                         lambda k: xs[(k + 1) % 2])
+    hdr["Z"] = z
+    _phase_starts(pk.fwd, rows, d)
+    header = _header((
+        (_H_B, rows), (_H_D, d), (_H_N, n), (_H_TH, hdr["TH"]),
+        (_H_X0, hdr["X0"]), (_H_Z, z), (_H_GZ, -1), (_H_LDJ, hdr["LDJ"]),
+        (_H_MASK, hdr["MASK"]), (_H_JBAR, -1), (_H_LP, hdr["LP"]),
+        (_H_SCAL, hdr["ACC"]), (_H_NFWD, len(pk.fwd)), (_H_NBWD, 0),
+        (_H_TOTAL, pk.top), (_E_LPM, hdr["LPM"]), (_E_MW, hdr["MW"]),
+        (_E_PARTS, parts), (_E_ACC, hdr["ACC"])))
+    return pk, hdr, header + [w for ins in pk.fwd for w in ins]
+
+
+def _eval_rows(plan, shapes, offs, d, n, base, room):
+    """Rows of an evaluation tile: the most whose buffers fit ``room``
+    floats from ``base`` (the batch caches' floats), at least one."""
+    def need(rows):
+        return _eval_layout(plan, shapes, offs, d, n, rows, base)[0].top \
+            - base
+
+    lo, hi = 1, 2
+    while need(hi) <= room and hi < (1 << 16):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if need(mid) <= room else (lo, mid)
+    return lo
+
+
+def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
+                    batchsize: int, *, state_in_shared: bool = True,
+                    paired: bool | None = None,
+                    eval_rows: int | None = None,
+                    grad_segments: int | None = None) -> PackedTrainPlan:
+    """Lower a training plan into the kernel's forward and backward programs
+    and lay out the block's shared memory for batches of ``batchsize`` rows.
+    Depends on the shapes of ``tparams`` and on the values of the masks and
+    constants.
+
+    ``state_in_shared=False`` is the layout of the step kernel
+    (``ops/step_kernels.py``): parameters, gradients and constants stay in
+    device memory, the header names no offset for them (-1), and the shared
+    array holds one tile's rows, caches and scratch only.
+
+    The resident layout (``train_run``'s) pairs the s- and t-nets of every
+    coupling (their layers share phases) and sums the weight and bias
+    gradients in 4 (else 2) segments of the batch's rows where each net's
+    own backward scratch and the gradient's copies still fit a block,
+    lowers the evaluation program for tiles as large as the batch caches'
+    floats hold, and stages both programs in shared memory where they fit.
+    The last layout it tries (unpaired, one segment, at most two partial
+    sums over the batch's rows, in the scalar area) needs no more floats
+    than the state plus the step kernel's layout, so the envelope of
+    ``_check_budget`` is that of a block holding the state and one batch.
+    ``paired`` / ``grad_segments`` / ``eval_rows`` (a cap on the evaluation
+    tile) hold those choices fixed: hooks for the tests and the probes that
+    run the fallback layouts, never set by the library."""
+    if not state_in_shared:
+        return _pack(plan, tparams, masks, mask_slots, cparams, d, n,
+                     batchsize, state_in_shared=False, paired=False)
+    kw = dict(state_in_shared=True, eval_cap=eval_rows)
+    parts = _parts(batchsize)
+    choices = [(pair, segs, parts) for pair in (True, False)
+               for segs in (4, 2, 1)]
+    choices.append((False, 1, min(parts, _SCAL_MAX_PARTS)))
+    choices = [c for c in choices
+               if (paired is None or c[0] == paired)
+               and (grad_segments is None or c[1] == grad_segments)]
+    for pair, segs, n_parts in choices:
+        packed = _pack(plan, tparams, masks, mask_slots, cparams, d, n,
+                       batchsize, paired=pair, segs=segs, parts=n_parts,
+                       **kw)
+        if packed.shared_bytes <= MAX_SHARED_BYTES:
+            break
+    return packed
+
+
+def _pack(plan, tparams, masks, mask_slots, cparams, d, n, batchsize, *,
+          state_in_shared, paired, segs=1, parts=1, eval_cap=None):
+    device = tparams[0].device
+    shapes = [tuple(int(s) for s in p.shape) for p in tparams]
+    if any(len(s) != 2 for s in shapes):
+        raise ValueError("folded tensors must be 2-D")
+    offs, o = [], 0
+    for s in shapes:
+        offs.append(o)
+        o += int(np.prod(s))
+    n_params = o
+    hmax = max([s[1] for s in shapes] + [d])
+    pk = _TrainPacker(d, n, batchsize, shapes, offs, paired=paired)
+    n_consts = sum(int(c.numel()) for c in cparams)
+    if state_in_shared:
+        hdr = {name: pk.alloc(n_params) for name in ("P", "MU", "NU", "G")}
+        hdr["C"] = pk.alloc(n_consts)
+    else:
+        hdr = dict.fromkeys(("P", "MU", "NU", "G", "C"), -1)
+    cache0 = pk.top
+    pk.th_off = hdr["TH"] = pk.rows(n) if n else -1
+    x_in = hdr["X0"] = pk.rows(d)
+    s_buf, t_buf = pk.rows(d), pk.rows(d)
+    gz = hdr["GZ"] = pk.rows(d)
+    pk.scratch = (pk.rows(hmax), pk.rows(hmax))
+    if paired:
+        pk.net_scratch = (pk.scratch, (pk.rows(hmax), pk.rows(hmax)))
+    for name in ("LDJ", "MASK", "JBAR", "LP"):
+        hdr[name] = pk.alloc(batchsize)
+    hdr["SCAL"] = pk.alloc(_SCALAR_FLOATS)
+    if state_in_shared:
+        # partial sums over the batch's rows: the mask's, then lp·m's
+        hdr["PART"] = (hdr["SCAL"] + _SCAL_PART if parts <= _SCAL_MAX_PARTS
+                       else pk.alloc(2 * parts))
+        # the gradient's copies for row segments 1 .. segs - 1
+        hdr["GCOPY"] = pk.alloc((segs - 1) * n_params)
+
+    hdr["Z"], ti, c0 = _lower_ops(pk, plan, d, x_in, s_buf, t_buf, gz,
+                                  lambda k: pk.rows(d))
     if ti != len(tparams) or c0 != n_consts:
         raise ValueError("plan does not match the folded tensors")
-    hdr["Z"] = x_in
     bwd = [ins for group in reversed(pk.bwd_groups) for ins in group]
+    if state_in_shared:
+        _phase_starts(pk.fwd, batchsize, d)
+        _phase_starts(bwd, batchsize, d, segs)
 
     total = pk.top
-    header = [0] * _HEADER_WORDS
-    for word, val in (
-            (_H_NP, n_params), (_H_NC, n_consts), (_H_B, batchsize),
-            (_H_D, d), (_H_N, n), (_H_P, hdr["P"]), (_H_MU, hdr["MU"]),
-            (_H_NU, hdr["NU"]), (_H_G, hdr["G"]), (_H_C, hdr["C"]),
-            (_H_TH, hdr["TH"]), (_H_X0, hdr["X0"]), (_H_Z, hdr["Z"]),
-            (_H_GZ, hdr["GZ"]), (_H_LDJ, hdr["LDJ"]), (_H_MASK, hdr["MASK"]),
-            (_H_JBAR, hdr["JBAR"]), (_H_LP, hdr["LP"]),
-            (_H_SCAL, hdr["SCAL"]), (_H_NFWD, len(pk.fwd)),
-            (_H_NBWD, len(bwd)), (_H_TOTAL, total)):
-        header[word] = int(val)
+    eval_words, e_hdr, e_rows, n_eval = [], None, 0, 0
+    prog_s = -1
+    if state_in_shared:
+        e_rows = _eval_rows(plan, shapes, offs, d, n, cache0, total - cache0)
+        if eval_cap:
+            e_rows = min(e_rows, int(eval_cap))
+        epk, e_hdr, eval_words = _eval_layout(plan, shapes, offs, d, n,
+                                              e_rows, cache0)
+        n_eval = len(epk.fwd)
+        total = max(total, epk.top)
+        words = _HEADER_WORDS + (len(pk.fwd) + len(bwd)) * _INSTR_WORDS \
+            + len(eval_words)
+        staged_total = (total + 3) // 4 * 4 + words
+        if 4 * staged_total <= MAX_SHARED_BYTES:
+            prog_s = (total + 3) // 4 * 4
+            total = staged_total
+    header = _header((
+        (_H_NP, n_params), (_H_NC, n_consts), (_H_B, batchsize),
+        (_H_D, d), (_H_N, n), (_H_P, hdr["P"]), (_H_MU, hdr["MU"]),
+        (_H_NU, hdr["NU"]), (_H_G, hdr["G"]), (_H_C, hdr["C"]),
+        (_H_TH, hdr["TH"]), (_H_X0, hdr["X0"]), (_H_Z, hdr["Z"]),
+        (_H_GZ, hdr["GZ"]), (_H_LDJ, hdr["LDJ"]), (_H_MASK, hdr["MASK"]),
+        (_H_JBAR, hdr["JBAR"]), (_H_LP, hdr["LP"]),
+        (_H_SCAL, hdr["SCAL"]), (_H_NFWD, len(pk.fwd)),
+        (_H_NBWD, len(bwd)), (_H_TOTAL, total)))
+    if state_in_shared:
+        for word, val in ((_H_PROG_S, prog_s), (_H_EVAL_ROWS, e_rows),
+                          (_H_PARTS, parts), (_H_PART, hdr["PART"]),
+                          (_H_GSEGS, segs), (_H_GCOPY, hdr["GCOPY"])):
+            header[word] = int(val)
     words = header + [w for ins in pk.fwd for w in ins] \
         + [w for ins in bwd for w in ins]
     prog = torch.tensor(words, dtype=torch.int32, device=device)
+    eval_prog = (torch.tensor(eval_words, dtype=torch.int32, device=device)
+                 if eval_words else None)
 
     flat_mask = torch.ones(n_params, dtype=torch.float32, device=device)
     for k, slot in enumerate(mask_slots):
@@ -835,12 +1139,15 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
     return PackedTrainPlan(
         tuple(plan), d, n, batchsize, shapes, offs, n_params, hmax, prog,
         flat_mask, flat_consts.to(torch.float32).contiguous(), hdr,
-        len(pk.fwd), len(bwd), total, total - cache0)
+        len(pk.fwd), len(bwd), total, total - cache0, eval_prog, e_hdr,
+        e_rows, n_eval, paired, prog_s >= 0, segs)
 
 
 # -- the lowered program, executed in PyTorch ----------------------------------
 
 _ACT_NAMES = {v: k for k, v in ACT_CODES.items()}
+_OP_NAMES = ("f_dense", "f_couple", "f_anorm", "f_affine", "b_couple",
+             "b_dense", "b_anorm", "b_affine")
 
 
 def _unbits(i: int) -> float:
@@ -852,11 +1159,12 @@ def _unbits(i: int) -> float:
 class _Machine:
     """The block's shared memory as one flat tensor, and the instruction set
     of ``csrc/train_kernels.cu`` on it, one batch of ``batchsize`` rows at a
-    time."""
+    time (``evaluation``: the evaluation program, one tile of ``eval_rows``
+    rows at a time)."""
 
-    def __init__(self, packed: PackedTrainPlan, flat_p: torch.Tensor):
+    def __init__(self, packed: PackedTrainPlan, flat_p: torch.Tensor,
+                 evaluation: bool = False):
         self.pk = packed
-        self.bsz = packed.batchsize
         h = packed.header
         self.mem = flat_p.new_zeros(packed.total_floats)
         self.p = self.mem[h["P"]:h["P"] + packed.n_params]
@@ -864,26 +1172,33 @@ class _Machine:
         self.c = self.mem[h["C"]:h["C"] + packed.flat_consts.numel()]
         self.p.copy_(flat_p)
         self.c.copy_(packed.flat_consts)
-        words = packed.prog.tolist()
+        if evaluation:
+            self.h, self.bsz = packed.eval_header, packed.eval_rows
+            words = packed.eval_prog.tolist()
+            n_fwd, n_bwd = packed.n_eval, 0
+        else:
+            self.h, self.bsz = h, packed.batchsize
+            words = packed.prog.tolist()
+            n_fwd, n_bwd = packed.n_fwd, packed.n_bwd
         body = words[_HEADER_WORDS:]
         rows = [body[i:i + _INSTR_WORDS]
                 for i in range(0, len(body), _INSTR_WORDS)]
-        self.fwd, self.bwd = rows[:packed.n_fwd], rows[packed.n_fwd:]
-        if len(self.bwd) != packed.n_bwd:
+        self.fwd, self.bwd = rows[:n_fwd], rows[n_fwd:]
+        if len(self.bwd) != n_bwd:
             raise AssertionError("program length does not match its header")
 
     def rows(self, off, cols):
         return self.mem[off:off + self.bsz * cols].view(self.bsz, cols)
 
     def vec(self, name):
-        off = self.pk.header[name]
+        off = self.h[name]
         return self.mem[off:off + self.bsz]
 
     def weight(self, buf, off, k, n):
         return buf[off:off + k * n].view(k, n)
 
     def load(self, x, theta, mask):
-        d, n, h = self.pk.d, self.pk.n, self.pk.header
+        d, n, h = self.pk.d, self.pk.n, self.h
         self.rows(h["X0"], d).copy_(x)
         if n:
             self.rows(h["TH"], n).copy_(theta)
@@ -933,11 +1248,11 @@ class _Machine:
                 ldj += self.c[c_off]
             else:
                 raise ValueError(f"opcode {op} in the forward program")
-        z = self.rows(self.pk.header["Z"], d)
+        z = self.rows(self.h["Z"], d)
         self.vec("LP").copy_(_log_prob(z, ldj[:, None])[:, 0])
 
     def loss(self):
-        d, h = self.pk.d, self.pk.header
+        d, h = self.pk.d, self.h
         m, lp = self.vec("MASK"), self.vec("LP")
         denom = torch.clamp(m.sum(), min=1e-12)
         loss = -(lp * m).sum() / denom
@@ -1009,9 +1324,11 @@ def packed_batch_grads(packed: PackedTrainPlan, flat_p, x, theta, mask):
 def _packed_log_prob(packed: PackedTrainPlan, flat_p, x, theta):
     """Row log-probs through the lowered forward program, in tiles of
     ``batchsize`` rows (rows past the end are zeros), as the kernel's
-    per-epoch evaluation runs it."""
-    mach = _Machine(packed, flat_p)
-    bsz, rows = packed.batchsize, x.shape[0]
+    per-epoch evaluation runs it; through the evaluation program, in tiles
+    of ``eval_rows``, where the plan has one."""
+    evaluation = packed.eval_prog is not None
+    mach = _Machine(packed, flat_p, evaluation)
+    bsz, rows = mach.bsz, x.shape[0]
     out = []
     for r0 in range(0, rows, bsz):
         xb = x.new_zeros(bsz, packed.d)
@@ -1059,7 +1376,8 @@ def packed_train_reference(packed: PackedTrainPlan, tparams, mu, nu, x, theta,
 # -- the kernel's wrapper ---------------------------------------------------------
 
 _LIB = None
-_MAX_THREADS = 1024
+# the kernel's launch bound (csrc/train_kernels.cu, __launch_bounds__)
+_MAX_THREADS = 512
 
 
 def _library():
@@ -1079,9 +1397,60 @@ def _library():
 
 def _block_threads(packed: PackedTrainPlan) -> int:
     """One thread per element of the widest per-batch array, in whole warps,
-    at most 1024."""
+    at most 512 (the kernel's launch bound: 128 registers a thread)."""
     work = packed.batchsize * max(packed.hmax, packed.d)
     return int(min(_MAX_THREADS, max(128, (work + 31) // 32 * 32)))
+
+
+def _phase_names(words, n):
+    """One name per phase of a program: its instructions' opcodes joined."""
+    names, body = [], words[_HEADER_WORDS:]
+    for k in range(n):
+        ins = body[k * _INSTR_WORDS:(k + 1) * _INSTR_WORDS]
+        name = _OP_NAMES[ins[0]]
+        if ins[_W_JOIN]:
+            names[-1] += "+" + name
+        else:
+            names.append(name)
+    return names
+
+
+def run_phase_names(packed: PackedTrainPlan):
+    """The phases of one ``train_run`` step and of one evaluation tile, in
+    order, as the DF_TRAIN_CLOCKS build records them (tools/chip_probe.py)."""
+    words = packed.prog.tolist()
+    fwd = _phase_names(words, packed.n_fwd)
+    body = words[:_HEADER_WORDS] + words[
+        _HEADER_WORDS + packed.n_fwd * _INSTR_WORDS:]
+    bwd = _phase_names(body, packed.n_bwd)
+    step = (["load_batch"] + fwd + ["lp_cotangents"] + bwd
+            + ["mask_and_check", "adam_update"])
+    ev = _phase_names(packed.eval_prog.tolist(), packed.n_eval)
+    return step, ["eval_fold+load_rows"] + ev + ["eval_lp"]
+
+
+def run_layout(packed: PackedTrainPlan, n_train: int = 0,
+               n_valid: int = 0) -> dict:
+    """The shape of a ``train_run`` launch: phases per step, per evaluation
+    tile and (given the split sizes) per epoch, the evaluation tile's rows,
+    whether the nets are paired and the programs staged."""
+    step, tile = run_phase_names(packed)
+    out = dict(phases_per_step=len(step), phases_per_eval_tile=len(tile),
+               eval_rows=packed.eval_rows, paired=packed.paired,
+               staged=packed.staged, shared_bytes=packed.shared_bytes,
+               instructions=dict(forward=packed.n_fwd,
+                                 backward=packed.n_bwd,
+                                 evaluation=packed.n_eval))
+    if n_train:
+        tiles = (-(-n_train // packed.eval_rows)
+                 + -(-n_valid // packed.eval_rows))
+        batches = -(-n_train // packed.batchsize)
+        # the epoch: its steps, its tiles, the last fold, the totals, the
+        # histories
+        out["eval_tiles_per_epoch"] = tiles
+        out["phases_per_epoch"] = (batches * len(step) + tiles * len(tile)
+                                   + 3)
+    return out
 
 
 def _device_f32(t, name, shape, device):
@@ -1120,6 +1489,9 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
         raise ValueError(
             f"train_run needs {packed.shared_bytes} bytes of shared memory "
             f"(limit {MAX_SHARED_BYTES})")
+    if packed.eval_prog is None:
+        raise ValueError("packed plan has no evaluation program: lower it "
+                         "with state_in_shared=True")
     idx = pad_epoch_perms(epoch_perms, n_rows, batchsize)
     epochs, n_pad = idx.shape
     if epochs == 0:
@@ -1127,7 +1499,8 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
     if threads is None:
         threads = _block_threads(packed)
     if threads % 32 or not 32 <= threads <= _MAX_THREADS:
-        raise ValueError("threads must be a multiple of 32, at most 1024")
+        raise ValueError(
+            f"threads must be a multiple of 32, at most {_MAX_THREADS}")
 
     x = _device_f32(x, "x", (n_rows, d), device)
     x_valid = _device_f32(x_valid, "x_valid", (n_valid, d), device)
@@ -1155,13 +1528,13 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
     def ptr(t):
         return t.data_ptr() if t is not None and t.numel() else None
 
-    ptrs = (ctypes.c_void_p * 20)(
+    ptrs = (ctypes.c_void_p * 21)(
         ptr(x), ptr(theta if n_cond else None), ptr(w), ptr(perm),
         ptr(x_valid), ptr(theta_valid if n_cond else None), ptr(w_valid),
         ptr(flat["params"]), ptr(flat["mu"]), ptr(flat["nu"]),
         ptr(packed.flat_mask), ptr(packed.flat_consts), ptr(packed.prog),
         ptr(out["params"]), ptr(out["mu"]), ptr(out["nu"]), ptr(hist["t"]),
-        ptr(hist["v"]), ptr(hist["s"]), ptr(best))
+        ptr(hist["v"]), ptr(hist["s"]), ptr(best), ptr(packed.eval_prog))
     iargs = (ctypes.c_int * 8)(
         epochs, n_pad // batchsize, n_rows, n_valid, int(count0),
         int(bool(track_best)), int(w is not None), int(bool(guard_nonfinite)))

@@ -36,6 +36,7 @@ from densityflows_tpu.ops.pallas_coupling import \
     fused_coupling as jax_fused_coupling
 from densityflows_tpu_torch.models import fused_chain as TF
 from densityflows_tpu_torch.models.fused_train import trainable_leaves
+from densityflows_tpu_torch.ops import chain_kernels as ck
 from densityflows_tpu_torch.ops import coupling_kernels as CK
 
 from _torch_parity import assert_leaves_close, randomize, to_torch
@@ -464,6 +465,8 @@ def emulated(tmp_path_factory):
     i = ctypes.c_int
     lib.df_coupling_fwd_emulated.argtypes = [P, I, i, i, i]
     lib.df_coupling_bwd_emulated.argtypes = [P, I, ctypes.c_longlong, i, i]
+    ll = ctypes.c_longlong
+    lib.df_coupling_tile_emulated.argtypes = [P, I, I, i, ll, ll, i]
 
     class Launch:
         @staticmethod
@@ -475,6 +478,14 @@ def emulated(tmp_path_factory):
         def bwd(reverse):
             return lambda p, ia, ws_floats, segs: \
                 lib.df_coupling_bwd_emulated(p, ia, ws_floats, segs, reverse)
+
+        @staticmethod
+        def tile(reverse):
+            """The tensor-core forward's weight tiling; a launcher for
+            ``_run_fwd_tc`` that runs it and no fold."""
+            return lambda p, ia, lay, n_l, bias, tiled, *_rest: \
+                lib.df_coupling_tile_emulated(p, ia, lay, n_l, bias, tiled,
+                                              reverse)
 
     return Launch
 
@@ -639,19 +650,179 @@ def test_cuda_source_refuses_too_little_shared_memory(emulated):
                     direction="forward", with_ldj=True)
 
 
+# -- coupling_fwd's tensor-core path ------------------------------------------
+#
+# The card's forward runs a coupling as a one-coupling program of the chain
+# kernels' format (CK.tc_plan) on wgmma in 3xTF32, after a launch that tiles
+# both nets' weights (csrc/coupling_kernels.cu::coupling_tile_kernel). The
+# products have no CPU emulation (inline PTX); what the CPU checks: the
+# tiling, emulated, against ops/chain_kernels.py::tile_weights; the lowered
+# program, executed by packed_apply_reference, against the Pallas kernel in
+# interpret mode; a model of the 3xTF32 arithmetic against the gate.
+
+def _main_case(rows=256, seed=3):
+    """The opt-in train step's shapes (K 24, A 16, hidden 256, three dense
+    layers a net), glorot-scaled weights."""
+    return Case(kind="nvp", rows=rows, K=24, A=16, hidden=256, n_s=2, n_t=2,
+                seed=seed)
+
+
+# the tensor-core path's cases: the emulated ones, the main shape, and
+# hidden widths that take the tiling's other code (128-column chunks at
+# 100; passes of 256 columns then a 128- or a 32-column chunk at 300 and
+# 520) at the fold's smaller row tiles
+TC_CASES = dict(
+    EMU_CASES, main=None,
+    hidden_100=dict(kind="nvp", rows=70, K=9, A=5, hidden=100, act="tanh"),
+    hidden_300=dict(kind="nvp", K=6, A=4, hidden=300, n_s=1, act="silu"),
+    hidden_520=dict(kind="nice", K=5, A=3, hidden=520, n_t=1, act="gelu"))
+# the fold's row tile at each (64 where the tile fits a block)
+TC_TILE_ROWS = dict(dict.fromkeys(TC_CASES, 64), hidden_300=32,
+                    hidden_520=16)
+
+
+def _tc_case(name):
+    return _main_case() if name == "main" else Case(**TC_CASES[name])
+
+
+@pytest.mark.parametrize("case_name", sorted(TC_CASES))
+def test_tc_weight_tiling_emulated_equals_tile_weights(emulated, case_name):
+    """The tiling kernel's workspace, in either order of its floats: the
+    biases zero-padded to 4 where the program reads them, then every dense
+    layer's chunks exactly as ``tile_weights`` lays out the padded matrices
+    (the bulk copies' layout), bit for bit."""
+    case = _tc_case(case_name)
+    s, t = case.plain_nets()
+    h, y = _t(case.h), _t(case.y)
+    K, A = h.shape[1], y.shape[1]
+    plan = CK.tc_plan(s, t, K, A, "inverse")
+    assert plan is not None and plan.bias_floats % 4 == 0
+    model = CK.tc_model(plan, s, t, K, A)
+    tcl = CK._TcLaunch(plan, torch.tensor(plan.prog, dtype=torch.int32),
+                       (ctypes.c_int * (4 * len(plan.layout)))(
+                           *[v for lay in plan.layout for v in lay]),
+                       CK._iargs(s, t, "inverse", True, h.shape[0], K, A, 0))
+    for reverse in (0, 1):
+        ws = []
+
+        def launch(p, ia, lay, n_l, bias, tiled, *rest):
+            buf = torch.full((bias + tiled,), float("nan"))
+            # the workspace is ptrs[8]
+            p[8] = buf.data_ptr()
+            ws.append(buf)
+            return emulated.tile(reverse)(p, ia, lay, n_l, bias, tiled)
+
+        CK._run_fwd_tc(launch, tcl, s, t, h, y, with_ldj=True)
+        got = ws[0]
+        assert torch.equal(got[:plan.bias_floats],
+                           model.flat[:plan.bias_floats])
+        assert torch.equal(got[plan.bias_floats:], model.tiled)
+
+
+@pytest.mark.parametrize("with_ldj", [True, False])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("case_name", sorted(TC_CASES))
+def test_tc_lowering_equals_the_pallas_kernel(case_name, direction, with_ldj):
+    """The one-coupling program, executed instruction by instruction on the
+    padded buffers (``packed_apply_reference``), against the JAX package's
+    Pallas forward in interpret mode: 1e-5 (the main shape: 1e-5 relative,
+    1e-4 absolute, sums of 256 products in another order)."""
+    case = _tc_case(case_name)
+    s, t = case.plain_nets()
+    h, y = _t(case.h), _t(case.y)
+    K, A = h.shape[1], y.shape[1]
+    model = CK.tc_model(CK.tc_plan(s, t, K, A, direction), s, t, K, A)
+    got = ck.packed_apply_reference(model, y, h, with_ldj=with_ldj)
+    got = got if with_ldj else (got,)
+    want, _ = _jax_run(case, direction, with_ldj)
+    tol = TOL if case_name != "main" else dict(rtol=1e-5, atol=1e-4)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
+
+
+def _gate_ratio(got, want, rtol=1e-4, atol=1e-4):
+    """max |got - want| / (atol + rtol |want|): at most 1 passes
+    chip_smoke.py's coupling gate (KERNEL_TOL)."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+@pytest.mark.parametrize("case_name", ["main", "d7_n3_h18", "n_s1_n_t3",
+                                       "one_dense_layer", "ragged_1001",
+                                       "hidden_100", "hidden_300",
+                                       "hidden_520"])
+def test_tc_3xtf32_model_stays_inside_the_gate(case_name):
+    """The program with every product in modelled 3xTF32 (the chain kernels'
+    split, tests/test_torch_chain_kernels.py's model) against the plain f32
+    version, inverse with ldj: at most a tenth of the 1e-4 gate, at the main
+    path's widths and at the odd small ones."""
+    from test_torch_chain_kernels import _matmul_3xtf32
+
+    case = _tc_case(case_name)
+    s, t = case.plain_nets()
+    h, y = _t(case.h), _t(case.y)
+    K, A = h.shape[1], y.shape[1]
+    model = CK.tc_model(CK.tc_plan(s, t, K, A, "inverse"), s, t, K, A)
+    got = ck.packed_apply_reference(model, y, h, with_ldj=True,
+                                    matmul=_matmul_3xtf32)
+    want = CK.coupling_fwd_plain(s, t, h, y, direction="inverse",
+                                 with_ldj=True)
+    for a, b in zip(got, want):
+        assert _gate_ratio(a, b) < 0.1
+
+
+def test_tc_path_envelope_and_decline():
+    """Every shape of the tensor-core cases takes the tensor cores at its
+    row tile (64, else the first of 32 / 16 that fits); a hidden layer too
+    wide for the fold's tile at 16 rows keeps the FMA body, with the
+    reason. On CPU tensors the wrapper runs the plain version and launches
+    nothing."""
+    for name in TC_CASES:
+        case = _tc_case(name)
+        s, t = case.plain_nets()
+        K, A = case.h.shape[1], case.y.shape[1]
+        plan = CK.tc_plan(s, t, K, A, "forward")
+        assert plan is not None, name
+        assert plan.tile_rows == TC_TILE_ROWS[name], name
+        assert CK.tc_reason(s, t, K, A) is None
+    wide = Case(kind="nvp", rows=8, K=4, A=3, hidden=3000)
+    s, t = wide.plain_nets()
+    assert CK.tc_plan(s, t, 4, 3, "forward") is None
+    assert "does not fit" in CK.tc_reason(s, t, 4, 3)
+    with pytest.raises(ValueError):
+        CK.set_tile_rows(12)
+    CK.reset_launch_counts()
+    case = _main_case(rows=16)
+    s, t = case.plain_nets()
+    got = CK.coupling_fwd(s, t, _t(case.h), _t(case.y), direction="forward")
+    want = CK.coupling_fwd_plain(s, t, _t(case.h), _t(case.y),
+                                 direction="forward", with_ldj=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert CK.launch_counts() == dict.fromkeys(CK.launch_counts(), 0)
+    assert CK.coupling_fwd.tc_launches == CK.coupling_fwd.tile_launches == 0
+
+
 def test_coupling_kernel_source_is_hand_written():
-    with open(os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
-                           "coupling_kernels.cu")) as f:
+    csrc = os.path.join(ROOT, "densityflows_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "coupling_kernels.cu")) as f:
         text = f.read()
-    for symbol in ("df_coupling_fwd", "df_coupling_bwd",
-                   "coupling_fwd_kernel", "coupling_product_kernel",
+    for symbol in ("df_coupling_fwd", "df_coupling_bwd", "df_coupling_fwd_tc",
+                   "coupling_fwd_kernel", "coupling_fwd_tc_kernel",
+                   "coupling_tile_kernel", "coupling_product_kernel",
                    "coupling_pullback_kernel", "coupling_bwd_reduce_kernel",
                    "tile_product", "df_cp_async4", "__global__", "dact_fn",
                    "u < 0.f ? 0.f : u", "expm1f", "log1pf",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert symbol in text
+    # the backward and the FMA forward stay f32 FMA in this file's own
+    # loops; the tensor-core forward is the chain kernels' fold, shared
+    # through wgmma_fold.cuh (the card's build only)
     for banned in ("atomicadd", "cublas", "cudnn", "cutlass",
-                   "torch/extension.h", "wgmma", "mma.sync", "tf32"):
+                   "torch/extension.h", "mma.sync", "wgmma.mma_async"):
         assert banned not in text.lower()
-    # no header of the package but the cp.async one (no flow phases)
-    assert re.findall(r'#include "([^"]+)"', text) == ["async_copy.cuh"]
+    assert re.findall(r'#include "([^"]+)"', text) == [
+        "async_copy.cuh", "wgmma_fold.cuh"]
+    with open(os.path.join(csrc, "wgmma_fold.cuh")) as f:
+        fold = f.read()
+    for symbol in ("wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
+                   "cvt.rna.tf32.f32", "apply_tile", "namespace wgf"):
+        assert symbol in fold

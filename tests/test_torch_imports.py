@@ -139,6 +139,10 @@ def test_kernel_sources_are_package_data():
                        "chain_kernels.cu")
     with open(src) as f:
         text = f.read()
+    # the tensor-core fold lies in the header it shares with coupling_fwd
+    assert '#include "wgmma_fold.cuh"' in text
+    with open(os.path.join(os.path.dirname(src), "wgmma_fold.cuh")) as f:
+        text += f.read()
     for symbol in ("df_chain_apply", "df_chain_sample", "philox4x32_10",
                    "chain_apply_kernel", "chain_sample_kernel",
                    "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
@@ -206,12 +210,13 @@ def test_coupling_kernel_source_is_package_data():
                    "coupling_product_kernel", "coupling_pullback_kernel",
                    "coupling_bwd_reduce_kernel", "__global__"):
         assert symbol in text
-    # a source of its own: no header of the package but the cp.async one
-    # (package data beside it), no library
+    # no header of the package but the cp.async one and the tensor-core
+    # fold it shares with the chain kernels (package data beside it), no
+    # library
     quoted = [line.split('"')[1] for line in text.splitlines()
               if line.startswith("#include \"")]
-    assert quoted == ["async_copy.cuh"]
-    assert os.path.exists(os.path.join(csrc, "async_copy.cuh"))
+    assert quoted == ["async_copy.cuh", "wgmma_fold.cuh"]
+    assert all(os.path.exists(os.path.join(csrc, name)) for name in quoted)
     for library in ("cublas", "cudnn", "cutlass", "torch/extension.h",
                     "atomicadd"):
         assert library not in text.lower()

@@ -11,6 +11,7 @@ parameters, moments and histories after 3 epochs (in practice ~1e-6), the
 bar ``chip_smoke.py`` holds the kernel to on the card.
 """
 
+import copy
 import ctypes
 import os
 import shutil
@@ -28,7 +29,7 @@ from densityflows_tpu_torch.models.fused_train import trainable_leaves
 from densityflows_tpu_torch.ops import train_kernels as TK
 
 from _torch_parity import TRAIN_CHAINS as CHAINS
-from _torch_parity import cond_data, randomize, to_torch
+from _torch_parity import assert_leaves_close, cond_data, randomize, to_torch
 
 ATOL = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +56,8 @@ class Case:
                                   hidden_dim_s=8, hidden_dim_t=8,
                                   kind=df.NICECouplingLayer),
                 df.normalization_layer(x, -1.0, 1.0))
-        self.chain = to_torch(randomize(jchain, seed))
+        self.jchain = randomize(jchain, seed)
+        self.chain = to_torch(self.jchain)
         self.flow = dt.Flow(self.chain, td, device="cpu")
         (self.plan, self.tcounts, self.tparams, self.masks, self.slots,
          self.cparams, self.fold_state, self.unfold) = \
@@ -270,13 +272,7 @@ def test_continuation_of_the_plain_version_is_exact():
 
 # -- the CUDA source under host emulation ---------------------------------------------
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """``csrc/train_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
-    mode, with tests/cuda_host_emulation.h standing in for the CUDA
-    builtins): ``launch(threads, reverse)`` gives a launcher for
-    ``ops.train_kernels._train_run`` that runs the kernel's body on CPU
-    tensors, the threads of each phase one after another."""
+def _compile_emulated(tmp_path_factory, flags=()):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
@@ -286,11 +282,25 @@ def emulated(tmp_path_factory):
     # -ffp-contract=off: fmaf() stays the only fused multiply-add, as written
     proc = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-x", "c++", "-DDF_HOST_EMULATION", "-include",
+         "-x", "c++", "-DDF_HOST_EMULATION", *flags, "-include",
          os.path.join(ROOT, "tests", "cuda_host_emulation.h"), "-o", out,
          src],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
+    return out
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``csrc/train_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
+    mode, with tests/cuda_host_emulation.h standing in for the CUDA
+    builtins): ``launch(threads, reverse)`` gives a launcher for
+    ``ops.train_kernels._train_run`` that runs the kernel's body on CPU
+    tensors, the threads of each phase one after another."""
+    return _launcher(_compile_emulated(tmp_path_factory))
+
+
+def _launcher(out):
     lib = ctypes.CDLL(out)
     lib.df_train_run_emulated.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
@@ -342,11 +352,52 @@ def test_cuda_source_emulated_is_independent_of_thread_order(emulated):
         _assert_runs_close(other, runs[0], atol=0.0)
 
 
+@pytest.mark.parametrize("variant", ["reference", "joint", "actnorm",
+                                     "nobias_tanh"])
+def test_cuda_source_dense_handlers_on_ragged_row_groups(emulated, variant):
+    """train_run's dense handlers take four rows an item: batches of 18
+    rows (a last group of two), weighted, with track_best and the guard:
+    1e-4 against the plain version, the same skips, the same bits in either
+    thread order and at another thread count."""
+    case = Case(variant, bs=18)
+    kw = dict(_mode_kwargs(case, "weighted_best"), guard_nonfinite=True)
+    got = _emulate(case, emulated(96, 0), **kw)
+    _assert_runs_close(got, case.plain(**kw))
+    _assert_runs_close(got, _emulate(case, emulated(160, 1), **kw), atol=0.0)
+
+
+def test_kernel_source_is_hand_written():
+    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
+                       "train_kernels.cu")
+    with open(src) as f:
+        text = f.read()
+    # the forward and backward phases lie in the header that this source and
+    # the step kernel's include; the dense layers on this file's register
+    # tiles
+    assert '#include "flow_phases.cuh"' in text
+    with open(os.path.join(os.path.dirname(src), "flow_phases.cuh")) as f:
+        text += f.read()
+    for symbol in ("df_train_run", "train_run_kernel", "__global__",
+                   "f_dense4", "b_dense4", "b_dense", "adam_update",
+                   "mask_and_check",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+        assert symbol in text
+    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h"):
+        assert library not in text.lower()
+
+
 def test_cuda_source_emulated_guard_and_continuation(emulated):
     """NaN rows: the skipped batches, the applied-update count and the finite
     parameters equal the plain version's; two calls with carried state equal
     one call bit for bit."""
+    _guard_and_continuation(emulated)
+
+
+def _guard_and_continuation(emulated, **pack_kw):
     case = Case("reference", epochs=5, bs=16)
+    if pack_kw:
+        case.packed = TK.pack_train_plan(*case.head(), case.d, case.n,
+                                         case.bs, **pack_kw)
     xt = case.data[0].clone()
     xt[[5, 40, 77], 1] = float("nan")
     case.data = (xt,) + case.data[1:]
@@ -370,19 +421,193 @@ def test_cuda_source_emulated_guard_and_continuation(emulated):
     assert one[6].tolist() == a[6].tolist() + b[6].tolist()
 
 
-def test_kernel_source_is_hand_written():
-    src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
-                       "train_kernels.cu")
-    with open(src) as f:
-        text = f.read()
-    # the forward and backward phases lie in the header that this source and
-    # the step kernel's include
-    assert '#include "flow_phases.cuh"' in text
-    with open(os.path.join(os.path.dirname(src), "flow_phases.cuh")) as f:
-        text += f.read()
-    for symbol in ("df_train_run", "train_run_kernel", "__global__",
-                   "b_dense", "adam_update", "mask_and_check",
-                   "cudaFuncAttributeMaxDynamicSharedMemorySize"):
-        assert symbol in text
-    for library in ("cublas", "cudnn", "cutlass", "torch/extension.h"):
-        assert library not in text.lower()
+# -- train_run's lowering: paired nets, evaluation tiles -----------------------
+#
+# The resident layout pairs the s- and t-nets of a coupling (their layers in
+# shared phases, each net with its own backward scratch) and evaluates on
+# tiles of its own (the forward program lowered again, buffers reused). The
+# CPU checks both against the plain version and the JAX package, through
+# the lowered program and through the CUDA source under emulation, and the
+# unpaired and small-tile layouts as well (the kernel's same code paths).
+
+def _phases(words, n):
+    body = np.asarray(words[TK._HEADER_WORDS:TK._HEADER_WORDS
+                            + n * TK._INSTR_WORDS]).reshape(n, -1)
+    groups = []
+    for ins in body:
+        if ins[TK._W_JOIN]:
+            groups[-1].append(ins)
+        else:
+            groups.append([ins])
+    return groups
+
+
+@pytest.mark.parametrize("variant", ["reference", "joint", "nice", "deep",
+                                     "actnorm"])
+def test_paired_lowering_shares_phases(variant):
+    """Paired: fewer phases than instructions, no two first-layer x blocks
+    (both add into the x cotangent) in one phase, the phase's item starts
+    the running sums of its instructions' items; unpaired: one instruction a
+    phase, the step kernels' program words (14 and 15 zero)."""
+    case = Case(variant, bs=64)
+    pk = case.packed
+    assert pk.paired and pk.staged and pk.eval_rows > pk.batchsize
+    assert pk.grad_segments == 4
+    words = pk.prog.tolist()
+    fwd = _phases(words, pk.n_fwd)
+    bwd = _phases(words[:TK._HEADER_WORDS]
+                  + words[TK._HEADER_WORDS + pk.n_fwd * TK._INSTR_WORDS:],
+                  pk.n_bwd)
+    if variant not in ("joint", "nice"):     # nets to pair
+        assert len(fwd) < pk.n_fwd and len(bwd) < pk.n_bwd
+    for group in bwd:
+        assert sum(1 for ins in group
+                   if ins[0] == TK._B_DENSE and ins[8] == 1) <= 1
+    for group in fwd + bwd:
+        start = 0
+        for ins in group:
+            assert ins[TK._W_START] == start
+            start += TK._items(list(ins), pk.batchsize, pk.d,
+                               segs=pk.grad_segments)
+    step, tile = TK.run_phase_names(pk)
+    assert len(step) == len(fwd) + len(bwd) + 4
+    assert len(tile) == len(_phases(pk.eval_prog.tolist(), pk.n_eval)) + 2
+    flat = TK.pack_train_plan(*case.head(), case.d, case.n, 64,
+                              paired=False)
+    assert not flat.paired and flat.n_fwd == pk.n_fwd
+    assert len(TK.run_phase_names(flat)[0]) == flat.n_fwd + flat.n_bwd + 4
+    step_layout = TK.pack_train_plan(*case.head(), case.d, case.n, 64,
+                                     state_in_shared=False)
+    body = step_layout.prog[TK._HEADER_WORDS:].reshape(-1, TK._INSTR_WORDS)
+    assert int(body[:, TK._W_START:].abs().sum()) == 0
+    assert step_layout.eval_prog is None
+
+
+@pytest.mark.parametrize("bs", [1, 7, 64])
+@pytest.mark.parametrize("variant", ["reference", "joint", "nice", "deep",
+                                     "actnorm", "nobias_tanh"])
+def test_resident_layout_fits_where_state_and_one_batch_fit(
+        monkeypatch, variant, bs):
+    """The envelope does not narrow: with the block's limit set to the
+    floats of the state (parameters, both moments, gradients, constants)
+    plus the step kernel's layout of one batch, the packer still finds a
+    layout within it (unpaired, one segment, the partial sums in the
+    scalar area, the programs read from device memory)."""
+    case = Case(variant, bs=bs)
+    step = TK.pack_train_plan(*case.head(), case.d, case.n, bs,
+                              state_in_shared=False)
+    limit = 4 * (4 * step.n_params + step.flat_consts.numel()
+                 + step.total_floats)
+    monkeypatch.setattr(TK, "MAX_SHARED_BYTES", limit)
+    packed = TK.pack_train_plan(*case.head(), case.d, case.n, bs)
+    assert packed.shared_bytes <= limit
+    assert (not packed.paired and packed.grad_segments == 1
+            and not packed.staged)
+    words = packed.prog.tolist()
+    assert words[TK._H_PARTS] <= 2
+    assert words[TK._H_PART] == packed.header["SCAL"] + 3
+
+
+def test_cuda_source_emulated_on_the_smallest_layout(emulated, monkeypatch):
+    """The CUDA source under emulation on that last layout, weighted, with
+    track_best and the guard: 1e-4 against the plain version."""
+    case = Case("reference", bs=64)
+    step = TK.pack_train_plan(*case.head(), case.d, case.n, case.bs,
+                              state_in_shared=False)
+    monkeypatch.setattr(TK, "MAX_SHARED_BYTES", 4 * (
+        4 * step.n_params + step.flat_consts.numel() + step.total_floats))
+    case.packed = TK.pack_train_plan(*case.head(), case.d, case.n, case.bs)
+    assert case.packed.prog.tolist()[TK._H_PARTS] == 2
+    kw = dict(_mode_kwargs(case, "weighted_best"), guard_nonfinite=True)
+    _assert_runs_close(_emulate(case, emulated(96, 1), **kw),
+                       case.plain(**kw))
+
+
+@pytest.mark.parametrize("layout", [(None, None), (7, 2), (64, 1)])
+@pytest.mark.parametrize("paired", [True, False])
+@pytest.mark.parametrize("variant", ["reference", "joint", "actnorm",
+                                     "unconditional"])
+def test_cuda_source_emulated_layouts_equal_plain_version(emulated, variant,
+                                                          paired, layout):
+    """The CUDA source under emulation on the paired and unpaired layouts,
+    with evaluation tiles as large as fit, of 7 rows (a ragged last tile in
+    both splits) and of 64, the gradients summed in 4, 2 and 1 segments of
+    rows, weighted with track_best: 1e-4 against the plain version."""
+    eval_rows, segs = layout
+    case = Case(variant if variant != "unconditional" else "reference",
+                n_cond=variant != "unconditional")
+    case.packed = TK.pack_train_plan(*case.head(), case.d, case.n, case.bs,
+                                     paired=paired, eval_rows=eval_rows,
+                                     grad_segments=segs)
+    assert case.packed.paired == paired
+    assert case.packed.grad_segments == (segs or 4)
+    kw = _mode_kwargs(case, "weighted_best")
+    got = _emulate(case, emulated(96, 1), **kw)
+    _assert_runs_close(got, case.plain(**kw))
+    ref = TK.packed_train_reference(case.packed, case.tparams, case.zeros,
+                                    case.zeros, *case.data, case.perms, **kw)
+    _assert_runs_close(ref, case.plain(**kw))
+
+
+def test_cuda_source_emulated_small_tiles_are_independent_of_thread_order(
+        emulated):
+    """Evaluation tiles of 7 rows, paired with the gradients in 4 segments
+    and unpaired in 2: ascending and descending thread order and other
+    thread counts give the same bits."""
+    for paired, segs in ((True, 4), (False, 2)):
+        case = Case("actnorm")
+        case.packed = TK.pack_train_plan(*case.head(), case.d, case.n,
+                                         case.bs, paired=paired, eval_rows=7,
+                                         grad_segments=segs)
+        kw = dict(track_best=True, guard_nonfinite=True, w=case.w,
+                  w_valid=case.wv)
+        runs = [_emulate(case, emulated(nt, rev), **kw)
+                for nt, rev in ((96, 0), (96, 1), (512, 1), (32, 0))]
+        for other in runs[1:]:
+            _assert_runs_close(other, runs[0], atol=0.0)
+
+
+def test_cuda_source_emulated_guard_and_continuation_small_tiles(emulated):
+    """The guard and the continuation on the unpaired layout with evaluation
+    tiles of 5 rows."""
+    _guard_and_continuation(emulated, paired=False, eval_rows=5)
+
+
+@pytest.mark.parametrize("variant", ["reference", "nice"])
+def test_paired_lowering_equals_the_jax_kernel(emulated, variant):
+    """The JAX package's whole-run kernel (Pallas, interpret mode) with the
+    same folded tensors and batch order against the port's lowered program
+    (packed_train_reference) and its CUDA source under emulation, on the
+    paired layout with its evaluation tiles: parameters, moments and both
+    histories within 1e-4 after 3 epochs."""
+    from densityflows_tpu.models.fused_train import (
+        chain_train_fold as jax_fold)
+    from densityflows_tpu.ops.pallas_train import (
+        run_fused_train as jax_run)
+
+    from _torch_parity import jax_epoch_perms
+
+    case = Case(variant)
+    (plan, tcounts, tparams, masks, slots, cparams, _f, unfold) = \
+        jax_fold(case.jchain)
+    xt, tht, xv, thv = (np.asarray(a) if a is not None else None
+                        for a in case.data)
+    key = jax.random.key(11)
+    case.perms = jax_epoch_perms(key, 3, xt.shape[0])
+    zeros = [np.zeros(np.shape(p), np.float32) for p in tparams]
+    want = jax_run(plan, tcounts, list(tparams), list(masks), slots,
+                   list(cparams), zeros, zeros, xt, tht, xv, thv, key,
+                   epochs=3, batchsize=case.bs, interpret=True)
+    want_chain = unfold(list(want[0]))
+    got_ref = TK.packed_train_reference(case.packed, case.tparams,
+                                        case.zeros, case.zeros, *case.data,
+                                        case.perms)
+    got_emu = _emulate(case, emulated(64, 0))
+    for got in (got_ref, got_emu):
+        # the packages fold the nets differently: compare the model's leaves
+        chain = copy.deepcopy(case.chain)
+        FT.load_leaves_(chain, case.unfold(got[0]))
+        assert_leaves_close(want_chain, chain, ATOL)
+        for i in (3, 4):
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                       rtol=0, atol=ATOL)

@@ -345,7 +345,17 @@ def coupling(device):
     # a tree from before the backward's redesign has no bwd_launches
     per_call = (cpk.bwd_launches(s, t) + 1
                 if hasattr(cpk, "bwd_launches") else 2)
+    # the forward's host enqueue per call, over back-to-back calls
+    for _ in range(5):
+        fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fwd()
+    fwd_host_ms = 1e3 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
     return dict(rows=B, K=K, A=y.shape[1], hidden=s[0][0].shape[1],
+                coupling_fwd_host_enqueue_ms=fwd_host_ms,
                 coupling_bwd_call_ms=event_ms(bwd),
                 coupling_bwd_device_ms_by_launch=launch_ms(bwd, per_call),
                 coupling_bwd_device_ms_by_kernel=device_ms_by_kernel(bwd),
@@ -463,6 +473,248 @@ def stream(device, clocks_lib=None):
     return row
 
 
+# -- train: train_run at BASELINE, its clock split, the routing crossover -----
+
+def baseline_case(device, epochs=50):
+    """The README / BASELINE config (datatest.npz, three couplings of
+    hidden 16, batch 64) folded for the kernels, and ``epochs`` batch
+    orders: ``(flow, head, arrays, perms)``."""
+    import chip_smoke as cs
+
+    data_b, dat = cs.baseline_data()
+    flow = cs.baseline_flow(data_b, dat, device, SEED)
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
+        ft.chain_train_fold(flow.model)
+    xt, tht = data_b.normalized_training_data(flow.metadata)
+    xv, thv = data_b.normalized_validation_data(flow.metadata)
+    arrays = tuple(put(a, device) for a in (xt, tht, xv, thv))
+    perms = np.stack([np.random.default_rng(SEED + i).permutation(
+        xt.shape[0]) for i in range(epochs)])
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros)
+    return flow, head, arrays, perms
+
+
+def run_bits(out):
+    """sha256 of a train_run result: parameters, moments, both histories."""
+    h = hashlib.sha256()
+    for t in list(out[0]) + list(out[1]) + list(out[2]) + [out[3], out[4]]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_phase_names(packed):
+    """Names of the phases of one step and of one evaluation tile, in the
+    order the DF_TRAIN_CLOCKS build records them: the tree's own
+    (``train_kernels.run_phase_names``), or the layout of the design before
+    it (one phase per instruction)."""
+    if hasattr(tk, "run_phase_names"):
+        return tk.run_phase_names(packed)
+    prog = packed.prog.tolist()
+    fwd = [OPCODES[prog[32 + 16 * k]] for k in range(packed.n_fwd)]
+    bwd = [OPCODES[prog[32 + 16 * (packed.n_fwd + k)]]
+           for k in range(packed.n_bwd)]
+    step = (["load_batch"] + fwd + ["row_log_prob", "batch_loss",
+                                    "loss_cotangents"] + bwd
+            + ["mask_and_check", "adam_update"])
+    return step, ["load_rows"] + fwd + ["row_log_prob", "eval_accumulate"]
+
+
+def train_clocks(device, lib, head, arrays, perms, packed):
+    """The DF_TRAIN_CLOCKS build of csrc/train_kernels.cu (``lib``) on the
+    BASELINE run: cycles of each phase of one step and of one evaluation
+    tile, by phase and summed by kind, the median of three launches."""
+    import ctypes
+
+    i, f, v = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.df_train_run.restype = i
+    clk = torch.zeros(2 + 2 * 256, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(ptrs, iargs, fargs, threads, shared):
+        full = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, clk.data_ptr())
+        return lib.df_train_run(full, iargs, fargs, i(threads), i(shared),
+                                v(stream))
+
+    kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+              track_best=False, w=None, w_valid=None, guard_nonfinite=False,
+              packed=packed, threads=None)
+    runs = []
+    for _ in range(3):
+        clk.zero_()
+        tk._train_run(launch, *head, *arrays, perms, **kw)
+        torch.cuda.synchronize()
+        runs.append(clk.tolist())
+    step_names, eval_names = run_phase_names(packed)
+    out = {}
+    for slot, names in ((0, step_names), (1, eval_names)):
+        n = int(runs[0][slot])
+        cycles = [statistics.median(r[2 + 256 * slot + k] for r in runs)
+                  for k in range(n)]
+        by_kind = {}
+        for name, c in zip(names, cycles):
+            by_kind[name] = by_kind.get(name, 0.0) + c
+        out["step" if slot == 0 else "eval_tile"] = dict(
+            phases=n, names_match=len(names) == n,
+            total_cycles=sum(cycles),
+            cycles_per_phase=sum(cycles) / n if n else None,
+            cycles_by_kind=by_kind, cycles_by_phase=list(zip(names, cycles)))
+    ms_clk = event_ms(lambda: tk._train_run(launch, *head, *arrays, perms,
+                                            **kw), warmup=1, runs=3)
+    out["clock_build_ms"] = ms_clk
+    return out
+
+
+def build_one(src, tag, flags):
+    """One variant library of the tree's ``csrc/<src>.cu``."""
+    import ctypes
+
+    from densityflows_tpu_torch import _build
+
+    out_dir = os.path.join(_build.build_dir(), "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"lib{src}_{tag}.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", so,
+           _build.source_path(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} {tag}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return ctypes.CDLL(so)
+
+
+def train(device, clocks=False):
+    """train_run at the README / BASELINE config for 50 epochs: CUDA-event
+    ms at the default thread count and at 512 and 1024, the launch shape
+    (threads, shared bytes, phases), the sha256 of two launches' results
+    (they must be equal), the final validation NLL; then the routing
+    crossover: ``train_stream`` on the same 50 epochs plus its
+    ``eval_snapshots`` of both splits, the evaluation the resident kernel
+    does inside. With ``clocks`` (``--variants``) also the DF_TRAIN_CLOCKS
+    build's split of one step and one evaluation tile."""
+    flow, head, arrays, perms = baseline_case(device)
+    xt, tht, xv, thv = arrays
+    packed = tk.pack_train_plan(*head[:5], xt.shape[1], tht.shape[1], 64)
+
+    def run(threads=None):
+        kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999,
+                  eps=1e-8, track_best=False, w=None, w_valid=None,
+                  guard_nonfinite=False, packed=packed)
+        return tk._launch_train_run(*head, *arrays, perms, threads=threads,
+                                    **kw)
+
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    row = dict(epochs=50, train_rows=int(xt.shape[0]), batch=64,
+               steps=50 * -(-xt.shape[0] // 64),
+               shared_bytes=packed.shared_bytes,
+               default_threads=tk._block_threads(packed),
+               ms=event_ms(run, warmup=1, runs=5),
+               ms_by_threads={t: event_ms(lambda: run(t), warmup=1, runs=3)
+                              for t in (256, 512)},
+               two_launches_same_bits=run_bits(a) == run_bits(b),
+               sha256=run_bits(a),
+               final_valid_nll=float(a[4][-1]),
+               final_train_nll=float(a[3][-1]))
+    if hasattr(tk, "run_layout"):
+        row["layout"] = tk.run_layout(packed)
+
+    # the crossover: train_stream over the same 50 epochs, then the
+    # evaluation of each epoch's snapshot on both splits
+    sp = ft.fold_for_step(flow).step_plan
+
+    def stream_run():
+        p, _m, _n, snaps, _s = stk.run_fused_train_stream(
+            *head, xt, tht, perms, batchsize=64, step_plan=sp)
+        tl = stk.eval_snapshots(snaps, sp.cparams, xt, tht, None,
+                                plan=sp.plan)
+        vl = stk.eval_snapshots(snaps, sp.cparams, xv, thv, None,
+                                plan=sp.plan)
+        return p, tl, vl
+
+    stream_kernel_ms = event_ms(lambda: stk.run_fused_train_stream(
+        *head, xt, tht, perms, batchsize=64, step_plan=sp), warmup=1, runs=5)
+    stream_total_ms = event_ms(stream_run, warmup=1, runs=3)
+    _p, _tl, vl = stream_run()
+    row["crossover"] = dict(
+        train_run_ms=row["ms"], train_stream_kernel_ms=stream_kernel_ms,
+        train_stream_with_eval_snapshots_ms=stream_total_ms,
+        eval_snapshots_ms=stream_total_ms - stream_kernel_ms,
+        train_stream_final_valid_nll=float(vl[-1]))
+    if clocks:
+        lib = build_one("train_kernels", "clocks", ["-DDF_TRAIN_CLOCKS=1"])
+        row["clocks"] = train_clocks(device, lib, head, arrays, perms,
+                                     packed)
+    return row
+
+
+def train_variants(device):
+    """train_run's layouts timed in turns at the BASELINE run: the s- and
+    t-nets paired or not, the gradients summed in 4 or 1 segments of rows,
+    at 256 and 512 threads; with each, the DF_TRAIN_CLOCKS build's cycles
+    of a step and of an evaluation tile. (The dense handlers of
+    flow_phases.cuh and a bound of 1,024 threads, timed here before they
+    were removed, are reached with ``--tree`` on an older commit.)"""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not hasattr(tk, "run_layout"):
+        return None
+    flow, head, arrays, perms = baseline_case(device)
+    xt, tht = arrays[0], arrays[1]
+    jobs = [("variants", []), ("variants_clocks", ["-DDF_TRAIN_CLOCKS=1"])]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        libs = dict(zip([j[0] for j in jobs], pool.map(
+            lambda j: build_one("train_kernels", j[0], j[1]), jobs)))
+    i, v = ctypes.c_int, ctypes.c_void_p
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(lib, clk=None):
+        lib.df_train_run.restype = i
+
+        def launch(ptrs, iargs, fargs, threads, shared):
+            if clk is not None:
+                ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs,
+                                                          clk.data_ptr())
+            return lib.df_train_run(ptrs, iargs, fargs, i(threads),
+                                    i(shared), v(stream))
+        return launch
+
+    kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+              track_best=False, w=None, w_valid=None, guard_nonfinite=False)
+    grid = [(True, 4), (True, 1), (False, 4), (False, 1)]
+    out = []
+    for rnd in range(2):
+        for paired, segs in grid:
+            packed = tk.pack_train_plan(*head[:5], xt.shape[1], tht.shape[1],
+                                        64, paired=paired,
+                                        grad_segments=segs)
+            row = dict(round=rnd, paired=paired, grad_segments=segs,
+                       eval_rows=packed.eval_rows)
+            for threads in (256, 512):
+                row[f"ms_{threads}"] = event_ms(
+                    lambda: tk._train_run(
+                        launcher(libs["variants"]), *head, *arrays, perms,
+                        packed=packed, threads=threads, **kw),
+                    warmup=1, runs=3)
+            if rnd == 0:
+                clk = torch.zeros(2 + 2 * 256, device=device)
+                tk._train_run(launcher(libs["variants_clocks"], clk),
+                              *head, *arrays, perms, packed=packed,
+                              threads=512, **kw)
+                torch.cuda.synchronize()
+                c = clk.tolist()
+                step = c[2:2 + int(c[0])]
+                tile = c[2 + 256:2 + 256 + int(c[1])]
+                row.update(step_phases=len(step), step_cycles=sum(step),
+                           tile_phases=len(tile), tile_cycles=sum(tile),
+                           step_by_phase=[round(x) for x in step],
+                           tile_by_phase=[round(x) for x in tile])
+            out.append(row)
+            print(json.dumps({"train_variant": row}), flush=True)
+    return out
+
+
 def use_stream_library(lib):
     """Point the train_stream wrapper at ``lib`` (argtypes as its _library
     sets)."""
@@ -535,31 +787,15 @@ OPCODES = ["f_dense", "f_couple", "f_anorm", "f_affine", "b_couple",
 def build_variants():
     """Every variant's library: {(source, tag): ctypes.CDLL}, built in
     parallel with the package's nvcc flags and the variant's."""
-    import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
-    from densityflows_tpu_torch import _build
-
-    out_dir = os.path.join(_build.build_dir(), "variants")
-    os.makedirs(out_dir, exist_ok=True)
     jobs = [("step_kernels", tag, flags)
             for tag, flags in STEP_VARIANTS.items()]
     jobs.append(("stream_kernels", "clocks", ["-DDF_STREAM_CLOCKS=1"]))
     jobs.append(("chain_kernels", "clocks", ["-DDF_CHAIN_CLOCKS=1"]))
-
-    def one(job):
-        src, tag, flags = job
-        so = os.path.join(out_dir, f"lib{src}_{tag}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", so,
-               _build.source_path(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src} {tag}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        return job[:2], ctypes.CDLL(so)
-
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        return dict(pool.map(one, jobs))
+        return dict(zip([j[:2] for j in jobs],
+                        pool.map(lambda j: build_one(*j), jobs)))
 
 
 def use_chain_library(lib):
@@ -718,7 +954,8 @@ def main():
                     help="import the package from this checkout instead")
     ap.add_argument("--only", default=None,
                     help="comma-separated probes to run (chain_nan, "
-                         "step_host, coupling, stream, chain, variants)")
+                         "step_host, coupling, stream, chain, train, "
+                         "variants)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
@@ -771,10 +1008,15 @@ def main():
             stream_skipped=stream_skips,
             step_grads=cs.check_step_small(np.random.default_rng(SEED),
                                            device),
+            train_run=cs.check_train_small(np.random.default_rng(SEED),
+                                           device),
             coupling=cs.check_coupling_small(device))
         print(json.dumps({"check": result["check"]}), flush=True)
     probes = [("chain_nan", chain_nan), ("step_host", step_host),
-              ("coupling", coupling), ("stream", stream), ("chain", chain)]
+              ("coupling", coupling), ("stream", stream), ("chain", chain),
+              ("train", lambda dev: train(dev, clocks=args.variants))]
+    if args.variants:
+        probes.append(("train_variants", train_variants))
     if args.variants:
         probes.append(("variants", variants))
     if args.only:
