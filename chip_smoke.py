@@ -45,7 +45,20 @@ the port's main paths through the entry points a user calls:
   wide split chain at batch 8192 from 2^16 rows (each coupling of the loss
   launches ``coupling_fwd``, its gradient ``coupling_bwd``), held against the
   plain autograd step; then ``train(..., fused_kernel=False)`` under ``True``
-  and a chain the chain kernel declines (``log_prob`` / ``sample``).
+  and a chain the chain kernel declines (``log_prob`` / ``sample``);
+- the other base distributions, spline / MAF / IAF flows and condition
+  embeddings, which have no kernel of their own: the flagship split chain
+  with a ``DiagNormal`` and a ``GaussianMixture`` base (``log_prob`` /
+  ``sample`` / ``sample_sweep`` on ``chain_apply``, never ``chain_sample``)
+  and a ``BoxUniform`` base through ``save_flow`` → ``load_flow``; the RQS
+  chain of ``benchmarks/spline_crossover.py``'s widest config (d 32, n 8,
+  4 blocks of hidden 256, K 8) and ``build_flow(FlowConfig(family="maf"))``
+  plus an IAF flow at the same width, each against the same modules in
+  float64 on the CPU; ``embed_conditions`` around the flagship chain
+  (sampling on ``chain_apply``, ``log_prob`` per-layer, 4 epochs of
+  ``train()``); and the coupling main path with its first block an RQS
+  block under ``set_fused_kernels(True)`` (``coupling_fwd`` /
+  ``coupling_bwd`` on its RealNVP layers only).
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -77,6 +90,7 @@ from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
 from densityflows_tpu_torch.ops import coupling as cpl
 from densityflows_tpu_torch.ops import coupling_kernels as cpk
+from densityflows_tpu_torch.ops.made import MaskedMLP
 from densityflows_tpu_torch.ops import step_kernels as sk
 from densityflows_tpu_torch.ops import stream_kernels as stk
 from densityflows_tpu_torch.ops import train_kernels as tk
@@ -197,11 +211,13 @@ def launch_ms(fn, per_call, calls=5):
     """Device time of each of the ``per_call`` kernel launches of one call
     of ``fn``, in launch order: ``[name, ms]``, the median over ``calls``
     profiles (torch.profiler), each of a call of ``fn`` after one that is
-    not counted (the profiler can miss a session's first launches)."""
+    not counted (the profiler can miss a session's first launches). A
+    profile that caught fewer than ``per_call`` launches is taken again, up
+    to ``4 * calls`` profiles in all."""
     from torch.profiler import ProfilerActivity, profile
 
     runs = []
-    for _ in range(calls):
+    for _ in range(4 * calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -213,7 +229,13 @@ def launch_ms(fn, per_call, calls=5):
              ev.time_range.elapsed_us() / 1e3)
             for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA)
-        runs.append(events[-per_call:])
+        if len(events) >= per_call:
+            runs.append(events[-per_call:])
+        if len(runs) == calls:
+            break
+    if len(runs) < calls:
+        fail(f"the profiler caught {per_call} launches in {len(runs)} of "
+             f"{4 * calls} profiles")
     return [[runs[0][i][1], statistics.median(r[i][2] for r in runs)]
             for i in range(per_call)]
 
@@ -241,11 +263,12 @@ def host_split_ms(fn, reps=200):
 # -- chains ----------------------------------------------------------------
 
 def numpy_weights_(chain, rng, final_scale):
-    """Overwrite every conditioner weight with a glorot-uniform numpy draw;
+    """Overwrite every weight of the chain's MLPs (conditioners, spline, MADE
+    and embedding nets, in forward order) with a glorot-uniform numpy draw;
     final layers are scaled down so exp(s) stays finite through the chain."""
     with torch.no_grad():
-        for layer in fc._iter_layers(chain, "fwd"):
-            for net in fc._conditioner_nets(layer):
+        for net in chain.modules():
+            if isinstance(net, (dt.MLP, MaskedMLP)):
                 last = len(net.weights) - 1
                 for i, w in enumerate(net.weights):
                     limit = np.sqrt(6.0 / sum(w.shape))
@@ -2923,6 +2946,551 @@ def kernel_rows(flow, x, theta, errs, launches):
     return rows
 
 
+# -- phase 4g: the other bases, spline / MAF / IAF / embedded flows ------------
+
+# the serving gates: kernel route against the per-layer path, and the card
+# against the same port modules in float64 on the CPU
+SERVE_TOL = dict(rtol=1e-4, atol=1e-3)
+# rows of the float64 CPU references
+REF_ROWS = 4096
+# MAF sampling makes d sequential MADE passes a layer: the MAF / IAF
+# phase's draws are cut to 2^16
+SEQ_ROWS = 1 << 16
+
+
+@contextlib.contextmanager
+def kernel_policy(mode):
+    dt.set_fused_kernels(mode)
+    try:
+        yield
+    finally:
+        dt.set_fused_kernels("auto")
+
+
+def counted(fn):
+    """``(fn(), launch counts)`` with every count set to 0 just before the
+    call and read just after it."""
+    reset_counts()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def launches_are(counts, **want):
+    """The counts are ``want`` and 0 for every other kernel."""
+    return counts == {k: want.get(k, 0) for k in counts}
+
+
+def require_close_pattern(got, want, what, rtol, atol):
+    """NaN and +-inf where ``want`` has them, ``rtol`` / ``atol`` elsewhere."""
+    got, want = got.detach().to(want.device, want.dtype), want.detach()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail(f"{what}: NaN pattern differs from the reference")
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf])):
+        fail(f"{what}: +-inf pattern differs from the reference")
+    ok = torch.isfinite(want)
+    return require_close(got[ok], want[ok], what, rtol, atol)
+
+
+def flagship_inputs(rng, n_cond, rows, device, name):
+    """MetaData of the flagship serving config and rows in its θ range."""
+    theta_min = np.linspace(-1.0, 0.0, n_cond).astype(np.float32)
+    theta_max = np.linspace(1.0, 3.0, n_cond).astype(np.float32)
+    meta = dt.MetaData(name, D, n_cond, theta_min, theta_max)
+    x, th01 = data(rng, rows, D, n_cond, device)
+    theta = (torch.as_tensor(theta_min) + torch.as_tensor(
+        theta_max - theta_min) * th01.cpu()).to(device)
+    theta_tuple = tuple(float(v) for v in (theta_min + theta_max) / 2)
+    return meta, x, theta, theta_tuple
+
+
+def cpu64(flow):
+    """The flow's model on the CPU in float64 and a θ normalizer: the same
+    port modules, the reference of the card's float32 run."""
+    model = copy.deepcopy(flow.model).to("cpu", torch.float64)
+    lo = torch.as_tensor(flow.metadata.theta_min, dtype=torch.float64)
+    hi = torch.as_tensor(flow.metadata.theta_max, dtype=torch.float64)
+
+    def theta_n(theta, rows):
+        th = torch.as_tensor(theta, dtype=torch.float64)
+        th = th.expand(rows, lo.shape[0]) if th.dim() == 1 else th.cpu()
+        return dt.normalize_input(th.double(), lo, hi)
+
+    return model, theta_n
+
+
+def log_prob_ref(flow, x, theta):
+    model, theta_n = cpu64(flow)
+    with torch.no_grad():
+        z, ldj = model.inverse(x.cpu().double(), theta_n(theta, x.shape[0]))
+        return flow.base.log_prob(z) + ldj
+
+
+def sample_ref(flow, seed, total, rows, theta_tuple):
+    """The first ``rows`` of ``flow.sample((total,), theta_tuple,
+    generator=seed)`` with the standard-normal base: the same torch.randn
+    draws, swept in float64 on the CPU."""
+    model, theta_n = cpu64(flow)
+    r = torch.randn((total, D), generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        return model.forward_(r[:rows].double(), theta_n(theta_tuple, rows))
+
+
+def base_moment_z(base, device):
+    """max over dims of |mean of 2^18 draws − the analytic mean| over its
+    standard error, and the largest relative error of the variance."""
+    r = base.sample(torch.Generator().manual_seed(SEED + 5), (ROWS,),
+                    device).double()
+    if isinstance(base, dt.DiagNormal):
+        mean, var = base.mean.double(), base.scale.double() ** 2
+    else:
+        w = torch.softmax(base.logits.double(), 0)[:, None]
+        mu, sc = base.means.double(), base.scales.double()
+        mean = (w * mu).sum(0)
+        var = (w * (sc ** 2 + mu ** 2)).sum(0) - mean ** 2
+    z = float(((r.mean(0) - mean).abs() / (var / ROWS).sqrt()).max())
+    var_err = float(((r.var(0) - var) / var).abs().max())
+    if not bool(torch.isfinite(r).all()) or z > 5.0 or var_err > 0.05:
+        fail(f"{type(base).__name__} draws: z = {z}, variance error "
+             f"{var_err}")
+    return z, var_err
+
+
+def drive_bases(device, tmp, card):
+    """The flagship split chain (d 32, n 8, 4 coupling blocks of hidden 256,
+    normalization; 2^18 rows) with a DiagNormal and a GaussianMixture (K 4)
+    base: log_prob, sample and sample_sweep under "auto" (one chain_apply a
+    call, no chain_sample: the kernel's in-kernel draw is a standard normal)
+    against the per-layer path from the same generator seeds; the base's
+    moments; a BoxUniform base through save_flow → load_flow."""
+    rng = np.random.default_rng(SEED + 43)
+    chain = wide_chain(False, rng, device)
+    meta, x, theta, theta_tuple = flagship_inputs(rng, N_COND, ROWS, device,
+                                                  "bases")
+    bases = {
+        "DiagNormal": dt.DiagNormal(rng.normal(size=D) * 0.3,
+                                    np.exp(rng.normal(size=D) * 0.2)),
+        "GaussianMixture": dt.GaussianMixture(
+            rng.normal(size=(4, D)), np.exp(rng.normal(size=(4, D)) * 0.2),
+            rng.normal(size=4)),
+    }
+    report, launches = {}, {}
+    for name, base in bases.items():
+        flow = dt.Flow(chain, meta, base, device=device)
+        calls = {
+            "log_prob": lambda: flow.log_prob(x, theta),
+            "sample": lambda: flow.sample(
+                (ROWS,), theta_tuple,
+                generator=torch.Generator().manual_seed(SEED + 1)),
+            "sample_sweep": lambda: flow.sample_sweep(
+                theta[:64], 4096,
+                generator=torch.Generator().manual_seed(SEED + 2)),
+        }
+        out = {}
+        for mode in ("auto", False):
+            with kernel_policy(mode):
+                for call, fn in calls.items():
+                    got, counts = counted(fn)
+                    want = (dict(chain_apply=1) if mode == "auto" else {})
+                    if not launches_are(counts, **want):
+                        fail(f"{name} base, {call} under {mode}: launches "
+                             f"{counts}, expected {want or 'none'}")
+                    if mode == "auto":
+                        launches[f"{name}.{call}"] = counts["chain_apply"]
+                    out[(mode, call)] = got
+        errs = {call: require_close(out[("auto", call)], out[(False, call)],
+                                    f"{name} base: {call}, chain_apply vs "
+                                    "the per-layer path", **SERVE_TOL)
+                for call in calls}
+        z, var_err = base_moment_z(base, device)
+        with torch.no_grad():
+            lp_ms = time_ms(calls["log_prob"], runs=5)
+            s_ms = time_ms(calls["sample"], runs=5)
+        report[name] = dict(
+            max_abs_err_vs_per_layer=errs, base_draw_z=z,
+            base_draw_var_rel_err=var_err, log_prob_ms=lp_ms,
+            log_prob_rows_per_s=ROWS / (lp_ms * 1e-3), sample_ms=s_ms,
+            sample_draws_per_s=ROWS / (s_ms * 1e-3))
+        del out
+
+    # a box around the middle of the latents: a share of the rows falls
+    # outside it, and their log_prob is exactly -inf
+    with torch.no_grad():
+        z, _ = dt.Flow(chain, meta, device=device).inverse(x[:REF_ROWS],
+                                                           theta[:REF_ROWS])
+    box = dt.BoxUniform(torch.quantile(z, 0.03, dim=0).cpu(),
+                        torch.quantile(z, 0.97, dim=0).cpu())
+    built = dt.Flow(chain, meta, box, device=device)
+    dt.save_flow(f"{tmp}/box", built)
+    loaded = dt.load_flow(f"{tmp}/box", device=device)
+    lp_l, counts = counted(lambda: loaded.log_prob(x, theta))
+    if not launches_are(counts, chain_apply=1):
+        fail(f"BoxUniform base, log_prob: launches {counts}")
+    launches["BoxUniform.log_prob"] = counts["chain_apply"]
+    with torch.no_grad():
+        lp_b = built.log_prob(x, theta)
+        with kernel_policy(False):
+            z_p, ldj_p = built.inverse(x, theta)
+    # the loaded flow runs the same kernel on the same weights: the same
+    # bits, -inf rows included
+    require_close_pattern(lp_l, lp_b, "BoxUniform base: loaded vs built "
+                          "log_prob", 0.0, 0.0)
+    lp_p = box.to(device).log_prob(z_p) + ldj_p
+    outside = int(torch.isneginf(lp_p).sum())
+    if not 0 < outside < ROWS:
+        fail(f"BoxUniform base: {outside} of {ROWS} rows outside the box")
+    # against the per-layer path: the same -inf rows but for a row whose
+    # latent lies within 1e-3 of the box's face (the two routes' latents
+    # differ by the serving gate), the same values on the rest
+    lo, hi = box.lo.to(device), box.hi.to(device)
+    near = (((z_p - lo).abs() < 1e-3) | ((z_p - hi).abs() < 1e-3)).any(-1)
+    flipped = torch.isneginf(lp_b) != torch.isneginf(lp_p)
+    if bool((flipped & ~near).any()):
+        fail("BoxUniform base: the -inf rows differ from the per-layer path")
+    ok = torch.isfinite(lp_b) & torch.isfinite(lp_p)
+    err_box = require_close(lp_b[ok], lp_p[ok], "BoxUniform base: "
+                            "log_prob vs the per-layer path", **SERVE_TOL)
+    report["BoxUniform"] = dict(rows_outside=outside,
+                                rows_flipped_at_the_face=int(flipped.sum()),
+                                max_abs_err_vs_per_layer=err_box)
+    say(phase="bases_main_path", card=card, rows=ROWS, launches=launches,
+        **report)
+    return launches, report
+
+
+def rqs_chain(rng, device):
+    """benchmarks/spline_crossover.py's widest config: d 32, n 8, 4 RQS
+    coupling blocks of hidden 256, K 8, bound 3, with a normalization
+    tail."""
+    x_ref = rng.normal(size=(512, D)).astype(np.float32)
+    chain = dt.flow_chain(
+        *[dt.coupling_block(D, None, n=N_COND, kind=dt.RQSCouplingLayer,
+                            hidden_dim_t=HIDDEN, n_bins=8, bound=3.0,
+                            device=device) for _ in range(N_BLOCKS)],
+        dt.normalization_layer(x_ref, -1.0, 1.0, device=device))
+    return numpy_weights_(chain, rng, 0.5)
+
+
+def timed_rates(flow, x, theta, theta_tuple, sample_rows):
+    with torch.no_grad():
+        lp_ms = time_ms(lambda: flow.log_prob(x, theta), warmup=1, runs=3)
+        s_ms = time_ms(lambda: flow.sample(
+            (sample_rows,), theta_tuple,
+            generator=torch.Generator().manual_seed(SEED)), warmup=1, runs=3)
+    return dict(log_prob_ms=lp_ms,
+                log_prob_rows_per_s=x.shape[0] / (lp_ms * 1e-3),
+                sample_ms=s_ms, sample_rows=sample_rows,
+                sample_draws_per_s=sample_rows / (s_ms * 1e-3))
+
+
+def drive_rqs(device, card):
+    """log_prob, sample and inverse(forward(z)) of the spline chain at 2^18
+    rows; 4,096 rows of each (rows beyond ±bound and a NaN row among them)
+    against the same modules in float64 on the CPU. No kernel covers a
+    spline coupling: the run launches none."""
+    rng = np.random.default_rng(SEED + 47)
+    meta, x, theta, theta_tuple = flagship_inputs(rng, N_COND, ROWS, device,
+                                                  "rqs")
+    flow = dt.Flow(rqs_chain(rng, device), meta, device=device)
+    x[:256] *= 20.0           # spline inputs beyond ±bound
+    x[300, 5] = float("nan")
+    lp, c_lp = counted(lambda: flow.log_prob(x, theta))
+    s, c_s = counted(lambda: flow.sample((ROWS,), theta_tuple,
+                                         generator=torch.Generator()
+                                         .manual_seed(SEED + 3)))
+    z = torch.as_tensor(rng.normal(size=(ROWS, D)).astype(np.float32)
+                        ).to(device)
+    (xf, ldj_f), c_f = counted(lambda: flow.forward(z, theta))
+    (zb, ldj_b), c_b = counted(lambda: flow.inverse(xf, theta))
+    for what, c in (("log_prob", c_lp), ("sample", c_s), ("forward", c_f),
+                    ("inverse", c_b)):
+        if not launches_are(c):
+            fail(f"spline chain {what}: launches {c}, expected none")
+    if int(torch.isnan(lp).sum()) != 1 or not bool(
+            torch.isfinite(s).all()):
+        fail("spline chain: expected exactly the one NaN row in log_prob "
+             "and finite draws")
+    err_lp = require_close_pattern(lp[:REF_ROWS],
+                                   log_prob_ref(flow, x[:REF_ROWS],
+                                                theta[:REF_ROWS]),
+                                   "spline log_prob vs CPU float64",
+                                   **SERVE_TOL)
+    err_s = require_close_pattern(s[:REF_ROWS],
+                                  sample_ref(flow, SEED + 3, ROWS, REF_ROWS,
+                                             theta_tuple),
+                                  "spline sample vs CPU float64",
+                                  **SERVE_TOL)
+    err_rt = require_close(zb, z, "spline inverse(forward(z))", 1e-4, 1e-4)
+    require_close(ldj_f + ldj_b, torch.zeros_like(ldj_f),
+                  "spline ldj_fwd + ldj_inv", 0.0, 1e-3)
+    report = dict(config=f"d {D}, n {N_COND}, {N_BLOCKS} RQS coupling "
+                         f"blocks hidden {HIDDEN}, K 8, bound 3 + "
+                         "normalization",
+                  rows=ROWS, log_prob_max_abs_err_vs_cpu64=err_lp,
+                  sample_max_abs_err_vs_cpu64=err_s,
+                  round_trip_max_abs_err=err_rt, launches=c_lp,
+                  **timed_rates(flow, x[512:], theta[512:], theta_tuple,
+                                ROWS))
+    say(phase="rqs_main_path", card=card, **report)
+    return report
+
+
+def drive_maf(device, card):
+    """build_flow(FlowConfig(family="maf", n_blocks=4)) at d 32, n 8, hidden
+    256, and an iaf_layer flow of the same width: log_prob on 2^18 rows and
+    sample on 2^16 rows (the MAF flow's sampling is d passes a layer), each
+    against float64 on the CPU on a subset (1,024 rows where the direction
+    is d passes)."""
+    rng = np.random.default_rng(SEED + 53)
+    meta, x, theta, theta_tuple = flagship_inputs(rng, N_COND, ROWS, device,
+                                                  "maf")
+    # the config's data: 2^16 rows in the flagship's θ range
+    th01 = rng.uniform(size=(SEQ_ROWS, N_COND)).astype(np.float32)
+    dset = dt.DataArrays.make(
+        (rng.normal(size=(SEQ_ROWS, D)) * 0.5).astype(np.float32),
+        meta.theta_min + (meta.theta_max - meta.theta_min) * th01, rng=0)
+    cfg = dt.FlowConfig(net=dt.NetConfig(hidden_dim_t=HIDDEN),
+                        n_blocks=N_BLOCKS, family="maf")
+    maf = dt.build_flow(cfg, dset, generator=torch.Generator()
+                        .manual_seed(SEED), device=device)
+    numpy_weights_(maf.model, rng, 0.1)
+    iaf = dt.Flow(numpy_weights_(dt.flow_chain(
+        dt.iaf_layer(D, n=N_COND, hidden_dim=HIDDEN, device=device,
+                     generator=torch.Generator().manual_seed(SEED)),
+        dt.normalization_layer(dset, -1.0, 1.0, device=device)), rng, 0.1),
+        dset, device=device)
+    report = {}
+    for name, flow, lp_rows, ref_lp, ref_s in (
+            ("maf", maf, ROWS, REF_ROWS, 1024),
+            ("iaf", iaf, ROWS, 1024, REF_ROWS)):
+        lp, c_lp = counted(lambda: flow.log_prob(x[:lp_rows],
+                                                 theta[:lp_rows]))
+        s, c_s = counted(lambda: flow.sample(
+            (SEQ_ROWS,), theta_tuple,
+            generator=torch.Generator().manual_seed(SEED + 4)))
+        if not (launches_are(c_lp) and launches_are(c_s)):
+            fail(f"{name} flow: launches {c_lp} / {c_s}, expected none")
+        if not (bool(torch.isfinite(lp).all())
+                and bool(torch.isfinite(s).all())):
+            fail(f"{name} flow: non-finite log_prob or draws")
+        err_lp = require_close_pattern(
+            lp[:ref_lp], log_prob_ref(flow, x[:ref_lp], theta[:ref_lp]),
+            f"{name} log_prob vs CPU float64", **SERVE_TOL)
+        err_s = require_close_pattern(
+            s[:ref_s], sample_ref(flow, SEED + 4, SEQ_ROWS, ref_s,
+                                  theta_tuple),
+            f"{name} sample vs CPU float64", **SERVE_TOL)
+        report[name] = dict(
+            log_prob_rows=lp_rows, log_prob_max_abs_err_vs_cpu64=err_lp,
+            log_prob_ref_rows=ref_lp, sample_max_abs_err_vs_cpu64=err_s,
+            sample_ref_rows=ref_s,
+            **timed_rates(flow, x[:lp_rows], theta[:lp_rows], theta_tuple,
+                          SEQ_ROWS))
+    say(phase="maf_main_path", card=card,
+        config=f"d {D}, n {N_COND}, hidden {HIDDEN}: {N_BLOCKS} MAF layers "
+               "+ permutations + normalization; 1 IAF layer + normalization",
+        **report)
+    return report
+
+
+def drive_embed(device, card):
+    """embed_conditions(the flagship chain built at n 8, n_raw 64,
+    embed_dim 8): sample (one chain_apply, the inner chain's sweep on the
+    embedded θ) against the per-layer path, log_prob (per-layer: no chain
+    launch, as in JAX), then 4 epochs of train() on the plain program (the
+    whole-run kernel declines the model by name)."""
+    rng = np.random.default_rng(SEED + 59)
+    n_raw = 64
+    meta, x, theta, theta_tuple = flagship_inputs(rng, n_raw, ROWS, device,
+                                                  "embed")
+    model = dt.embed_conditions(wide_chain(False, rng, device), n_raw,
+                                N_COND, device=device)
+    numpy_weights_(model.embed, rng, 1.0)
+    flow = dt.Flow(model, meta, device=device)
+    draw = lambda: flow.sample(  # noqa: E731
+        (ROWS,), theta_tuple, generator=torch.Generator().manual_seed(SEED))
+    s, c_s = counted(draw)
+    lp, c_lp = counted(lambda: flow.log_prob(x, theta))
+    if not launches_are(c_s, chain_apply=1) or not launches_are(c_lp):
+        fail(f"embedded chain: launches sample {c_s}, log_prob {c_lp}; "
+             "expected one chain_apply and none")
+    with kernel_policy(False), torch.no_grad():
+        s_p = draw()
+        lp_p = flow.log_prob(x, theta)
+    err_s = require_close(s, s_p, "embedded sample vs the per-layer path",
+                          **SERVE_TOL)
+    err_lp = require_close(lp, lp_p, "embedded log_prob under auto and "
+                           "False (both per-layer)", **SERVE_TOL)
+    rates = timed_rates(flow, x, theta, theta_tuple, ROWS)
+
+    rows, batch, epochs = 1 << 14, 1024, 4
+    xt = (rng.normal(size=(rows, D)) * 0.5).astype(np.float32)
+    tht = meta.theta_min + (meta.theta_max - meta.theta_min) * rng.uniform(
+        size=(rows, n_raw)).astype(np.float32)
+    xt[:, :4] += 0.3 * tht[:, :4]
+    dset = dt.DataArrays.make(xt, tht, rng=0)
+    tflow = dt.Flow(copy.deepcopy(model), dset, device=device)
+    embed0 = [w.detach().clone() for w in tflow.model.embed.weights]
+    nll0 = dt.evaluate(tflow, dset, "training")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.time()
+        dt.train(tflow, dset, epochs=epochs, batchsize=batch, verbose=False,
+                 generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    reason = tflow.fused_decline_reason or ""
+    if tflow.trained_path != "torch" or "EmbeddedChain" not in reason \
+            or not any("EmbeddedChain" in str(w.message) for w in caught):
+        fail(f"embedded train: path {tflow.trained_path}, reason {reason}")
+    tl = np.asarray(tflow.train_loss)
+    moved = [float((a - w.detach()).abs().max())
+             for a, w in zip(embed0, tflow.model.embed.weights)]
+    if not (np.isfinite(tl).all() and tl[-1] < nll0 and min(moved) > 0):
+        fail(f"embedded train: NLL {nll0} -> {tl}, embedding moved {moved}")
+    report = dict(n_raw=n_raw, embed_dim=N_COND, rows=ROWS,
+                  sample_launches=c_s, log_prob_launches=c_lp,
+                  sample_max_abs_err_vs_per_layer=err_s,
+                  log_prob_max_abs_err_auto_vs_false=err_lp, **rates,
+                  train_epochs=epochs, train_rows=rows, train_batch=batch,
+                  train_nll_before=nll0, train_nll=tl.tolist(),
+                  train_seconds=seconds, embed_weight_max_change=moved,
+                  decline_reason=reason)
+    say(phase="embed_main_path", card=card, **report)
+    return report
+
+
+def mixed_rqs_start(device):
+    """The wide split chain of the coupling main path with its first block
+    an RQS block (K 8, bound 3, hidden 256)."""
+    rng = np.random.default_rng(SEED + 61)
+    chain = wide_chain(False, rng, device)
+    rqs = numpy_weights_(dt.coupling_block(
+        D, None, n=N_COND, kind=dt.RQSCouplingLayer, hidden_dim_t=HIDDEN,
+        device=device), rng, 0.3)
+    return dt.flow_chain(rqs, *list(chain.layers)[1:])
+
+
+def mixed_steps_same_weights(start, batches, steps):
+    """The kernels' trajectory replayed on the mixed chain: at every step the
+    loss with the kernels against the plain autograd step on the SAME
+    weights (KERNEL_TOL, gated), then the kernels' Adam update. Reported per
+    step, not gated: the largest gate ratio |err| / (atol + rtol |want|) of
+    the gradients, and the one the plain step itself reaches when its input
+    moves by one ulp. A spline is C1, not C2: its ldj's derivative jumps at
+    a knot, so a row whose spline input lands on the other side of a knot
+    (an ulp of rounding suffices) changes every gradient upstream of it by
+    more than 1e-4."""
+    model = copy.deepcopy(start)
+    opt = dt.adam(1e-3)
+    state = opt.init(ft.trainable_leaves(model))
+    base = dt.StandardNormal(D)
+    mask = torch.ones(COUPLING["batch"], device=batches[0][0].device)
+    gen = torch.Generator(device=mask.device).manual_seed(SEED)
+    loss_errs, grad_ratios, ulp_ratios = [], [], []
+    for k in range(steps):
+        xb, thb = batches[k % len(batches)]
+        sign = torch.randint(0, 2, xb.shape, generator=gen,
+                             device=xb.device) * 2 - 1
+        got = {}
+        for name, mode, xx in (("kernels", True, xb), ("plain", False, xb),
+                               ("ulp", False, xb * (1 + sign * 2.0 ** -23))):
+            with kernel_policy(mode):
+                got[name] = _loss_and_grads(model, base, xx, thb, mask)
+        loss_errs.append(require_close(
+            got["kernels"][0], got["plain"][0], f"mixed chain step {k + 1} "
+            "loss on the same weights", **KERNEL_TOL))
+        for name, out in (("kernels", grad_ratios), ("ulp", ulp_ratios)):
+            out.append(max(gate_ratio(a, b, **KERNEL_TOL) for a, b in zip(
+                got[name][2], got["plain"][2])))
+        updates, state = opt.update(got["kernels"][2], state,
+                                    got["kernels"][1])
+        with torch.no_grad():
+            for p, u in zip(got["kernels"][1], updates):
+                p.add_(u)
+    return loss_errs, grad_ratios, ulp_ratios
+
+
+def drive_mixed_coupling(device, card):
+    """32 steps of make_train_step(adam(1e-3)) on the mixed RQS + RealNVP
+    chain at batch 8192 from 2^16 rows under set_fused_kernels(True): the
+    RealNVP layers take coupling_fwd / coupling_bwd (launches asserted), the
+    RQS layers plain autograd. Gates: every step's loss against the plain
+    step on the same weights (1e-4), the 32 steps' losses and parameters
+    within max(1e-4 / 1e-3, 3 × the floor of two plain versions); the
+    gradients on the same weights are reported beside the ratio one ulp of
+    input reaches (mixed_steps_same_weights). Then train() on the chain:
+    the whole-run kernel declines it by name."""
+    steps, batch = COUPLING["steps"], COUPLING["batch"]
+    x, th, batches = coupling_pool(device)
+    start = mixed_rqs_start(device)
+    rnvp = [layer for layer in start.modules()
+            if isinstance(layer, dt.RNVPCouplingLayer)]
+    per_bwd = cpk.bwd_launches(*layer_nets(rnvp[0]))
+    reset_counts()
+    model_k, losses_k, sec_k = coupling_steps(start, batches, True, steps)
+    launches = read_counts()
+    want = coupling_counts(len(rnvp) * steps, len(rnvp) * steps, per_bwd)
+    if launches != want:
+        fail(f"mixed chain launches {launches}, expected {want}: "
+             f"{len(rnvp)} RealNVP layers a step")
+    model_p, losses_p, sec_p = coupling_steps(start, batches, False, steps)
+    with plain_coupling_ops():
+        model_f, losses_f, _ = coupling_steps(start, batches, True, steps)
+
+    def param_errs(model):
+        return [float((a - b).detach().abs().max()) for a, b in zip(
+            ft.trainable_leaves(model), ft.trainable_leaves(model_p))]
+
+    floor = max(param_errs(model_f))
+    param_tol = max(SHORT_RUN_TOL[1], FLOOR_FACTOR * floor)
+    # the spline layers carry the two trajectories' rounding apart faster
+    # than the RealNVP chain does: the 32-step losses, like the parameters,
+    # are held to FLOOR_FACTOR times the floor two plain versions reach
+    # where that exceeds 1e-4 (every step on the same weights stays at 1e-4)
+    loss_floor = float((losses_f - losses_p).abs().max())
+    loss_tol = max(SHORT_RUN_TOL[0], FLOOR_FACTOR * loss_floor)
+    loss_err = require_close(losses_k, losses_p, "mixed chain: 32-step "
+                             "losses", 0.0, loss_tol)
+    param_err = max(require_close(a, b, f"mixed chain: param {k}", 0.0,
+                                  param_tol)
+                    for k, (a, b) in enumerate(zip(
+                        ft.trainable_leaves(model_k),
+                        ft.trainable_leaves(model_p))))
+    loss_errs, grad_ratios, ulp_ratios = mixed_steps_same_weights(
+        start, batches, steps)
+
+    dataset = dt.DataArrays.make(x, th, rng=0)
+    flow = dt.Flow(copy.deepcopy(start), dataset, device=device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dt.train(flow, dataset, epochs=1, batchsize=batch, verbose=False,
+                 generator=torch.Generator().manual_seed(SEED))
+    reason = flow.fused_decline_reason or ""
+    if flow.trained_path != "torch" or "RQSCouplingLayer" not in reason \
+            or not any("RQSCouplingLayer" in str(w.message) for w in caught):
+        fail(f"mixed chain train: path {flow.trained_path}, reason {reason}")
+    report = dict(
+        config=f"d {D}, n {N_COND}: 1 RQS block + {N_BLOCKS - 1} RealNVP "
+               f"blocks hidden {HIDDEN} + normalization, batch {batch}",
+        launches=launches, rnvp_layers=len(rnvp),
+        coupling_bwd_launches_per_call=per_bwd, steps=steps,
+        each_step_loss_max_abs_err_same_weights=max(loss_errs),
+        gradient_gate_ratio_by_step=grad_ratios,
+        gradient_gate_ratio_of_one_ulp_by_step=ulp_ratios,
+        steps_loss_max_abs_err=loss_err, steps_param_max_abs_err=param_err,
+        rounding_floor_loss_err=loss_floor, steps_loss_tolerance=loss_tol,
+        rounding_floor_param_err=floor, steps_param_tolerance=param_tol,
+        losses_first_last=[float(losses_p[0]), float(losses_p[-1])],
+        ms_per_step_kernels=1e3 * sec_k / steps,
+        ms_per_step_plain=1e3 * sec_p / steps, decline_reason=reason)
+    say(phase="mixed_coupling_path", card=card, **report)
+    return report
+
+
 def end_to_end_times(flow, x, theta, theta_tuple, name, card):
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -3119,6 +3687,17 @@ def main():
     say(phase="coupling_main_path", card=card, launches=coupling_launches,
         **report)
     summary["coupling_main_path"] = report
+
+    # phase 4g: the other bases, spline / MAF / IAF / embedded flows; each
+    # phase prints its own line (launch counts read around each driven call)
+    t_new = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        drive_bases(device, tmp, card)
+    drive_rqs(device, card)
+    drive_maf(device, card)
+    drive_embed(device, card)
+    drive_mixed_coupling(device, card)
+    summary["families_seconds"] = time.time() - t_new
 
     # phase 5: times
     for joint in (False, True):

@@ -22,7 +22,12 @@ with the plain multi-epoch program beside them, and the streaming trainer and th
 (``csrc/loader.cpp``). Under ``set_fused_kernels(True)`` every RealNVP / NICE
 coupling call outside the chain kernels takes the per-layer kernels
 ``coupling_fwd`` / ``coupling_bwd`` (``csrc/coupling_kernels.cu``, through
-``ops.coupling_kernels.fused_coupling``).
+``ops.coupling_kernels.fused_coupling``). The other base distributions, the
+spline coupling, MAF / IAF layers, condition embeddings and the config
+builders (``build_flow`` / ``run_experiment``) have no kernel of their own:
+they run in plain PyTorch and reach the kernels above where the JAX package
+routes them (a non-standard base or an embedding on ``chain_apply``, the
+RealNVP layers of a mixed chain on the per-layer coupling kernels).
 """
 
 from ._device import resolve_device
@@ -47,9 +52,16 @@ from .data import (
     resize_output,
 )
 from .data_stream import StreamingLoader, train_streaming
+from .models.autoregressive import IAFLayer, MAFLayer, iaf_layer, maf_layer
 from .models.blocks import CouplingBlock, coupling_block
 from .models.chains import FlowChain, concatenate, flow_chain
-from .models.distributions import StandardNormal
+from .models.distributions import (
+    BoxUniform,
+    DiagNormal,
+    GaussianMixture,
+    StandardNormal,
+)
+from .models.embedding import EmbeddedChain, embed_conditions
 from .models.flow import Flow, nll_loss
 from .models.fused_train import (
     UnsupportedFusedTrain,
@@ -66,6 +78,7 @@ from .models.layers import (
     JointRNVPCouplingLayer,
     NICECouplingLayer,
     RNVPCouplingLayer,
+    RQSCouplingLayer,
     coupling_layer,
     set_fused_kernels,
 )
@@ -113,6 +126,14 @@ from .utils.checkpoint import (
     save_element,
     save_flow,
 )
+from .utils.config import (
+    DataConfig,
+    FlowConfig,
+    NetConfig,
+    TrainConfig,
+    build_flow,
+    run_experiment,
+)
 
 __version__ = "0.1.0"
 
@@ -130,16 +151,18 @@ __all__ = [
     "number_dimensions", "number_conditions",
     "MLP", "init_mlp", "apply_mlp",
     "rnvp_forward", "rnvp_backward", "nice_forward", "nice_backward",
-    "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
-    "coupling_layer", "set_fused_kernels",
+    "RNVPCouplingLayer", "NICECouplingLayer", "RQSCouplingLayer",
+    "JointRNVPCouplingLayer", "coupling_layer", "set_fused_kernels",
     "NormalizationLayer", "normalization_layer",
     "PermutationLayer", "permutation_layer",
     "LogitLayer", "logit_layer",
+    "MAFLayer", "maf_layer", "IAFLayer", "iaf_layer",
     "ActNormLayer", "actnorm_layer",
     "InvertibleLinearLayer", "invertible_linear_layer",
     "CouplingBlock", "coupling_block",
+    "EmbeddedChain", "embed_conditions",
     "FlowChain", "flow_chain", "concatenate",
-    "StandardNormal",
+    "StandardNormal", "DiagNormal", "GaussianMixture", "BoxUniform",
     "Flow", "nll_loss",
     "summarize",
     "save_flow", "load_flow", "save_element", "load_element",
@@ -153,4 +176,6 @@ __all__ = [
     "native", "StreamingLoader", "train_streaming",
     "Mesh", "make_mesh", "distributed_init", "host_local_rows",
     "host_local_slice", "shard_batch", "put_replicated",
+    "NetConfig", "DataConfig", "TrainConfig", "FlowConfig", "build_flow",
+    "run_experiment",
 ]

@@ -8,7 +8,8 @@ PyTorch counterpart of ``densityflows_tpu/models/flow.py``:
   zero-width sentinel (valid only for n = 0 flows);
 - ``sample`` = base draw → ldj-free forward sweep; on a CUDA device a
   fusable chain with the standard-normal base draws inside the
-  ``chain_sample`` kernel;
+  ``chain_sample`` kernel, and with any other base draws from the base and
+  runs the sweep on ``chain_apply``;
 - ``log_prob`` = base.log_prob(inverse(x)) + ldj, with the grid variant over
   per-axis vectors;
 - loss = −mean(base.log_prob(z) + ldj);
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .._device import as_float32, resolve_device
 from ..data import DataArrays, MetaData, normalize_input
@@ -82,7 +84,11 @@ class Flow:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.metadata = metadata
-        self.base = base if base is not None else StandardNormal(metadata.d)
+        base = base if base is not None else StandardNormal(metadata.d)
+        # a parameterized base (its tensors are buffers) joins the flow's
+        # device; it is not part of the model, so training leaves it fixed
+        self.base = base.to(self.device) if isinstance(base, nn.Module) \
+            else base
         self.train_loss: list[float] = list(train_loss or [])
         self.valid_loss: list[float] = list(valid_loss or [])
         # per-epoch counts of batch updates skipped as non-finite

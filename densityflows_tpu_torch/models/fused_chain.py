@@ -9,7 +9,8 @@ sampling sweep and density evaluation.
 
 Supported elements: RNVP / joint-RNVP / NICE couplings, Normalization,
 ActNorm, Permutation, InvertibleLinear (LU), Logit, and CouplingBlocks of
-these. A chain containing anything else is not fusable:
+these. A chain containing anything else (a spline coupling, a MAF / IAF
+layer) is not fusable:
 :func:`maybe_apply_fused` returns ``None`` and the caller keeps the
 per-layer path. A chain of these layers that the kernels cannot run
 (parameters that are not float32; on CUDA, a hidden width past the kernels'
@@ -47,6 +48,9 @@ __all__ = ["maybe_apply_fused", "maybe_sample_fused", "chain_is_fusable",
            "fold_layers"]
 
 _COUPLINGS = (RNVPCouplingLayer, NICECouplingLayer, JointRNVPCouplingLayer)
+# every element type the kernels' plan covers
+_PLAN_TYPES = _COUPLINGS + (InvertibleLinearLayer, NormalizationLayer,
+                            ActNormLayer, PermutationLayer, LogitLayer)
 
 
 class _Unsupported(Exception):
@@ -221,7 +225,13 @@ def _entry(layer, dirn, device):
         return ("linear",), [_perm_matrix(perm, d, device), zero]
     if isinstance(layer, LogitLayer):
         return _logit_entry(layer, dirn)
-    raise _Unsupported
+    raise _Unsupported(_outside(layer))
+
+
+def _outside(layer) -> str:
+    return (f"{type(layer).__name__} is outside the chain kernels' plan "
+            "(RNVP/joint/NICE couplings + Normalization/ActNorm/"
+            "InvertibleLinear/Permutation/Logit only)")
 
 
 def _iter_layers(chain, dirn):
@@ -294,9 +304,7 @@ def chain_is_fusable(chain, d: int, n: int) -> bool:
                 return False
             if any(len(net.weights) < 2 for net in _conditioner_nets(layer)):
                 return False
-        elif not isinstance(layer, (InvertibleLinearLayer, NormalizationLayer,
-                                    ActNormLayer, PermutationLayer,
-                                    LogitLayer)):
+        elif not isinstance(layer, _PLAN_TYPES):
             return False
     return bool(len(chain.layers))
 
@@ -360,9 +368,13 @@ def _layer_plain(layer, y, theta, dirn):
 
 def fold_layers(chain, y, theta, dirn, with_ldj):
     """Per-layer plain fold of the chain; never routes to a kernel, whatever
-    the policy (the reference of the chain kernels and their backward)."""
+    the policy (the reference of the chain kernels and their backward). A
+    layer the kernels do not cover (a spline coupling, a MAF / IAF layer) is
+    declined by name: ``_Unsupported`` names it."""
     ldj = None
     for layer in _iter_layers(chain, dirn):
+        if not isinstance(layer, _PLAN_TYPES):
+            raise _Unsupported(_outside(layer))
         if not with_ldj and dirn == "fwd" and not isinstance(
                 layer, (RNVPCouplingLayer, NICECouplingLayer)):
             y = layer.forward_(y, theta)

@@ -120,7 +120,8 @@ def _inverse_order(chain):
     """The chain's layers in INVERSE execution order (the training
     direction): chain reversed, block members (layer_2, layer_1)."""
     if not isinstance(chain, FlowChain):
-        raise UnsupportedFusedTrain("fused train needs a FlowChain")
+        raise UnsupportedFusedTrain(
+            f"fused train needs a FlowChain, got {type(chain).__name__}")
     out = []
     for layer in reversed(chain.layers):
         if isinstance(layer, CouplingBlock):

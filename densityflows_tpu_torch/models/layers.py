@@ -1,5 +1,5 @@
-"""Coupling layers: RealNVP, joint-conditioner RealNVP and NICE, plus the
-constructor family.
+"""Coupling layers: RealNVP, joint-conditioner RealNVP, NICE and
+rational-quadratic spline, plus the constructor family.
 
 PyTorch counterpart of ``densityflows_tpu/models/layers.py``. Layers are
 ``nn.Module``s: conditioner-MLP parameters are ``nn.Parameter``s, the
@@ -14,7 +14,8 @@ ldj-free sampling path.
 Under ``set_fused_kernels(True)`` every RNVP / NICE coupling call takes the
 per-layer fused kernels (``ops/coupling_kernels.py``: ``coupling_fwd``, and
 ``coupling_bwd`` for its gradient), as the JAX layers take their Pallas
-kernels. Not in this package yet: the spline coupling layer and bf16
+kernels. The spline coupling layer has no kernel: it runs in plain PyTorch
+under every policy, as in the JAX package. Not in this package yet: bf16
 conditioners.
 """
 
@@ -30,10 +31,12 @@ from .._device import resolve_device
 from ..axes import CouplingAxes, coupling_axes
 from ..ops import coupling as C
 from ..ops.mlp import MLP, apply_mlp, count_params, init_mlp
+from ..ops.spline import n_spline_params, rq_spline
 
 __all__ = [
     "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
-    "coupling_layer", "set_fused_kernels", "use_fused_chain", "use_fused",
+    "RQSCouplingLayer", "coupling_layer", "set_fused_kernels",
+    "use_fused_chain", "use_fused",
 ]
 
 # Kernel policy. "auto" routes every fusable chain through the CUDA chain
@@ -249,6 +252,54 @@ class NICECouplingLayer(nn.Module):
         )
 
 
+class RQSCouplingLayer(nn.Module):
+    """Rational-quadratic spline coupling layer (Neural Spline Flows,
+    Durkan et al. 2019; see ``ops/spline.py``). The conditioner MLP maps
+    (θ ⊕ identity dims) to ``3K−1`` raw spline parameters per transformed
+    dim; the elementwise monotone spline acts on ``[-bound, bound]`` with
+    identity tails."""
+
+    def __init__(self, p_net: MLP, axes: CouplingAxes, n_bins: int = 8,
+                 bound: float = 3.0):
+        super().__init__()
+        self.p_net = p_net
+        self.axes = axes
+        self.n_bins = int(n_bins)
+        self.bound = float(bound)
+
+    def _params(self, y, theta):
+        y_id, y_af = C.split_features(y, self.axes)
+        raw = apply_mlp(self.p_net, C.nn_input(y_id, theta))
+        raw = raw.reshape(raw.shape[:-1] + (self.axes.transform_dim,
+                                            n_spline_params(self.n_bins)))
+        return y_id, y_af, raw
+
+    def _transform(self, y, theta, inverse):
+        y_id, y_af, raw = self._params(y, theta)
+        out, ldj_e = rq_spline(y_af, raw, bound=self.bound, inverse=inverse)
+        return C.recombine_features(y_id, out, self.axes), ldj_e.sum(-1)
+
+    def forward(self, z, theta):
+        return self._transform(z, theta, False)
+
+    def inverse(self, x, theta):
+        return self._transform(x, theta, True)
+
+    def forward_(self, z, theta):
+        """ldj-free sampling path (``rq_spline(with_ldj=False)``)."""
+        z_id, z_af, raw = self._params(z, theta)
+        x_af, _ = rq_spline(z_af, raw, bound=self.bound, with_ldj=False)
+        return C.recombine_features(z_id, x_af, self.axes)
+
+    def summarize(self) -> str:
+        return (
+            f"RQSCouplingLayer  | p_net > {list(self.p_net.dims)} "
+            f"({count_params(self.p_net)} parameters, K={self.n_bins}, "
+            f"bound={self.bound})\n"
+            f"                  | axes  > {self.axes.summarize()}"
+        )
+
+
 def coupling_layer(
     d_or_axes_or_data,
     mask: Sequence[int] | int | None = None,
@@ -267,6 +318,8 @@ def coupling_layer(
     zero_init_final: bool = True,
     max_log_scale: float = 0.0,
     joint_conditioner: bool = False,
+    n_bins: int = 8,
+    bound: float = 3.0,
     device=None,
 ):
     """Build a coupling layer with default conditioner MLPs.
@@ -282,7 +335,9 @@ def coupling_layer(
     ``joint_conditioner=True`` (RNVP only) builds a
     :class:`JointRNVPCouplingLayer`; the s/t hyperparameters must agree.
     ``max_log_scale`` (RNVP only, default 0 = off) soft-clamps the
-    log-scale to (−M, M) via ``M·tanh(s/M)``.
+    log-scale to (−M, M) via ``M·tanh(s/M)``. ``kind=RQSCouplingLayer``
+    builds a spline coupling of ``n_bins`` bins on ``[-bound, bound]`` whose
+    one conditioner takes the t-net hyperparameters.
     """
     from ..data import DataArrays  # local import to avoid a cycle
 
@@ -324,10 +379,15 @@ def coupling_layer(
     if kind is NICECouplingLayer:
         return NICECouplingLayer(
             net(out_dim, n_sublayers_t, hidden_dim_t, activation_t), axes)
+    if kind is RQSCouplingLayer:
+        p_net = net(out_dim * n_spline_params(n_bins), n_sublayers_t,
+                    hidden_dim_t, activation_t)
+        return RQSCouplingLayer(p_net, axes, n_bins, float(bound))
     if kind is not RNVPCouplingLayer:
         raise NotImplementedError(
-            f"coupling kind {getattr(kind, '__name__', kind)} is not ported "
-            "yet (ROADMAP A11: remaining layer families)")
+            f"coupling kind {getattr(kind, '__name__', kind)} is not a "
+            "coupling of this package (RNVPCouplingLayer, NICECouplingLayer "
+            "or RQSCouplingLayer)")
     s_net = net(out_dim, n_sublayers_s, hidden_dim_s, activation_s)
     t_net = net(out_dim, n_sublayers_t, hidden_dim_t, activation_t)
     return RNVPCouplingLayer(s_net, t_net, axes, float(max_log_scale))

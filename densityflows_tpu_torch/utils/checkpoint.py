@@ -12,8 +12,14 @@ The leaf order of an element is the field order of the JAX dataclass:
 ``t_net``; ``JointRNVPCouplingLayer``: ``st_net``; ``NICECouplingLayer``:
 ``t_net``; ``NormalizationLayer``: ``x_min``, ``x_max``; ``ActNormLayer``:
 ``bias``, ``log_scale``; ``InvertibleLinearLayer``: ``lower``, ``upper``,
-``log_s``; ``LogitLayer``: ``lo``, ``hi``; ``PermutationLayer`` and
-``StandardNormal``: none; containers: their children in order.
+``log_s``; ``LogitLayer``: ``lo``, ``hi``; ``RQSCouplingLayer``: ``p_net``;
+``MaskedMLP``: all weights, then all biases (the masks are rebuilt from the
+``"made"`` descriptor, or from a legacy ``"masks"`` spec, and hold no leaf);
+``MAFLayer`` / ``IAFLayer``: ``net``; ``EmbeddedChain``: ``embed``, then
+``chain``; ``DiagNormal``: ``mean``, ``scale``; ``GaussianMixture``:
+``means``, ``scales``, ``logits``; ``BoxUniform``: ``lo``, ``hi``;
+``PermutationLayer`` and ``StandardNormal``: none; containers: their
+children in order.
 
 Optimizer state: ``save_flow(dir, flow, opt_state)`` writes ``opt_state.npz``
 in the leaf order of the JAX package's ``optax.adam`` state — the int32
@@ -37,18 +43,24 @@ from .._device import resolve_device
 from ..axes import CouplingAxes
 from ..data import MetaData
 from ..models.blocks import CouplingBlock
+from ..models.autoregressive import IAFLayer, MAFLayer
 from ..models.chains import FlowChain
-from ..models.distributions import StandardNormal
+from ..models.distributions import (
+    BoxUniform, DiagNormal, GaussianMixture, StandardNormal,
+)
+from ..models.embedding import EmbeddedChain
 from ..models.flow import Flow
 from ..models.glow import ActNormLayer, InvertibleLinearLayer
 from ..models.layers import (
     JointRNVPCouplingLayer,
     NICECouplingLayer,
     RNVPCouplingLayer,
+    RQSCouplingLayer,
 )
 from ..models.normalization import (
     LogitLayer, NormalizationLayer, PermutationLayer,
 )
+from ..ops.made import MaskedMLP, made_masks
 from ..ops.mlp import MLP
 
 __all__ = [
@@ -59,18 +71,6 @@ __all__ = [
 ]
 
 _FORMAT_VERSION = 1
-
-# element types of the JAX package that this package does not hold yet
-_NOT_PORTED = {
-    "DiagNormal": "base distributions other than StandardNormal",
-    "GaussianMixture": "base distributions other than StandardNormal",
-    "BoxUniform": "base distributions other than StandardNormal",
-    "RQSCouplingLayer": "ROADMAP A11 (spline couplings)",
-    "MaskedMLP": "ROADMAP A11 (MAF/IAF)",
-    "MAFLayer": "ROADMAP A11 (MAF/IAF)",
-    "IAFLayer": "ROADMAP A11 (MAF/IAF)",
-    "EmbeddedChain": "ROADMAP A11 (condition embeddings)",
-}
 
 _TO_SPEC: dict[type, tuple] = {}
 _FROM_SPEC: dict[str, object] = {}
@@ -123,9 +123,6 @@ def element_from_spec(spec: dict, device=None):
     t = spec["type"]
     fn = _FROM_SPEC.get(t)
     if fn is None:
-        if t in _NOT_PORTED:
-            raise NotImplementedError(
-                f"element type {t} is not ported yet: {_NOT_PORTED[t]}")
         raise ValueError(
             f"unknown element type in checkpoint: {t} (custom layers must "
             "be register_element'd before loading)")
@@ -254,6 +251,95 @@ register_element(
 )
 
 
+register_element(
+    RQSCouplingLayer,
+    lambda el: {
+        "p_net": element_spec(el.p_net),
+        "axes": _axes_spec(el.axes),
+        "n_bins": int(el.n_bins),
+        "bound": float(el.bound),
+    },
+    lambda s, dev: RQSCouplingLayer(
+        element_from_spec(s["p_net"], dev), _axes_from_spec(s["axes"]),
+        s["n_bins"], s["bound"]),
+    children=lambda el: [el.p_net],
+)
+
+
+def _made_descriptor_from_spec(s: dict) -> tuple:
+    """Descriptor of a MaskedMLP spec. Current specs store it (``"made"``);
+    legacy specs stored the full mask grids (``"masks"``): for those, infer
+    (d, n_cond, P) from the layer shapes by search and check that the
+    rebuilt masks equal the stored ones exactly."""
+    if "made" in s:
+        m = s["made"]
+        return (int(m[0]), int(m[1]), int(m[2]), tuple(int(h) for h in m[3]))
+    in_dim = s["weight_shapes"][0][0]
+    out_dim = s["weight_shapes"][-1][1]
+    hidden = tuple(int(sh[1]) for sh in s["weight_shapes"][:-1])
+    stored = [np.asarray(m, np.float32) for m in s["masks"]]
+    for p in range(1, out_dim + 1):
+        if out_dim % p:
+            continue
+        d = out_dim // p
+        n_cond = in_dim - d
+        if n_cond < 0:
+            continue
+        rebuilt = made_masks(d, n_cond, p, hidden)
+        if len(rebuilt) == len(stored) and all(
+                a.shape == b.shape and np.array_equal(a, b)
+                for a, b in zip(rebuilt, stored)):
+            return (d, n_cond, p, hidden)
+    raise ValueError(
+        "legacy MaskedMLP checkpoint masks don't match any MADE descriptor")
+
+
+def _made_from_spec(s, device):
+    _check_f32(s)
+    return MaskedMLP([_zeros(sh, device) for sh in s["weight_shapes"]],
+                     [_zeros(sh, device) for sh in s["bias_shapes"]],
+                     _made_descriptor_from_spec(s), s["activation"])
+
+
+register_element(
+    MaskedMLP,
+    lambda el: {
+        "weight_shapes": [list(w.shape) for w in el.weights],
+        "bias_shapes": [list(b.shape) for b in el.biases],
+        "made": [el.made[0], el.made[1], el.made[2], list(el.made[3])],
+        "dtype": _dtype_name(el.weights[0]),
+        "activation": el.activation,
+    },
+    _made_from_spec,
+    children=lambda el: list(el.weights) + list(el.biases),
+)
+
+
+def _ar_spec(el):
+    return {"net": element_spec(el.net), "d": int(el.d), "n": int(el.n),
+            "max_log_scale": float(el.max_log_scale)}
+
+
+def _ar_from_spec(cls):
+    return lambda s, dev: cls(element_from_spec(s["net"], dev), s["d"],
+                              s["n"], s["max_log_scale"])
+
+
+register_element(MAFLayer, _ar_spec, _ar_from_spec(MAFLayer),
+                 children=lambda el: [el.net])
+register_element(IAFLayer, _ar_spec, _ar_from_spec(IAFLayer),
+                 children=lambda el: [el.net])
+
+register_element(
+    EmbeddedChain,
+    lambda el: {"embed": element_spec(el.embed),
+                "chain": element_spec(el.chain)},
+    lambda s, dev: EmbeddedChain(element_from_spec(s["embed"], dev),
+                                 element_from_spec(s["chain"], dev)),
+    children=lambda el: [el.embed, el.chain],
+)
+
+
 def _norm_from_spec(s, device):
     _check_f32(s)
     z = _zeros((s["d"],), device)
@@ -351,6 +437,48 @@ register_element(
     lambda el: {"d": el.d},
     lambda s, dev: StandardNormal(s["d"]),
     children=lambda el: [],
+)
+
+
+def _diag_from_spec(s, device):
+    _check_f32(s)
+    return DiagNormal(_zeros((s["d"],), device), _zeros((s["d"],), device) + 1)
+
+
+register_element(
+    DiagNormal,
+    lambda el: {"d": el.d, "dtype": _dtype_name(el.mean)},
+    _diag_from_spec,
+    children=lambda el: [el.mean, el.scale],
+)
+
+
+def _mixture_from_spec(s, device):
+    _check_f32(s)
+    k, d = s["k"], s["d"]
+    return GaussianMixture(_zeros((k, d), device), _zeros((k, d), device) + 1,
+                           _zeros((k,), device))
+
+
+register_element(
+    GaussianMixture,
+    lambda el: {"k": el.k, "d": el.d, "dtype": _dtype_name(el.means)},
+    _mixture_from_spec,
+    children=lambda el: [el.means, el.scales, el.logits],
+)
+
+
+def _box_from_spec(s, device):
+    _check_f32(s)
+    z = _zeros((s["d"],), device)
+    return BoxUniform(z, z + 1)
+
+
+register_element(
+    BoxUniform,
+    lambda el: {"d": el.d, "dtype": _dtype_name(el.lo)},
+    _box_from_spec,
+    children=lambda el: [el.lo, el.hi],
 )
 
 

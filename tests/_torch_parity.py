@@ -7,6 +7,8 @@ with numpy draws, and the port's modules are made from the JAX ``element_spec``
 and the pytree leaves as numpy arrays.
 """
 
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -206,3 +208,17 @@ TRAIN_CHAINS = {
                           **H12),
         df.normalization_layer(x, -1.0, 1.0)),
 }
+
+
+class _FakeCuda:
+    type = "cuda"
+
+
+def fake_cuda(flow, monkeypatch):
+    """Make ``flow`` claim a CUDA device (there is no card here) while the
+    plain program's arrays stay on the CPU: ``train``'s "auto" then tries the
+    whole-run kernel and records its decline."""
+    tm = sys.modules["densityflows_tpu_torch.train"]
+    flow.device = _FakeCuda()
+    monkeypatch.setattr(tm, "_put", lambda a, device: torch.as_tensor(
+        np.ascontiguousarray(a, np.float32)))

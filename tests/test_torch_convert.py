@@ -46,6 +46,24 @@ ELEMENTS = {
         4, None, n=1, hidden_dim_s=4, hidden_dim_t=4), 6),
     "chain": mixed_chain,
     "standard_normal": lambda: df.StandardNormal(5),
+    "diag_normal": lambda: df.DiagNormal(jax.numpy.arange(3.0),
+                                         jax.numpy.ones(3) * 2),
+    "gaussian_mixture": lambda: df.GaussianMixture(
+        jax.numpy.arange(8.0).reshape(2, 4), jax.numpy.ones((2, 4)) * 0.5,
+        jax.numpy.array([0.3, -0.2])),
+    "box_uniform": lambda: df.BoxUniform(-jax.numpy.arange(1.0, 3.0),
+                                         jax.numpy.arange(1.0, 3.0)),
+    "rqs": lambda: randomize(df.coupling_layer(
+        4, [1, 2], n=1, kind=df.RQSCouplingLayer, hidden_dim_t=4, n_bins=3,
+        bound=2.0), 7),
+    "maf": lambda: df.maf_layer(3, n=2, hidden_dim=5,
+                                key=jax.random.key(1)),
+    "iaf": lambda: df.iaf_layer(3, hidden_dim=4, max_log_scale=2.0,
+                                key=jax.random.key(2)),
+    "embedded": lambda: randomize(df.embed_conditions(
+        df.flow_chain(df.coupling_block(4, None, n=2, hidden_dim_s=4,
+                                        hidden_dim_t=4)), 5, 2,
+        hidden_dim=3), 8),
 }
 
 
@@ -128,12 +146,13 @@ def test_conversion_errors():
     bad[0] = bad[0].astype(np.float64)
     with pytest.raises(TypeError, match="float32"):
         dt.chain_from_spec_and_leaves(spec, bad, "cpu")
-    # other base distributions and layer families are not ported yet
-    with pytest.raises(NotImplementedError, match="not ported"):
-        element_from_spec(jax_spec(df.DiagNormal(
-            jax.numpy.zeros(2), jax.numpy.ones(2))), "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        element_from_spec({"type": "RQSCouplingLayer"}, "cpu")
+    # the other base distributions and layer families load
+    diag = element_from_spec(jax_spec(df.DiagNormal(
+        jax.numpy.zeros(2), jax.numpy.ones(2))), "cpu")
+    assert isinstance(diag, dt.DiagNormal) and diag.d == 2
+    rqs = ELEMENTS["rqs"]()
+    loaded = dt.chain_from_spec_and_leaves(jax_spec(rqs), _leaves(rqs), "cpu")
+    assert isinstance(loaded, dt.RQSCouplingLayer) and loaded.n_bins == 3
     with pytest.raises(ValueError, match="unknown element"):
         element_from_spec({"type": "Nope"}, "cpu")
     with pytest.raises(TypeError, match="register"):

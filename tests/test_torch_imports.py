@@ -69,6 +69,31 @@ for call in (lambda: tflow.sample((2,), (0.5,), mesh=dt.make_mesh()),
         assert "mesh" in str(e) or "tensor parallelism" in str(e), e
     else:
         raise AssertionError("an unported mesh surface did not raise")
+# the other bases, spline / MAF / IAF / embedded flows, the config builders
+# and the toy data sets
+from densityflows_tpu_torch.utils import datasets as port_datasets
+from densityflows_tpu_torch.ops import made, spline
+moons = port_datasets.two_moons(64, rng=0)
+for family in ("rqs", "maf"):
+    cfg = dt.FlowConfig(train=dt.TrainConfig(epochs=1, batchsize=16,
+                                             verbose=False),
+                        family=family, n_blocks=1)
+    mflow, _, _ = dt.run_experiment(cfg, moons, generator=g, device="cpu")
+    assert np.isfinite(mflow.train_loss).all()
+bases = (dt.DiagNormal(np.zeros(4, np.float32), np.ones(4, np.float32)),
+         dt.GaussianMixture(np.zeros((2, 4), np.float32),
+                            np.ones((2, 4), np.float32),
+                            np.zeros(2, np.float32)),
+         dt.BoxUniform(-np.ones(4, np.float32), np.ones(4, np.float32)))
+for base in bases:
+    bflow = dt.Flow(chain, flow.metadata, base, device="cpu")
+    assert bflow.sample((3,), (0.5,), generator=g).shape == (3, 4)
+emb = dt.embed_conditions(dt.flow_chain(
+    dt.iaf_layer(4, n=2, generator=g, device="cpu"),
+    dt.maf_layer(4, n=2, generator=g, device="cpu")), 1, 2, generator=g,
+    device="cpu")
+eflow = dt.Flow(emb, flow.metadata, device="cpu")
+assert eflow.log_prob(np.zeros((5, 4), np.float32), (0.5,)).shape == (5,)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
                               "flax", "orbax")]
@@ -112,14 +137,17 @@ def _port_sources():
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     sources = _port_sources()
-    assert len(sources) > 19
+    assert len(sources) > 24
     names = {os.path.relpath(p, ROOT) for p in sources}
     for module in ("train.py", "models/fused_train.py",
                    "ops/train_kernels.py", "utils/logging.py", "convert.py",
                    "utils/checkpoint.py", "data_stream.py",
                    "native/__init__.py", "ops/step_kernels.py",
                    "ops/stream_kernels.py", "parallel/mesh.py",
-                   "parallel/__init__.py", "ops/coupling_kernels.py"):
+                   "parallel/__init__.py", "ops/coupling_kernels.py",
+                   "models/distributions.py", "ops/spline.py", "ops/made.py",
+                   "models/autoregressive.py", "models/embedding.py",
+                   "utils/datasets.py", "utils/config.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:

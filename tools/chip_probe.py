@@ -24,6 +24,10 @@ wrappers only, so that the same script runs on two trees of the port:
 - ``chain``: ``chain_apply`` (inverse with ldj) and ``chain_sample`` on the
   wide split chain at 2^18 rows, CUDA-event and profiler device ms, at every
   row tile;
+- ``families``: ``chip_smoke.py``'s phases of the families without a kernel
+  (other bases, spline, MAF / IAF, embedding, the spline + RealNVP step),
+  seconds per phase; ``mixed_grads``: that step's gradients on the same
+  weights, the kernels and their plain versions against autograd, per step;
 - ``coupling``: ``coupling_bwd`` at the opt-in train step's shape (8192 rows,
   K 24, A 16, hidden 256, three dense layers per net): call time, the
   device time of each kernel and of each launch from ``torch.profiler``,
@@ -55,6 +59,7 @@ non-zero without a CUDA device.
 """
 
 import argparse
+import contextlib
 import hashlib
 import inspect
 import json
@@ -945,6 +950,79 @@ def variants(device):
     return out
 
 
+def families(device):
+    """``chip_smoke.py``'s five phases of the families without a kernel
+    (other bases, spline, MAF / IAF, embedding, the spline + RealNVP train
+    step), each printing its own line: seconds per phase."""
+    import tempfile
+
+    import chip_smoke as cs
+    from densityflows_tpu_torch import _build
+
+    _build.load_libraries(["chain_kernels", "coupling_kernels"])
+    card = card_line()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("bases", lambda: cs.drive_bases(device, tmp, card)),
+                ("rqs", lambda: cs.drive_rqs(device, card)),
+                ("maf", lambda: cs.drive_maf(device, card)),
+                ("embed", lambda: cs.drive_embed(device, card)),
+                ("mixed", lambda: cs.drive_mixed_coupling(device, card))):
+            t0 = time.time()
+            fn()
+            out[f"{name}_seconds"] = time.time() - t0
+    return out
+
+
+def mixed_grads(device):
+    """The spline + RealNVP chain of ``mixed_coupling_path``, 32 steps on
+    the per-layer kernels' trajectory: at each step the largest gate ratio
+    |err| / (1e-4 + 1e-4 |want|) over the loss and every gradient, of the
+    kernels and of the kernels' plain versions (the hand-written pullback,
+    the same f32 forward as autograd) against the plain autograd step on
+    the same weights, with the leaf of the kernels' worst."""
+    import chip_smoke as cs
+    import densityflows_tpu_torch as dt
+    from densityflows_tpu_torch import _build
+    from densityflows_tpu_torch.models import fused_train as ft
+    from densityflows_tpu_torch.train import _loss_and_grads
+
+    _build.load_libraries(["coupling_kernels"])
+    _, _, batches = cs.coupling_pool(device)
+    model = cs.mixed_rqs_start(device)
+    opt = dt.adam(1e-3)
+    state = opt.init(ft.trainable_leaves(model))
+    base = dt.StandardNormal(cs.D)
+    mask = torch.ones(cs.COUPLING["batch"], device=device)
+    rows = []
+    for k in range(cs.COUPLING["steps"]):
+        xb, thb = batches[k % len(batches)]
+        got = {}
+        for name, mode, plain in (("kernels", True, False),
+                                  ("pullback", True, True),
+                                  ("autograd", False, False)):
+            with cs.kernel_policy(mode), (cs.plain_coupling_ops() if plain
+                                          else contextlib.nullcontext()):
+                got[name] = _loss_and_grads(model, base, xb, thb, mask)
+
+        def ratios(name):
+            return [cs.gate_ratio(a, b, 1e-4, 1e-4) for a, b in zip(
+                [got[name][0]] + got[name][2],
+                [got["autograd"][0]] + got["autograd"][2])]
+
+        rk, rp = ratios("kernels"), ratios("pullback")
+        rows.append(dict(step=k + 1, kernels=max(rk), pullback=max(rp),
+                         worst=int(np.argmax(rk))))
+        updates, state = opt.update(got["kernels"][2], state,
+                                    got["kernels"][1])
+        with torch.no_grad():
+            for p, u in zip(got["kernels"][1], updates):
+                p.add_(u)
+    return dict(by_step=rows, kernels_max=max(r["kernels"] for r in rows),
+                pullback_max=max(r["pullback"] for r in rows))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/probe.json")
@@ -955,7 +1033,7 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated probes to run (chain_nan, "
                          "step_host, coupling, stream, chain, train, "
-                         "variants)")
+                         "families, mixed_grads, variants)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
@@ -968,7 +1046,6 @@ def main():
         import chip_smoke as cs
         from densityflows_tpu_torch import _build
 
-        import contextlib
         import io
 
         t0 = time.time()
@@ -1014,7 +1091,8 @@ def main():
         print(json.dumps({"check": result["check"]}), flush=True)
     probes = [("chain_nan", chain_nan), ("step_host", step_host),
               ("coupling", coupling), ("stream", stream), ("chain", chain),
-              ("train", lambda dev: train(dev, clocks=args.variants))]
+              ("train", lambda dev: train(dev, clocks=args.variants)),
+              ("families", families), ("mixed_grads", mixed_grads)]
     if args.variants:
         probes.append(("train_variants", train_variants))
     if args.variants:
