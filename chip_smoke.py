@@ -58,7 +58,15 @@ the port's main paths through the entry points a user calls:
   (sampling on ``chain_apply``, ``log_prob`` per-layer, 4 epochs of
   ``train()``); and the coupling main path with its first block an RQS
   block under ``set_fused_kernels(True)`` (``coupling_fwd`` /
-  ``coupling_bwd`` on its RealNVP layers only).
+  ``coupling_bwd`` on its RealNVP layers only);
+- the inference engine: ``flow_mcmc`` (independence and NeuTra, 4,096
+  chains, each step one ``chain_apply`` fold) on the flagship split chain
+  against its own density, ``sample_with_rejection`` and ``sbc_ranks``;
+  then at the README / BASELINE widths a conjugate-Gaussian posterior (θ
+  ∈ R⁵ given x ∈ R⁵): ``fit_posterior_rounds`` (3 SNPE-B rounds of 1,000
+  simulations on ``train_run``, proposals on ``chain_sample`` /
+  ``chain_apply``), ``fit_posterior_apt``, ``run_smc`` at d 32 and
+  ``systematic_resample_sharded`` on a one-rank NCCL group.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -84,7 +92,7 @@ import numpy as np
 import torch
 
 import densityflows_tpu_torch as dt
-from densityflows_tpu_torch import _build, native
+from densityflows_tpu_torch import _build, inference as inf, native
 from densityflows_tpu_torch.models import fused_chain as fc
 from densityflows_tpu_torch.models import fused_train as ft
 from densityflows_tpu_torch.ops import chain_kernels as ck
@@ -3491,6 +3499,483 @@ def drive_mixed_coupling(device, card):
     return report
 
 
+# -- phase 4h: the inference engine (A12) --------------------------------------
+
+# flow_mcmc on the flagship split chain, the chains and steps of the run
+MCMC = dict(chains=4096, steps=300, burn_in=50, neutra_steps=200, step=0.2,
+            compare_steps=20, time_steps=50)
+# MCMC on the kernels against the per-layer path, the same generator:
+# shares of accept decisions that agree, and the draws where they agree
+DECISION_AGREEMENT = 0.999
+MCMC_TOL = dict(rtol=1e-4, atol=1e-3)
+REJECTION_SAMPLES = 1 << 16
+SBC = dict(sims=256, draws=256)
+# the conjugate-Gaussian posterior at BASELINE's widths: θ ~ N(0, I5),
+# x | θ ~ N(θ, 0.5² I5)
+# Gates on 2^16 posterior draws at X_OBS, per coordinate: the std within
+# 0.1 and, for SNPE-B, the mean within 0.3. Over 8 seeds of this run on the
+# CPU (the port's plain program) SNPE-B's largest mean error was 0.054–0.242
+# (median 0.12; the std's ≤ 0.07): the fit of a hidden-16 flow to 3,000
+# simulations, not the path, sets it (3,000 prior simulations and 400
+# epochs still leave 0.09), and the two coordinates with |x_obs| ≥ 1 take
+# most of it. The prior itself is 0.96 off. APT on the same simulations:
+# ≤ 0.098 over 5 seeds, gate 0.15 on both.
+SNPE = dict(d=5, sigma=0.5, rounds=3, sims=1000, epochs=50, batch=64,
+            apt_epochs=50, atoms=10, draws=1 << 16, std_gate=0.1,
+            mean_gate=0.3, apt_gate=0.15)
+X_OBS = np.array([1.0, -0.5, 0.0, 0.8, -1.2], np.float32)
+# random-walk moves of 0.3 (about 2.38/√d of the target's scale), 6 a step:
+# with the default 0.1 / 2 the 20 steps do not mix the resampled copies
+# apart (variance off by up to 0.13 on the CPU, 0.02–0.04 with these)
+SMC = dict(d=32, particles=1 << 16, steps=20, mh_step=0.3, n_mh=6, gate=0.05)
+RESAMPLE = dict(rows=1 << 20, d=32)
+
+
+def sbc_null_quantile(n_sims, n_draws, d, q=0.99, reps=2000):
+    """The ``q`` quantile of ``sbc_uniformity`` for a calibrated posterior:
+    ranks i.i.d. uniform on {0, …, n_draws} for each of d parameters,
+    simulated in float64 (independent parameters: their max is the larger
+    one, so the level errs to the safe side). For d = 1 the 0.99 quantile
+    is the 1.63/√n_sims of one continuous parameter."""
+    rng = np.random.default_rng(SEED + 62)
+    stats = [inf.sbc_uniformity(rng.integers(0, n_draws + 1,
+                                             size=(n_sims, d)), n_draws)
+             for _ in range(reps)]
+    return float(np.quantile(stats, q))
+
+
+def rw_acceptance(d, step):
+    """Stationary acceptance of random-walk Metropolis with N(0, step² I)
+    proposals on N(0, I_d), in float64: given |ε| = ρ the log ratio is
+    N(−s²/2, s²) with s = step·ρ, whose mean of min(1, e^Δ) is 2Φ(−s/2) =
+    erfc(s / 2√2); averaged over ρ ~ χ_d by the trapezoid rule."""
+    import math
+
+    rho = np.linspace(1e-9, math.sqrt(d) + 12.0, 200_001)
+    log_pdf = ((d - 1) * np.log(rho) - rho * rho / 2
+               - (d / 2 - 1) * math.log(2.0) - math.lgamma(d / 2))
+    erfc = np.frompyfunc(math.erfc, 1, 1)
+    f = np.exp(log_pdf) * erfc(step * rho / (2.0 * math.sqrt(2.0))
+                               ).astype(np.float64)
+    return float(np.sum((f[1:] + f[:-1]) / 2 * np.diff(rho)))
+
+
+def mcmc_decisions(xs):
+    """Accept decisions of steps 1.. from successive states (a step that
+    accepts moves the chain: the proposal differs from the state)."""
+    return (xs[1:] != xs[:-1]).any(-1)
+
+
+def mcmc_agreement(xs_k, xs_p):
+    """Kernel run against the per-layer run from the same generator: the
+    share of accept decisions that agree (step 0's from the first states,
+    which are the two runs' own proposals or both starts; steps 1.. from
+    the states' moves) and the largest gate ratio of the draws of the chains
+    whose decisions agreed so far."""
+    same0 = ((xs_k[0] - xs_p[0]).abs()
+             <= MCMC_TOL["atol"] + MCMC_TOL["rtol"] * xs_p[0].abs()).all(-1)
+    agree = torch.cat([same0[None], mcmc_decisions(xs_k)
+                       == mcmc_decisions(xs_p)])
+    so_far = torch.cumprod(agree.to(torch.int32), 0).bool()
+    ratio = ((xs_k - xs_p).abs()
+             / (MCMC_TOL["atol"] + MCMC_TOL["rtol"] * xs_p.abs())).amax(-1)
+    worst = float(ratio[so_far].max()) if bool(so_far.any()) else 0.0
+    return float(agree.double().mean()), worst
+
+
+def mcmc_moment_z(kept, ess, ref):
+    """max over dims of |mean of the kept draws − mean of ``ref``| over
+    the standard error of the difference (the draws counted by their ESS),
+    and the largest |std ratio − 1|."""
+    k = kept.reshape(-1, kept.shape[-1]).double()
+    ref = ref.double()
+    se = torch.sqrt(k.var(0) / torch.as_tensor(ess, device=k.device)
+                    + ref.var(0) / ref.shape[0])
+    z = float(((k.mean(0) - ref.mean(0)).abs() / se).max())
+    ratio = float((k.std(0) / ref.std(0) - 1).abs().max())
+    return z, ratio
+
+
+def drive_inference(device, card):
+    """The inference engine on the flagship split chain (d 32, n 8, 8
+    RealNVP couplings of hidden 256, normalization), θ a tuple of 8:
+
+    - flow_mcmc "independence", 4,096 chains, 300 steps, burn-in 50, the
+      flow's own log_prob as the target: acceptance ≥ 0.95, the kept draws'
+      moments against flow.sample (z ≤ 5, std within 5 %), launches 2 ×
+      301 chain_apply (the step's fold and the target's log_prob), no
+      chain_sample;
+    - flow_mcmc "neutra", step 0.2, 200 steps: the pulled-back target is
+      N(0, I₃₂), so the acceptance is within 0.02 of random-walk
+      Metropolis's on it (rw_acceptance); launches 2 × 201 chain_apply;
+    - both methods, 20 steps from one generator seed on the kernels and on
+      the per-layer path: ≥ 99.9 % of the accept decisions agree, and the
+      chains whose decisions agreed have the same draws (1e-4 rel + 1e-3
+      abs);
+    - sample_with_rejection of 2^16 rows, about half accepted: one
+      chain_apply a round, every row meets the condition;
+    - sbc_ranks, 256 simulations × 256 draws, θ_true drawn from the flow
+      itself: one chain_sample launch, sbc_uniformity below its 1 % level
+      for 32 parameters (sbc_null_quantile)."""
+    rng = np.random.default_rng(SEED + 61)
+    chain = wide_chain(False, rng, device)
+    meta, _, _, theta_tuple = flagship_inputs(rng, N_COND, 16, device,
+                                              "inference")
+    flow = dt.Flow(chain, meta, device=device)
+    chains = MCMC["chains"]
+
+    def log_density(x):
+        return flow.log_prob(x, theta_tuple)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    report, launches = {}, {}
+    for method, steps in (("independence", MCMC["steps"]),
+                          ("neutra", MCMC["neutra_steps"])):
+        kw = dict(theta=theta_tuple, n_chains=chains, method=method,
+                  step_size=MCMC["step"])
+        reset_counts()
+        t0 = time.perf_counter()
+        kept, diag = dt.flow_mcmc(flow, log_density, n_steps=steps,
+                                  burn_in=MCMC["burn_in"],
+                                  generator=gen(SEED + 1), **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        if not launches_are(counts, chain_apply=2 * (steps + 1)):
+            fail(f"flow_mcmc {method}: launches {counts}, expected "
+                 f"{2 * (steps + 1)} chain_apply and nothing else")
+        launches[method] = counts["chain_apply"]
+        acc = float(diag["accept_rate"].mean())
+        if not bool(torch.isfinite(kept).all()) or \
+                kept.shape != (steps - MCMC["burn_in"], chains, D):
+            fail(f"flow_mcmc {method}: draws {tuple(kept.shape)}, finite "
+                 f"{bool(torch.isfinite(kept).all())}")
+        out = dict(accept_rate=acc, seconds=seconds,
+                   r_hat_max=float(np.max(diag["r_hat"])),
+                   ess_min=float(np.min(diag["ess"])))
+        if method == "independence":
+            if acc < 0.95:
+                fail(f"flow_mcmc independence on the flow's own density: "
+                     f"acceptance {acc} < 0.95")
+            with torch.no_grad():
+                ref = flow.sample((ROWS,), theta_tuple, generator=gen(SEED))
+            z, ratio = mcmc_moment_z(kept, diag["ess"], ref)
+            if z > 5.0 or ratio > 0.05:
+                fail(f"flow_mcmc independence: kept draws' moments against "
+                     f"flow.sample: z {z}, std ratio off by {ratio}")
+            # the same against the per-layer sampler (torch.randn draws):
+            # which of the two samplers a deviation comes from
+            with torch.no_grad(), kernel_policy(False):
+                ref = flow.sample((ROWS,), theta_tuple, generator=gen(SEED))
+            z_plain, _ = mcmc_moment_z(kept, diag["ess"], ref)
+            out.update(moment_z=z, std_ratio_err=ratio,
+                       moment_z_vs_per_layer_sample=z_plain)
+        else:
+            want = rw_acceptance(D, MCMC["step"])
+            if abs(acc - want) > 0.02:
+                fail(f"flow_mcmc neutra: acceptance {acc}, random-walk "
+                     f"Metropolis on N(0, I) gives {want}")
+            out.update(rw_acceptance_float64=want)
+        del kept
+        # the kernels against the per-layer path, one generator seed
+        runs = {}
+        for mode in ("auto", False):
+            with kernel_policy(mode):
+                runs[mode], _ = dt.flow_mcmc(
+                    flow, log_density, n_steps=MCMC["compare_steps"],
+                    burn_in=0, generator=gen(SEED + 2), **kw)
+        share, ratio = mcmc_agreement(runs["auto"], runs[False])
+        if share < DECISION_AGREEMENT or ratio > 1.0:
+            fail(f"flow_mcmc {method}: kernels vs per-layer path, "
+                 f"{share} of the decisions agree (need "
+                 f"{DECISION_AGREEMENT}), draws at {ratio} of the gate")
+        del runs
+        # the time of a step: the loop alone (one kept step: no
+        # diagnostics)
+        t_steps = MCMC["time_steps"]
+        t0 = time.perf_counter()
+        dt.flow_mcmc(flow, log_density, n_steps=t_steps, burn_in=t_steps - 1,
+                     generator=gen(SEED + 3), **kw)
+        torch.cuda.synchronize()
+        out.update(decisions_agree=share, agreed_draws_gate_ratio=ratio,
+                   ms_per_step=1e3 * (time.perf_counter() - t0) / t_steps,
+                   ms_per_step_with_diagnostics=1e3 * seconds / steps)
+        report[method] = out
+
+    # rejection: the condition holds on about half of the flow's draws
+    with torch.no_grad():
+        pilot = flow.sample((ROWS,), theta_tuple, generator=gen(SEED + 4))
+    cut = float(pilot[:, 0].median())
+    rounds = []
+
+    def condition(x):
+        rounds.append(1)
+        return x[..., 0] > cut
+
+    def rejection():
+        return dt.sample_with_rejection(flow, REJECTION_SAMPLES, condition,
+                                        theta_tuple, generator=gen(SEED + 5))
+
+    s, counts = counted(rejection)
+    if not launches_are(counts, chain_apply=len(rounds)) or not rounds:
+        fail(f"sample_with_rejection: launches {counts} for {len(rounds)} "
+             "rounds, expected one chain_apply a round")
+    launches["sample_with_rejection"] = counts["chain_apply"]
+    n_rounds = len(rounds)
+    if s.shape != (REJECTION_SAMPLES, D) or not bool((s[:, 0] > cut).all()):
+        fail("sample_with_rejection: a row fails the condition")
+    rej_ms = time_ms(rejection, warmup=1, runs=5)
+    report["sample_with_rejection"] = dict(
+        samples=REJECTION_SAMPLES, rounds=n_rounds, ms=rej_ms,
+        draws_per_s=REJECTION_SAMPLES / (rej_ms * 1e-3))
+
+    # SBC with θ_true from the flow itself: the ranks are uniform
+    sims, n_draws = SBC["sims"], SBC["draws"]
+    x_obs = (torch.as_tensor(meta.theta_min) + torch.as_tensor(
+        meta.theta_max - meta.theta_min) * torch.rand(
+            (sims, N_COND), generator=torch.Generator().manual_seed(SEED))
+    ).to(device)
+    with torch.no_grad():
+        theta_true = flow.sample((sims,), x_obs, generator=gen(SEED + 6))
+
+    def ranks():
+        return dt.sbc_ranks(flow, theta_true, x_obs, n_draws=n_draws,
+                            generator=gen(SEED + 7))
+
+    r, counts = counted(ranks)
+    if not launches_are(counts, chain_sample=1):
+        fail(f"sbc_ranks: launches {counts}, expected one chain_sample")
+    launches["sbc_ranks"] = counts["chain_sample"]
+    ks = inf.sbc_uniformity(r, n_draws)
+    # the 1 % level of the largest of the 32 parameters' statistics (0.129;
+    # 1.63/√256 = 0.102 is one parameter's, which the largest of 32 passes
+    # with probability 0.8 only)
+    gate = sbc_null_quantile(sims, n_draws, D)
+    if r.shape != (sims, D) or ks >= gate:
+        fail(f"sbc_ranks: uniformity {ks} >= {gate}, the 1 % level of a "
+             "calibrated posterior")
+    sbc_ms = time_ms(ranks, warmup=1, runs=5)
+    report["sbc_ranks"] = dict(
+        sims=sims, draws=n_draws, uniformity=ks, uniformity_gate=gate,
+        one_parameter_level=1.63 / np.sqrt(sims), ms=sbc_ms,
+        draws_per_s=sims * n_draws / (sbc_ms * 1e-3))
+    say(phase="inference_main_path", card=card,
+        config=f"d {D}, n {N_COND}: {N_BLOCKS} RealNVP blocks hidden "
+               f"{HIDDEN} + normalization, {chains} chains",
+        launches=launches, **report)
+    return launches, report
+
+
+def snpe_problem(device, seed):
+    """The conjugate-Gaussian posterior problem at BASELINE's widths: its
+    simulator (recording what it simulates), prior and a fresh posterior
+    flow over θ ∈ R⁵ given x ∈ R⁵ — three RealNVP couplings of hidden 16 and
+    a normalization layer, x bounds ±5."""
+    d, sigma = SNPE["d"], SNPE["sigma"]
+    sim_rng = np.random.default_rng(seed)
+    seen = []
+
+    def simulator(theta):
+        x = theta + sigma * sim_rng.normal(size=theta.shape)
+        seen.append((np.asarray(theta, np.float32),
+                     np.asarray(x, np.float32)))
+        return x
+
+    def prior_sample(rng, n):
+        return rng.normal(size=(n, d))
+
+    def prior_log_prob(theta):
+        t_ = np.asarray(theta, np.float64)
+        return -0.5 * (t_ * t_).sum(-1) - 0.5 * d * np.log(2 * np.pi)
+
+    def flow():
+        g = torch.Generator().manual_seed(seed)
+        kw = dict(n=d, hidden_dim_s=16, hidden_dim_t=16, generator=g,
+                  device=device)
+        pilot = np.random.default_rng(seed + 1).normal(size=(1000, d))
+        return dt.Flow(dt.flow_chain(
+            dt.coupling_layer(d, [0, 1, 2], **kw),
+            dt.coupling_layer(d, [2, 3, 4], **kw),
+            dt.coupling_layer(d, [4, 0, 1], **kw),
+            dt.normalization_layer(pilot.astype(np.float32), -1.0, 1.0,
+                                   device=device)),
+            dt.MetaData("snpe", d, d, -5.0 * np.ones(d, np.float32),
+                        5.0 * np.ones(d, np.float32)), device=device)
+
+    return simulator, prior_sample, prior_log_prob, flow, seen
+
+
+def posterior_errors(flow, device, seed):
+    """Per-coordinate |mean − analytic| and |std − analytic| of 2^16 draws
+    at X_OBS."""
+    s2 = SNPE["sigma"] ** 2
+    with torch.no_grad():
+        draws = flow.sample((SNPE["draws"],), tuple(float(v) for v in X_OBS),
+                            generator=torch.Generator(device=device)
+                            .manual_seed(seed)).double()
+    if not bool(torch.isfinite(draws).all()):
+        fail("posterior draws are not finite")
+    mean_err = (draws.mean(0).cpu().numpy() - X_OBS / (1 + s2))
+    std_err = draws.std(0).cpu().numpy() - np.sqrt(s2 / (1 + s2))
+    return np.abs(mean_err), np.abs(std_err)
+
+
+def drive_snpe(device, tmp, card):
+    """SNPE at BASELINE's widths on the conjugate-Gaussian posterior:
+
+    - fit_posterior_rounds("snpe_b"), 3 rounds × 1,000 simulations, 50
+      epochs, batch 64: flow.trained_path "fused" (resident), one train_run
+      launch a round, rounds 2–3 one chain_sample (the proposals) and one
+      chain_apply (their log q) each, nothing else; the std of 2^16 draws
+      within 0.1 of the analytic posterior per coordinate, the mean within
+      0.3 (SNPE);
+    - fit_posterior_apt on the same 3,000 simulations (per-layer autograd,
+      no kernel): within 0.15;
+    - run_smc, d 32, 2^16 particles, 20 steps, to a Gaussian target: the
+      weighted mean and variance within 0.05 per coordinate;
+    - systematic_resample_sharded on a one-rank NCCL mesh at 2^20 × 32
+      against systematic_resample: the same rows; both timed."""
+    import torch.distributed as dist
+
+    simulator, prior_sample, prior_log_prob, make_flow, seen = snpe_problem(
+        device, SEED + 71)
+    flow = make_flow()
+    marks = []
+
+    def timed_simulator(theta):
+        x = simulator(theta)
+        marks.append(time.perf_counter())
+        return x
+
+    reset_counts()
+    t0 = time.perf_counter()
+    flow, history = dt.fit_posterior_rounds(
+        flow, timed_simulator, prior_sample, prior_log_prob, X_OBS,
+        n_rounds=SNPE["rounds"], n_sims_per_round=SNPE["sims"],
+        epochs=SNPE["epochs"], batchsize=SNPE["batch"],
+        generator=torch.Generator(device=device).manual_seed(SEED + 72),
+        rng=np.random.default_rng(SEED + 73))
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    counts = read_counts()
+    if flow.trained_path != "fused" or flow.fused_kernel_mode != "resident":
+        fail(f"fit_posterior_rounds: trained on {flow.trained_path} "
+             f"({flow.fused_kernel_mode}): {flow.fused_decline_reason}")
+    later = SNPE["rounds"] - 1
+    if not launches_are(counts, train_run=SNPE["rounds"],
+                        chain_sample=later, chain_apply=later):
+        fail(f"fit_posterior_rounds: launches {counts}, expected "
+             f"{SNPE['rounds']} train_run, {later} chain_sample and "
+             f"{later} chain_apply")
+    mean_err, std_err = posterior_errors(flow, device, SEED + 74)
+    if mean_err.max() > SNPE["mean_gate"] or std_err.max() > SNPE["std_gate"]:
+        fail(f"SNPE-B posterior: mean errors {mean_err}, std errors "
+             f"{std_err} (gates {SNPE['mean_gate']} / {SNPE['std_gate']})")
+    # a round: its fit, then the next round's proposal (from the end of one
+    # simulation to the end of the next)
+    ends = marks[1:] + [end]
+    round_s = [b - a for a, b in zip(marks, ends)]
+    snpe = dict(launches=counts, history=history, seconds=end - t0,
+                seconds_by_round=round_s,
+                mean_abs_err=mean_err.tolist(), std_abs_err=std_err.tolist(),
+                stats_within_0_1=int((mean_err <= 0.1).sum()
+                                     + (std_err <= 0.1).sum()))
+
+    theta_all = np.concatenate([s[0] for s in seen])
+    x_all = np.concatenate([s[1] for s in seen])
+    apt_flow = make_flow()
+    reset_counts()
+    t0 = time.perf_counter()
+    dt.fit_posterior_apt(apt_flow, theta_all, x_all, prior_log_prob,
+                         n_atoms=SNPE["atoms"], epochs=SNPE["apt_epochs"],
+                         batchsize=SNPE["batch"],
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED + 75))
+    torch.cuda.synchronize()
+    apt_s = time.perf_counter() - t0
+    if not launches_are(read_counts()):
+        fail(f"fit_posterior_apt launched kernels: {read_counts()}")
+    a_mean, a_std = posterior_errors(apt_flow, device, SEED + 76)
+    if max(a_mean.max(), a_std.max()) > SNPE["apt_gate"]:
+        fail(f"APT posterior: mean errors {a_mean}, std errors {a_std} "
+             f"(gate {SNPE['apt_gate']})")
+    apt = dict(seconds=apt_s, epochs=SNPE["apt_epochs"],
+               ms_per_step=1e3 * apt_s / (SNPE["apt_epochs"] * (
+                   len(theta_all) // SNPE["batch"])),
+               final_atomic_loss=apt_flow.train_loss[-1],
+               mean_abs_err=a_mean.tolist(), std_abs_err=a_std.tolist())
+
+    # SMC to N(mu, diag(scale²)) from N(0, I)
+    d = SMC["d"]
+    mu = np.linspace(-0.5, 0.5, d).astype(np.float32)
+    scale = np.linspace(0.8, 1.2, d).astype(np.float32)
+    mu_t, sc_t = torch.as_tensor(mu).to(device), torch.as_tensor(scale).to(
+        device)
+
+    def log_p(x):
+        u = (x - mu_t) / sc_t
+        return -0.5 * (u * u).sum(-1)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    particles, log_w, diag = dt.run_smc(
+        log_p, d, SMC["particles"], n_steps=SMC["steps"],
+        mh_step_size=SMC["mh_step"], n_mh=SMC["n_mh"], generator=torch.Generator(device=device).manual_seed(SEED + 77),
+        device=device)
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+    w = torch.softmax(log_w.double(), 0)[:, None]
+    p64 = particles.double()
+    est_mean = (w * p64).sum(0)
+    est_var = (w * (p64 - est_mean) ** 2).sum(0)
+    m_err = float((est_mean.cpu() - torch.as_tensor(mu)).abs().max())
+    v_err = float((est_var.cpu() - torch.as_tensor(scale) ** 2).abs().max())
+    if not bool(torch.isfinite(particles).all()) or \
+            max(m_err, v_err) > SMC["gate"]:
+        fail(f"run_smc: weighted mean off by {m_err}, variance by {v_err}")
+    smc = dict(seconds=smc_s, ms_per_step=1e3 * smc_s / SMC["steps"],
+               mean_abs_err=m_err, var_abs_err=v_err,
+               ess_last=float(diag["ess"][-1]),
+               resampled_steps=int((diag["ess"] < 0.5 * SMC["particles"])
+                                   .sum()),
+               mh_accept_mean=float(diag["mh_accept"].mean()),
+               launches=read_counts())
+
+    # the ring resampler on one NCCL rank against the single-device one
+    g = torch.Generator().manual_seed(SEED + 78)
+    n, d = RESAMPLE["rows"], RESAMPLE["d"]
+    lw = (torch.randn(n, generator=g) * 2.0).to(device)
+    parts = torch.randn((n, d), generator=g).to(device)
+    u0 = float(torch.rand((), generator=g))
+    dt.distributed_init(f"file://{tmp}/resample", 1, 0, backend="nccl")
+    try:
+        mesh = dt.make_mesh()
+        if mesh.group is None or mesh.size != 1:
+            fail(f"resample mesh: {mesh}")
+        got = dt.systematic_resample_sharded(lw, parts, None, mesh, u0=u0)
+        want = parts[inf._systematic_resample(
+            lw, torch.tensor(u0, device=device))]
+        if not torch.equal(got, want):
+            fail("systematic_resample_sharded on one rank: rows differ from "
+                 "systematic_resample")
+        sharded_ms = time_ms(lambda: dt.systematic_resample_sharded(
+            lw, parts, None, mesh, u0=u0))
+    finally:
+        dist.destroy_process_group()
+    single_ms = time_ms(lambda: parts[dt.systematic_resample(
+        lw, torch.Generator(device=device).manual_seed(1))])
+    resample = dict(rows=n, d=d, same_rows=True, sharded_one_rank_ms=sharded_ms,
+                    single_device_ms=single_ms)
+    say(phase="snpe_main_path", card=card,
+        config=f"RealNVP, 3 couplings hidden 16 + normalization, theta "
+               f"in R^{SNPE['d']} given x in R^{SNPE['d']}, Adam 1e-3, "
+               f"batch {SNPE['batch']}",
+        snpe_b=snpe, apt=apt, smc=smc, resample=resample)
+    return counts, dict(snpe_b=snpe, apt=apt, smc=smc, resample=resample)
+
+
 def end_to_end_times(flow, x, theta, theta_tuple, name, card):
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -3699,6 +4184,14 @@ def main():
     drive_mixed_coupling(device, card)
     summary["families_seconds"] = time.time() - t_new
 
+    # phase 4h: the inference engine (A12) on the flagship chain and at
+    # BASELINE's widths; each phase prints its own line
+    t_new = time.time()
+    inference_launches, _ = drive_inference(device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        snpe_launches, _ = drive_snpe(device, tmp, card)
+    summary["inference_seconds"] = time.time() - t_new
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -3724,6 +4217,21 @@ def main():
          "bwd_gate_ratio": max(r["bwd"] for r in coupling_ratios.values()),
          "fwd_gate_ratio_main_shape": coupling_ratios["main_shape"]["fwd"]},
         card))
+    # the inference engine's paths through the chain and whole-run kernels
+    a12 = {
+        "chain_apply": dict(
+            {f"flow_mcmc_{m}": inference_launches[m]
+             for m in ("independence", "neutra")},
+            sample_with_rejection=inference_launches["sample_with_rejection"],
+            fit_posterior_rounds=snpe_launches["chain_apply"]),
+        "chain_sample": dict(sbc_ranks=inference_launches["sbc_ranks"],
+                             fit_posterior_rounds=snpe_launches[
+                                 "chain_sample"]),
+        "train_run": dict(fit_posterior_rounds=snpe_launches["train_run"]),
+    }
+    for row in kernels:
+        if row["name"] in a12:
+            row["launches_on_inference_phases"] = a12[row["name"]]
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

@@ -27,7 +27,10 @@ spline coupling, MAF / IAF layers, condition embeddings and the config
 builders (``build_flow`` / ``run_experiment``) have no kernel of their own:
 they run in plain PyTorch and reach the kernels above where the JAX package
 routes them (a non-standard base or an embedding on ``chain_apply``, the
-RealNVP layers of a mixed chain on the per-layer coupling kernels).
+RealNVP layers of a mixed chain on the per-layer coupling kernels). So does
+the inference engine (``inference``, ``parallel.resample``): SNPE fits train
+on ``train_run``, posterior draws and SBC on ``chain_sample``, MCMC steps,
+proposal densities and rejection rounds on ``chain_apply``.
 """
 
 from ._device import resolve_device
@@ -96,6 +99,26 @@ from .ops.coupling import (
     rnvp_backward,
     rnvp_forward,
 )
+from .inference import (
+    SMCState,
+    apt_loss,
+    effective_sample_size,
+    fit_posterior,
+    fit_posterior_apt,
+    fit_posterior_rounds,
+    fit_variational,
+    flow_mcmc,
+    make_weighted_train_step,
+    mcmc_diagnostics,
+    propose_from_posterior,
+    run_smc,
+    sample_with_rejection,
+    sbc_ranks,
+    sbc_uniformity,
+    smc_step,
+    systematic_resample,
+    weighted_nll_loss,
+)
 from .ops.mlp import MLP, apply_mlp, init_mlp
 from .parallel.mesh import (
     Mesh,
@@ -106,6 +129,7 @@ from .parallel.mesh import (
     put_replicated,
     shard_batch,
 )
+from .parallel.resample import systematic_resample_sharded
 from .train import (
     Adam,
     AdamState,
@@ -178,4 +202,10 @@ __all__ = [
     "host_local_slice", "shard_batch", "put_replicated",
     "NetConfig", "DataConfig", "TrainConfig", "FlowConfig", "build_flow",
     "run_experiment",
+    "sample_with_rejection", "weighted_nll_loss", "make_weighted_train_step",
+    "fit_posterior", "fit_posterior_apt", "apt_loss", "fit_posterior_rounds",
+    "propose_from_posterior", "fit_variational", "effective_sample_size",
+    "systematic_resample", "SMCState", "smc_step", "run_smc", "flow_mcmc",
+    "mcmc_diagnostics", "sbc_ranks", "sbc_uniformity",
+    "systematic_resample_sharded",
 ]

@@ -1,1 +1,2 @@
-"""Data parallelism of the port (``mesh.py``)."""
+"""Data parallelism of the port (``mesh.py``) and the distributed
+systematic resampler (``resample.py``)."""

@@ -201,26 +201,34 @@ def _global_denominator(mask, mesh, denom=None):
     return denom
 
 
+def _autograd(model, loss_fn):
+    """``loss_fn()`` and its autograd gradients with respect to the model's
+    trainable leaves (zeros where a leaf is empty or unused): ``(detached
+    loss, leaves, grads)``."""
+    leaves = trainable_leaves(model)
+    wrt = [p for p in leaves if p.numel()]
+    with torch.enable_grad():
+        loss = loss_fn()
+        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = [(next(got) if p.numel() else None) for p in leaves]
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), leaves, grads
+
+
 def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None):
     """Loss and autograd gradients of one batch. With a ``mesh``, ``x`` is
     this rank's shard: the loss is normalized by the global denominator, and
     loss and gradients are summed over the ranks (one all-reduce of one
     buffer), which gives every rank the whole batch's values."""
-    leaves = trainable_leaves(model)
-    wrt = [p for p in leaves if p.numel()]
-    with torch.enable_grad():
+    def loss_fn():
         if mesh is None and denom is None:
-            loss = masked_nll_loss(model, base, x, theta, mask)
-        else:
-            z, ldj = model.inverse(x, theta)
-            den = torch.clamp(_global_denominator(mask, mesh, denom),
-                              min=1e-12)
-            loss = -((base.log_prob(z) + ldj) * mask).sum() / den
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-    grads = [(next(got) if p.numel() else None) for p in leaves]
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    loss = loss.detach()
+            return masked_nll_loss(model, base, x, theta, mask)
+        z, ldj = model.inverse(x, theta)
+        den = torch.clamp(_global_denominator(mask, mesh, denom), min=1e-12)
+        return -((base.log_prob(z) + ldj) * mask).sum() / den
+
+    loss, leaves, grads = _autograd(model, loss_fn)
     if mesh is not None:
         buf = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
         mesh.all_reduce_(buf)

@@ -94,6 +94,16 @@ emb = dt.embed_conditions(dt.flow_chain(
     device="cpu")
 eflow = dt.Flow(emb, flow.metadata, device="cpu")
 assert eflow.log_prob(np.zeros((5, 4), np.float32), (0.5,)).shape == (5,)
+# the inference engine and the distributed resampler
+from densityflows_tpu_torch import inference
+from densityflows_tpu_torch.parallel import resample
+samples, diag = dt.flow_mcmc(flow, lambda x: -(x * x).sum(-1), theta=(0.5,),
+                             n_chains=8, n_steps=6, burn_in=1, generator=g)
+assert samples.shape == (5, 8, 4) and diag["r_hat"].shape == (4,)
+particles, log_w, _ = dt.run_smc(lambda x: -(x * x).sum(-1), 2, 64,
+                                 n_steps=2, generator=g, device="cpu")
+assert dt.systematic_resample_sharded(log_w, particles, g,
+                                      dt.make_mesh()).shape == (64, 2)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
                               "flax", "orbax")]
@@ -147,7 +157,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                    "parallel/__init__.py", "ops/coupling_kernels.py",
                    "models/distributions.py", "ops/spline.py", "ops/made.py",
                    "models/autoregressive.py", "models/embedding.py",
-                   "utils/datasets.py", "utils/config.py"):
+                   "utils/datasets.py", "utils/config.py",
+                   "inference.py", "parallel/resample.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -271,3 +282,24 @@ def test_build_module_needs_no_compiler_to_import():
         os.path.join("csrc", "loader.cpp"))
     assert "-pthread" in _build.HOST_FLAGS
     assert os.path.basename(_build.build_dir()) == "build"
+
+
+def test_inference_surface_is_the_jax_packages():
+    """Every public name of JAX ``inference`` and ``parallel.resample`` but
+    the jit-cache pair, on the modules and the package."""
+    import densityflows_tpu.inference as jinf
+    import densityflows_tpu.parallel.resample as jres
+
+    import densityflows_tpu_torch as dt
+    from densityflows_tpu_torch import inference
+    from densityflows_tpu_torch.parallel import resample
+
+    not_ported = {"clear_caches", "trace_counts"}
+    assert set(inference.__all__) == set(jinf.__all__) - not_ported
+    assert resample.__all__ == jres.__all__
+    for module in (inference, resample):
+        for name in module.__all__:
+            assert getattr(dt, name) is getattr(module, name), name
+            assert name in dt.__all__, name
+    for name in not_ported:
+        assert not hasattr(inference, name) and not hasattr(dt, name)
