@@ -66,7 +66,18 @@ the port's main paths through the entry points a user calls:
   ∈ R⁵ given x ∈ R⁵): ``fit_posterior_rounds`` (3 SNPE-B rounds of 1,000
   simulations on ``train_run``, proposals on ``chain_sample`` /
   ``chain_apply``), ``fit_posterior_apt``, ``run_smc`` at d 32 and
-  ``systematic_resample_sharded`` on a one-rank NCCL group.
+  ``systematic_resample_sharded`` on a one-rank NCCL group;
+- the deep ensemble and the precision options: ``train_ensemble`` at the
+  README / BASELINE config with 5 members in one ``train_run`` launch of 5
+  blocks (each member equal to its own one-member launch), against 5
+  launches and the plain program over 10 epochs (member after member, and
+  vmapped over the members), a sweep of the member count,
+  the mixture's ``log_prob`` / ``sample`` at 2^18 rows (5 ``chain_apply``
+  launches a call) and ``save_ensemble`` → ``load_ensemble``; at the
+  flagship width ``train(mixed_precision=True)`` against the f32 program,
+  ``remat``'s gradients and peak memory, a ``cast_conditioners`` chain
+  through ``chain_apply`` / ``chain_sample``; and the port's
+  ``uncertainty_and_mcmc`` example at its own budgets.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -1176,6 +1187,18 @@ def elu_decline(rng, device):
     return dict(reason=reason)
 
 
+def train_run_at(threads, head, arrays, perms, **kw):
+    """One ``train_run`` launch of one member at ``threads`` threads a
+    block, on the current stream (``run_fused_train`` takes the default
+    count)."""
+    plan, tparams, masks, slots, cparams, mu, nu = head
+    stream = torch.cuda.current_stream().cuda_stream
+    return tk._train_run_members(
+        lambda *a: tk._library().df_train_run_members(*a, stream), plan,
+        [tparams], masks, slots, cparams, [mu], [nu], *arrays, [perms],
+        threads=threads, **kw)[0]
+
+
 def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
     """The {"kernels": ...} entry of train_run at the main path's shapes:
     ``flow`` holds the weights the main path started from, ``perms`` its
@@ -1224,8 +1247,8 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
     full = dict(kw, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
                 track_best=False, w=None, w_valid=None, guard_nonfinite=False,
                 packed=packed)
-    by_threads = {t: time_ms(lambda: tk._launch_train_run(
-        *head, *arrays, perms, threads=t, **full), warmup=0, runs=3)
+    by_threads = {t: time_ms(lambda: train_run_at(
+        t, head, arrays, perms, **full), warmup=0, runs=3)
         for t in (256, 512)}
     plain = time_ms(lambda: tk.fused_train_plain(
         *head, *arrays, perms, **kw), warmup=0, runs=3)
@@ -1238,17 +1261,9 @@ def train_kernel_row(flow, dataset, perms, launches, err_small, device, card):
                  verbose=False, fused_kernel=False, _epoch_perms=perms)
     program_ms = time_ms(program, warmup=0, runs=3)
 
-    # the bound: every product the run needs — per training row the forward
-    # and two backward products per layer, per evaluated row the forward —
-    # at the layers' own shapes, over the f32 rate; against every input read
-    # once and every output written once
-    fwd = needed_flops_per_row(chain)
-    flops = epochs * (3 * n_train + (n_train + n_valid)) * fwd
+    b_ms, by, flops, nbytes = train_run_bound(chain, n_train, n_valid, d,
+                                              n_cond, epochs, packed)
     n_pad = -(-n_train // TRAIN_BATCH) * TRAIN_BATCH
-    nbytes = 4 * ((n_train + n_valid) * (d + n_cond) + epochs * n_pad
-                  + 7 * packed.n_params + packed.flat_consts.numel()
-                  + packed.prog.numel() + 3 * epochs)
-    b_ms, by = bound_ms(flops, nbytes)
     layout = tk.run_layout(packed, n_train, n_valid)
     layout.update(grad_segments=packed.grad_segments,
                   threads=tk._block_threads(packed))
@@ -3997,6 +4012,563 @@ def end_to_end_times(flow, x, theta, theta_tuple, name, card):
     return times
 
 
+# -- the plain program's Adam update on the card -----------------------------------
+
+def check_adam_update(device, card):
+    """``Adam.update`` (one multi-tensor launch per operation over all the
+    leaves) and the parameter step ``_foreach_add_`` against the same
+    arithmetic written out leaf by leaf, on the flagship chain's leaves for
+    three steps of random gradients: the same bits."""
+    from densityflows_tpu_torch.train import _bias_corrections
+
+    rng = np.random.default_rng(SEED + 61)
+    leaves = ft.trainable_leaves(wide_chain(False, rng, device))
+    opt = dt.Adam(1e-3)
+    state = opt.init(leaves)
+    ref_p = [p.detach().clone() for p in leaves]
+    ref_mu = [torch.zeros_like(p) for p in leaves]
+    ref_nu = [torch.zeros_like(p) for p in leaves]
+    params = [p.detach().clone() for p in leaves]
+    for step in range(1, 4):
+        grads = [put(rng.normal(size=p.shape) * 10.0 ** -step, device)
+                 for p in leaves]
+        updates, state = opt.update(grads, state, params)
+        torch._foreach_add_(params, list(updates))
+        bc1, bc2 = _bias_corrections(opt.b1, opt.b2, step)
+        ref_mu = [opt.b1 * m + (1.0 - opt.b1) * g
+                  for m, g in zip(ref_mu, grads)]
+        ref_nu = [opt.b2 * v + (1.0 - opt.b2) * (g * g)
+                  for v, g in zip(ref_nu, grads)]
+        for p, m, v in zip(ref_p, ref_mu, ref_nu):
+            p.add_(-opt.learning_rate * ((m / bc1)
+                                         / (torch.sqrt(v / bc2) + opt.eps)))
+    for name, got, want in (("parameters", params, ref_p),
+                            ("first moments", state.mu, ref_mu),
+                            ("second moments", state.nu, ref_nu)):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"Adam.update on the card: the {name} differ from the "
+                 "leaf-by-leaf update")
+    report = dict(card=card, leaves=len(leaves), steps=3,
+                  elements=sum(p.numel() for p in leaves),
+                  foreach_vs_per_leaf="bit for bit")
+    say(phase="adam_update", **report)
+    return report
+
+
+# -- the deep ensemble: train_run's member axis ------------------------------------
+
+ENSEMBLE_K_SMALL = 3
+ENSEMBLE_K = 5
+ENSEMBLE_SWEEP = (1, 5, 32, 132, 264)
+ENSEMBLE_EAGER_EPOCHS = 10
+
+
+def run_tensors(out):
+    """Every tensor of a run_fused_train result, in order."""
+    ts = list(out[0]) + list(out[1]) + list(out[2]) + [out[3], out[4]]
+    if out[5] is not None:
+        ts += list(out[5])
+    if out[6] is not None:
+        ts.append(out[6])
+    return ts
+
+
+def runs_bit_equal(a, b):
+    return all(torch.equal(torch.nan_to_num(u), torch.nan_to_num(v))
+               and torch.equal(torch.isnan(u), torch.isnan(v))
+               for u, v in zip(run_tensors(a), run_tensors(b)))
+
+
+def members_of(case, rng, k):
+    """K members of one small case: its folded tensors scaled per member
+    (the fold's zeros stay zero), zero moments, a batch order each."""
+    tps = [[p * (1.0 + 0.1 * i) for p in case.tparams] for i in range(k)]
+    epochs = case.perms.shape[0]
+    perms = [np.stack([rng.permutation(case.n_rows) for _ in range(epochs)])
+             for _ in range(k)]
+    return tps, perms
+
+
+def check_members(case, rng, what, nan_histories=False, **kw):
+    """One launch of K blocks against K one-member launches (bit for bit)
+    and against the plain version per member (TRAIN_TOL; with
+    ``nan_histories``, NaN rows in the splits: the parameters, moments and
+    skips, and NaN histories on both sides)."""
+    k = ENSEMBLE_K_SMALL
+    tps, perms = members_of(case, rng, k)
+    zeros = [case.zeros] * k
+    got = tk.run_fused_train_members(
+        case.plan, tps, case.masks, case.slots, case.cparams, zeros, zeros,
+        *case.arrays, perms, batchsize=case.batchsize, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(k):
+        state = (tps[i], case.zeros, case.zeros)
+        one = case.run(tk.run_fused_train, perms=perms[i], state=state, **kw)
+        if not runs_bit_equal(got[i], one):
+            fail(f"train_run members ({what}): member {i} of one launch "
+                 "differs from its own launch")
+        want = case.run(tk.fused_train_plain, perms=perms[i], state=state,
+                        **kw)
+        if not nan_histories:
+            err = max(err, require_runs_close(
+                got[i], want, f"train_run members ({what}) member {i}",
+                TRAIN_TOL))
+            continue
+        if got[i][6].tolist() != want[6].tolist():
+            fail(f"train_run members ({what}) member {i}: skips "
+                 f"{got[i][6].tolist()} vs plain {want[6].tolist()}")
+        for j in (0, 1, 2):
+            for u, v in zip(got[i][j], want[j]):
+                err = max(err, require_close(
+                    u, v, f"train_run members ({what}) member {i}",
+                    **TRAIN_TOL))
+        if not bool(torch.isnan(got[i][3]).all()):
+            fail(f"train_run members ({what}): the full-split NLL over NaN "
+                 "rows must be NaN")
+    return err, got
+
+
+def check_ensemble_small(rng, device):
+    """K = 3 members of check_train_small's cases in one launch each."""
+    data, x = small_train_data(rng, 1)
+    errs = {}
+    for name, layers in small_train_chains(data, x, device).items():
+        errs[name] = check_members(TrainCase(layers, data, device, rng), rng,
+                                   name)[0]
+    ref = small_train_chains(data, x, device)["reference"]
+    case = TrainCase(ref, data, device, rng, epochs=5)
+    errs["weighted_track_best"] = check_members(
+        case, rng, "weighted + track_best", w=case.w, w_valid=case.wv,
+        track_best=True, lr=3e-3, b1=0.85)[0]
+    arrays = list(case.arrays)
+    arrays[0] = arrays[0].clone()
+    arrays[0][[5, 40, 77], 1] = float("nan")
+    case.arrays = tuple(arrays)
+    errs["guard_nan_rows"], got = check_members(
+        case, rng, "guard, NaN rows", nan_histories=True,
+        guard_nonfinite=True)
+    skipped = [int(g[6].sum()) for g in got]
+    if min(skipped) == 0:
+        fail(f"train_run members guard: skips {skipped}")
+    return errs, skipped
+
+
+def baseline_factory(data, dat, device):
+    def factory(generator):
+        kw = dict(hidden_dim_s=16, hidden_dim_t=16, generator=generator,
+                  device=device)
+        return dt.flow_chain(
+            dt.coupling_layer(data, [0, 1, 2], **kw),
+            dt.coupling_layer(data, [2, 3, 4], **kw),
+            dt.coupling_layer(data, [4, 0, 1], **kw),
+            dt.normalization_layer(dat["x"], -1.0, 1.0, device=device))
+    return factory
+
+
+def train_run_bound(chain, n_train, n_valid, d, n_cond, epochs, packed):
+    """The least time of one ``train_run`` member's run: every product it
+    needs — per training row the forward and two backward products per
+    layer, per evaluated row the forward — at the layers' own shapes, over
+    the f32 rate; against every input read once and every output written
+    once. Returns (ms, bound_by, flops, bytes)."""
+    fwd = needed_flops_per_row(chain)
+    flops = epochs * (3 * n_train + (n_train + n_valid)) * fwd
+    n_pad = -(-n_train // TRAIN_BATCH) * TRAIN_BATCH
+    nbytes = 4 * ((n_train + n_valid) * (d + n_cond) + epochs * n_pad
+                  + 7 * packed.n_params + packed.flat_consts.numel()
+                  + packed.prog.numel() + 3 * epochs)
+    ms, by = bound_ms(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
+def ensemble_moment_gate(ens, theta_tuple, rows):
+    """moment_gate for the mixture: its draws through ``chain_apply``
+    against the per-layer path's, over three seeds, the same gates."""
+    zs = []
+    for seed in (11, 21, 31):
+        s_k = ens.sample((rows,), theta_tuple,
+                         generator=torch.Generator().manual_seed(seed))
+        with kernel_policy(False):
+            s_p = ens.sample((rows,), theta_tuple,
+                             generator=torch.Generator().manual_seed(seed + 1))
+        s_k, s_p = s_k.double(), s_p.double()
+        if not bool(torch.isfinite(s_k).all()):
+            fail("ensemble sample: non-finite draws")
+        se = s_p.std(0) / np.sqrt(rows)
+        z = float(((s_k.mean(0) - s_p.mean(0)).abs() / (np.sqrt(2) * se)).max())
+        ratio = s_k.std(0) / s_p.std(0)
+        if z > 5.0 or float((ratio - 1).abs().max()) > 0.05:
+            fail(f"ensemble sample moments diverged (seed {seed}): z={z}, "
+                 f"std ratios {ratio.tolist()}")
+        zs.append(z)
+    if statistics.median(zs) > 4.0:
+        fail(f"ensemble sample shows a persistent moment bias: z {zs}")
+    return zs
+
+
+def drive_ensemble(device, tmp, card):
+    """``train_ensemble`` at BASELINE x K = 5: one ``train_run`` launch of 5
+    blocks, each member equal to its own one-member launch; then the one
+    launch against K launches and the plain program (eager and vmapped),
+    the member sweep, the mixture's log_prob / sample at 2^18 rows and a
+    checkpoint round trip."""
+    from densityflows_tpu_torch import ensemble as ens_mod
+    from densityflows_tpu_torch.train import _chunk_generator, _chunk_seed
+
+    data, dat = baseline_data()
+    factory = baseline_factory(data, dat, device)
+    k, epochs = ENSEMBLE_K, TRAIN_EPOCHS
+    t0 = time.time()
+    ens, counts = counted(lambda: dt.train_ensemble(
+        factory, data, n_members=k, epochs=epochs, batchsize=TRAIN_BATCH,
+        generator=torch.Generator().manual_seed(SEED), verbose=False,
+        device=device))
+    seconds = time.time() - t0
+    if not launches_are(counts, train_run=1):
+        fail(f"train_ensemble launches {counts}, expected one train_run")
+    if ens.trained_path != ["fused"] * k or any(ens.fused_decline_reason):
+        fail(f"train_ensemble did not take the kernel: {ens.trained_path}, "
+             f"{ens.fused_decline_reason}")
+    tl, vl = np.asarray(ens.train_loss), np.asarray(ens.valid_loss)
+    if tl.shape != (epochs, k) or not np.isfinite(tl).all() \
+            or not np.isfinite(vl).all():
+        fail("train_ensemble: histories are not (50, 5) finite entries")
+    # every member learns; the members' median meets the single flow's bar
+    # (their inits differ: one member alone may end above it)
+    if not (vl[-1] < vl[0]).all() or np.median(vl[-1]) > 3.3:
+        fail(f"train_ensemble: valid NLL {vl[0]} -> {vl[-1]}, expected "
+             "every member to decrease and their median to end at most 3.3")
+
+    # the members as train_ensemble built them: their generators, their
+    # batch orders
+    g = torch.Generator().manual_seed(SEED)
+    init_seed, train_seed = _chunk_seed(g), _chunk_seed(g)
+    members = [factory(_chunk_generator(init_seed, i)) for i in range(k)]
+    flows = [dt.Flow(m, data, device=device) for m in members]
+    n_train = len(data.partition.training)
+    n_valid = len(data.partition.validation)
+    perms = [ft.draw_epoch_perms(_chunk_generator(train_seed, i), epochs,
+                                 n_train) for i in range(k)]
+    folds, packed = ens_mod._kernel_members(flows, TRAIN_BATCH)
+    xt, tht = data.normalized_training_data(flows[0].metadata)
+    xv, thv = data.normalized_validation_data(flows[0].metadata)
+    arrays = (put(xt, device), put(tht, device), put(xv, device),
+              put(thv, device))
+    plan, _tc, _tp, masks, slots, cparams = folds[0][:6]
+    tps = [f[2] for f in folds]
+    zeros = [[torch.zeros_like(p) for p in tps[0]]] * k
+    head = (plan, tps[0], masks, slots, cparams, zeros[0], zeros[0])
+    kw = dict(batchsize=TRAIN_BATCH, packed=packed)
+    for i in range(k):
+        one = tk.run_fused_train(plan, tps[i], masks, slots, cparams,
+                                 zeros[0], zeros[0], *arrays, perms[i], **kw)
+        got = folds[i][7](one[0])
+        if not (np.array_equal(one[3].cpu().numpy(), tl[:, i]
+                               .astype(np.float32))
+                and np.array_equal(one[4].cpu().numpy(),
+                                   vl[:, i].astype(np.float32))
+                and all(torch.equal(a, b.detach()) for a, b in zip(
+                    got, ft.trainable_leaves(ens.model[i])))):
+            fail(f"train_ensemble member {i} differs from its own one-member "
+                 "launch")
+
+    # the plain program on the same members and batch orders, member after
+    # member (eager) and vmapped over the members (the route of an ensemble
+    # the kernel declines): their histories against the kernel's first
+    # epochs, and their times over ENSEMBLE_EAGER_EPOCHS epochs
+    e_eager = ENSEMBLE_EAGER_EPOCHS
+    plain_ms, hist_early = {}, {}
+    for name, program in (("eager", ens_mod._train_members_plain),
+                          ("vmapped", ens_mod._train_members_vmapped)):
+        plain_flows = [dt.Flow(factory(_chunk_generator(init_seed, i)), data,
+                               device=device) for i in range(k)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tls_p, vls_p = program(
+            plain_flows, dt.Adam(), arrays,
+            np.stack([p[:e_eager] for p in perms]), TRAIN_BATCH, e_eager,
+            True)
+        torch.cuda.synchronize()
+        plain_ms[name] = 1e3 * (time.perf_counter() - t0)
+        hist_early[name] = float(max(np.abs(tls_p[:, :3] - tl[:3].T).max(),
+                                     np.abs(vls_p[:, :3] - vl[:3].T).max()))
+        if hist_early[name] > 1e-4:
+            fail(f"train_ensemble against the {name} plain program: first "
+                 f"3 epochs differ by {hist_early[name]}")
+
+    # times: one launch of K blocks, K one-member launches in a row
+    one_ms = time_ms(lambda: tk.run_fused_train_members(
+        plan, tps, masks, slots, cparams, zeros, zeros, *arrays, perms,
+        **kw), warmup=1, runs=5)
+    k_launch_ms = time_ms(lambda: [tk.run_fused_train(
+        plan, tps[i], masks, slots, cparams, zeros[0], zeros[0], *arrays,
+        perms[i], **kw) for i in range(k)], warmup=1, runs=5)
+    single_ms = time_ms(lambda: tk.run_fused_train(
+        *head, *arrays, perms[0], **kw), warmup=1, runs=5)
+    sweep = {}
+    for kk in ENSEMBLE_SWEEP:
+        tp_k = [tps[i % k] for i in range(kk)]
+        pm_k = [perms[i % k] for i in range(kk)]
+        z_k = zeros[:1] * kk
+        ms = time_ms(lambda: tk.run_fused_train_members(
+            plan, tp_k, masks, slots, cparams, z_k, z_k, *arrays, pm_k,
+            **kw), warmup=1, runs=2)
+        sweep[kk] = dict(ms=ms, ms_per_member=ms / kk)
+    b_ms, b_by, flops, nbytes = train_run_bound(
+        members[0], n_train, n_valid, xt.shape[1], tht.shape[1], epochs,
+        packed)
+
+    # the mixture at 2^18 rows: K chain_apply launches per call
+    rng = np.random.default_rng(SEED + 41)
+    idx = rng.integers(0, dat["x"].shape[0], size=ROWS)
+    x = put(dat["x"][idx] + 0.05 * rng.normal(size=(ROWS, 5)), device)
+    th = put(dat["theta"][idx], device)
+    lpm, c_members = counted(lambda: ens.log_prob_members(x, th))
+    lp, c_lp = counted(lambda: ens.log_prob(x, th))
+    smp, c_sample = counted(lambda: ens.sample(
+        (ROWS,), (-1.0,), generator=torch.Generator().manual_seed(SEED)))
+    for what, c in (("log_prob_members", c_members), ("log_prob", c_lp),
+                    ("sample", c_sample)):
+        if not launches_are(c, chain_apply=k):
+            fail(f"ensemble {what}: launches {c}, expected {k} chain_apply")
+    if lpm.shape != (k, ROWS) or smp.shape != (ROWS, 5) \
+            or not bool(torch.isfinite(lp).all()):
+        fail("ensemble: wrong shapes or non-finite log_prob")
+    with kernel_policy(False), torch.no_grad():
+        lp_plain = ens.log_prob(x, th)
+        lpm_plain = ens.log_prob_members(x, th)
+    err_mix = require_close(lp, lp_plain, "ensemble log_prob vs per-layer "
+                            "path", 1e-4, 1e-4)
+    err_members = require_close(lpm, lpm_plain, "ensemble log_prob_members "
+                                "vs per-layer path", 1e-4, 1e-4)
+    with torch.no_grad():
+        zs = ensemble_moment_gate(ens, (-1.0,), ROWS)
+    lp_ms = time_ms(lambda: ens.log_prob(x, th), warmup=1, runs=5)
+    sample_ms = time_ms(lambda: ens.sample(
+        (ROWS,), (-1.0,), generator=torch.Generator().manual_seed(1)),
+        warmup=1, runs=5)
+
+    # the checkpoint on the card
+    dt.save_ensemble(f"{tmp}/ensemble", ens)
+    back = dt.load_ensemble(f"{tmp}/ensemble", device=device)
+    with torch.no_grad():
+        if not torch.equal(back.log_prob(x[:4096], th[:4096]),
+                           ens.log_prob(x[:4096], th[:4096])) \
+                or np.asarray(back.train_loss).shape != (epochs, k):
+            fail("save_ensemble -> load_ensemble did not restore the "
+                 "ensemble")
+    report = dict(
+        card=card, members=k, epochs=epochs, batchsize=TRAIN_BATCH,
+        train_run_launches=counts["train_run"], train_ensemble_s=seconds,
+        final_valid_nll=vl[-1].tolist(),
+        members_equal_own_launch="bit for bit",
+        first_3_epochs_vs_plain_program=hist_early,
+        one_launch_ms=one_ms, k_launches_ms=k_launch_ms,
+        one_member_launch_ms=single_ms, shared_bytes=packed.shared_bytes,
+        threads=tk._block_threads(packed),
+        plain_program_epochs=e_eager, eager_program_ms=plain_ms["eager"],
+        vmapped_program_ms=plain_ms["vmapped"],
+        bound_ms_per_member=b_ms, bound_ms_k=k * b_ms, bound_by=b_by,
+        sweep=sweep, rows=ROWS, log_prob_ms=lp_ms, sample_ms=sample_ms,
+        log_prob_max_abs_err_vs_per_layer=err_mix,
+        log_prob_members_max_abs_err_vs_per_layer=err_members,
+        chain_apply_launches=dict(log_prob_members=c_members["chain_apply"],
+                                  log_prob=c_lp["chain_apply"],
+                                  sample=c_sample["chain_apply"]),
+        sample_moment_z_by_seed=zs, checkpoint_round_trip="equal")
+    say(phase="ensemble_main_path", **report)
+    return report
+
+
+# -- precision and memory: mixed precision, remat, bf16-stored conditioners -----
+
+# train(mixed_precision=True) against the f32 plain program: the JAX
+# package's own gates for its bf16 loss against its f32 loss
+# (tests/test_mixed_precision.py): each step's loss within 0.05 (1 + |L|),
+# the final NLL within 0.15 (1 + |L|)
+MP_STEP_GATE, MP_FINAL_GATE = 0.05, 0.15
+PRECISION_BATCH, PRECISION_ROWS, PRECISION_STEPS = 1024, 36409, 32
+REMAT_ROWS = 1 << 16
+
+
+def drive_precision(device, card):
+    """At the flagship wide chain: 32 steps of train(mixed_precision=True)
+    against the f32 plain program, remat's gradients and peak memory, a
+    cast_conditioners chain through chain_apply / chain_sample."""
+    rng = np.random.default_rng(SEED + 51)
+    chain0 = wide_chain(False, rng, device)
+    x_np = (rng.normal(size=(PRECISION_ROWS, D)) * 0.5).astype(np.float32)
+    th_np = rng.uniform(size=(PRECISION_ROWS, N_COND)).astype(np.float32)
+    data = dt.DataArrays.make(x_np, th_np, rng=0)
+    n_train = len(data.partition.training)
+    if -(-n_train // PRECISION_BATCH) != PRECISION_STEPS:
+        fail(f"precision: {n_train} training rows are not "
+             f"{PRECISION_STEPS} batches")
+    perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED), 1,
+                                n_train)
+    flows = {}
+    for name, kw in (("mixed_precision", dict(mixed_precision=True)),
+                     ("remat", dict(remat=True)),
+                     ("f32", dict(fused_kernel=False))):
+        f = dt.Flow(copy.deepcopy(chain0), data, device=device)
+        t0 = time.time()
+        state = dt.train(f, data, epochs=1, batchsize=PRECISION_BATCH,
+                         verbose=False, _epoch_perms=perms, **kw)
+        torch.cuda.synchronize()
+        flows[name] = (f, state, time.time() - t0)
+        if name != "f32" and (f.trained_path != "torch"
+                              or name not in str(f.fused_decline_reason)):
+            fail(f"train({name}=True): path {f.trained_path}, reason "
+                 f"{f.fused_decline_reason}")
+    f_mp, s_mp, mp_s = flows["mixed_precision"]
+    f_32, s_32, f32_s = flows["f32"]
+    f_rm = flows["remat"][0]
+    # remat changes no arithmetic: the same histories as the f32 program
+    remat_hist = max(abs(a - b) for a, b in zip(
+        f_rm.train_loss + f_rm.valid_loss, f_32.train_loss + f_32.valid_loss))
+    if not remat_hist <= 1e-4:
+        fail(f"train(remat=True) differs from the plain program by "
+             f"{remat_hist}")
+    for t in ft.trainable_leaves(f_mp.model) + s_mp.mu + s_mp.nu:
+        if t.dtype != torch.float32:
+            fail(f"mixed precision: a parameter or moment is {t.dtype}")
+    final_gap = max(abs(a - b) / (1 + abs(b)) for a, b in zip(
+        f_mp.train_loss + f_mp.valid_loss, f_32.train_loss + f_32.valid_loss))
+    if not final_gap < MP_FINAL_GATE:
+        fail(f"mixed precision: final NLL gap {final_gap} (gate "
+             f"{MP_FINAL_GATE} (1 + |L|))")
+
+    # each step's loss: make_train_step(mixed_precision=True) against the
+    # f32 step on the same batches
+    xt, tht = data.normalized_training_data(f_32.metadata)
+    xt, tht = put(xt, device), put(tht, device)
+    step_gap = 0.0
+    losses = {}
+    for mp in (True, False):
+        model = copy.deepcopy(chain0)
+        opt = dt.adam(1e-3)
+        step = dt.make_train_step(opt, mixed_precision=mp)
+        state = opt.init(ft.trainable_leaves(model))
+        out = []
+        for b in range(PRECISION_STEPS):
+            rows = torch.as_tensor(
+                perms[0][b * PRECISION_BATCH:(b + 1) * PRECISION_BATCH],
+                device=device)
+            m = torch.ones(rows.shape[0], device=device)
+            model, state, loss = step(model, state, dt.StandardNormal(D),
+                                      xt[rows], tht[rows], m)
+            out.append(float(loss))
+        losses[mp] = out
+    step_gap = max(abs(a - b) / (1 + abs(b))
+                   for a, b in zip(losses[True], losses[False]))
+    if not step_gap < MP_STEP_GATE:
+        fail(f"mixed precision: a step's loss gap {step_gap} (gate "
+             f"{MP_STEP_GATE} (1 + |L|))")
+    # bfloat16 products ran: the first step (the f32 step's weights and
+    # rows) differs from the f32 loss and equals, at 1e-6 (1 + |L|), the
+    # loss of the explicitly cast chain (the same operations)
+    rows0 = torch.as_tensor(perms[0][:PRECISION_BATCH], device=device)
+    with torch.no_grad():
+        cast_loss = float(dt.masked_nll_loss(
+            dt.cast_conditioners(chain0), dt.StandardNormal(D), xt[rows0],
+            tht[rows0], torch.ones(PRECISION_BATCH, device=device)))
+    first_bf16, first_f32 = losses[True][0], losses[False][0]
+    if first_bf16 == first_f32 or \
+            abs(first_bf16 - cast_loss) > 1e-6 * (1 + abs(cast_loss)):
+        fail(f"mixed precision: the first step's loss {first_bf16} is not "
+             f"the bfloat16 chain's {cast_loss} (float32: {first_f32})")
+
+    # remat: the same gradients, less memory, at 2^16 rows
+    xr = put(rng.normal(size=(REMAT_ROWS, D)) * 0.5, device)
+    thr = put(rng.uniform(size=(REMAT_ROWS, N_COND)), device)
+    mask = torch.ones(REMAT_ROWS, device=device)
+    grads, peak = {}, {}
+    for remat in (False, True):
+        model = copy.deepcopy(chain0)
+        leaves = ft.trainable_leaves(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            loss = dt.masked_nll_loss(model, dt.StandardNormal(D), xr, thr,
+                                      mask, remat=remat)
+            grads[remat] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() - base_mem
+        del loss, model, leaves
+    remat_err = max(require_close(a, b, "remat gradient vs plain", 1e-4,
+                                  1e-4)
+                    for a, b in zip(grads[True], grads[False]))
+    del grads
+
+    # bf16-stored conditioners through the chain kernels: the plain
+    # per-layer path on the same bf16-rounded weights (held in f32)
+    meta = dt.MetaData("bf16", D, N_COND, np.zeros(N_COND, np.float32),
+                       np.ones(N_COND, np.float32))
+    cast = dt.cast_conditioners(chain0)
+    flow_c = dt.Flow(cast, meta, device=device)
+    ref = dt.Flow(dt.cast_conditioners(cast, torch.float32), meta,
+                  device=device)
+    x = put(rng.normal(size=(ROWS, D)) * 0.5, device)
+    th = put(rng.uniform(size=(ROWS, N_COND)), device)
+    lp_c, c_lp = counted(lambda: flow_c.log_prob(x, th))
+    theta_tuple = tuple([0.5] * N_COND)
+    s_c, c_s = counted(lambda: flow_c.sample(
+        (ROWS,), theta_tuple, generator=torch.Generator().manual_seed(SEED)))
+    if not launches_are(c_lp, chain_apply=1) \
+            or not launches_are(c_s, chain_sample=1):
+        fail(f"bf16-stored chain: launches {c_lp} / {c_s}, expected one "
+             "chain_apply / one chain_sample")
+    if not bool(torch.isfinite(s_c).all()):
+        fail("bf16-stored chain: non-finite draws")
+    with kernel_policy(False), torch.no_grad():
+        lp_ref = ref.log_prob(x, th)
+    # |log p| is O(50) here, as in check_main_path
+    bf16_err = require_close(lp_c, lp_ref, "bf16-stored chain log_prob vs "
+                             "per-layer path on the rounded weights", 1e-4,
+                             1e-3)
+    report = dict(
+        card=card, config="d32 n8 4 blocks h256", batch=PRECISION_BATCH,
+        steps=PRECISION_STEPS,
+        mixed_precision_trained_path=f_mp.trained_path,
+        mixed_precision_decline=f_mp.fused_decline_reason,
+        remat_decline=f_rm.fused_decline_reason,
+        remat_train_history_max_abs_err=remat_hist,
+        mixed_precision_s=mp_s, f32_program_s=f32_s,
+        final_nll_gap_rel=final_gap, final_gate=MP_FINAL_GATE,
+        step_loss_gap_rel=step_gap, step_gate=MP_STEP_GATE,
+        first_step_loss_cast_chain=cast_loss,
+        step_losses_bf16_first_last=[losses[True][0], losses[True][-1]],
+        step_losses_f32_first_last=[losses[False][0], losses[False][-1]],
+        remat_rows=REMAT_ROWS, remat_grad_max_abs_err=remat_err,
+        peak_bytes_plain=peak[False], peak_bytes_remat=peak[True],
+        bf16_chain_log_prob_max_abs_err=bf16_err,
+        bf16_chain_launches=dict(log_prob=c_lp["chain_apply"],
+                                 sample=c_s["chain_sample"]),
+        allow_bf16_reduced_precision_reduction=bool(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction))
+    say(phase="precision_main_path", **report)
+    return report
+
+
+def drive_example_uncertainty(card):
+    """The port's uncertainty_and_mcmc example at its own budgets."""
+    from densityflows_tpu_torch.examples import uncertainty_and_mcmc
+
+    t0 = time.time()
+    out = uncertainty_and_mcmc.main()
+    seconds = time.time() - t0
+    values = out["final_nll"] + [out["spread_mean"], out["accept_rate"],
+                                 out["sbc_ks"]] + out["mcmc_mean"]
+    if not np.isfinite(values).all() or not out["accept_rate"] > 0.1:
+        fail(f"example uncertainty_and_mcmc: {out}")
+    report = dict(card=card, seconds=seconds, **out)
+    say(phase="example_uncertainty", **report)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4082,6 +4654,13 @@ def main():
     say(phase="coupling_kernel_small", max_abs_err_by_case=coupling_errs,
         gate_ratio_by_case=coupling_ratios, tolerance=KERNEL_TOL,
         two_launches_equal="bit for bit")
+
+    # phase 3h: train_run's member axis, K = 3 small members in one launch
+    member_errs, member_skips = check_ensemble_small(rng, device)
+    errs["train_run"] = max(errs["train_run"], max(member_errs.values()))
+    say(phase="ensemble_kernel_small", members=ENSEMBLE_K_SMALL,
+        max_abs_err_by_case=member_errs, skipped_updates=member_skips,
+        tolerance=TRAIN_TOL, members_equal_own_launch="bit for bit")
 
     # phase 4: the main paths; launch counts are taken around the driven
     # calls only (checks and timings come after the counts are read)
@@ -4192,6 +4771,18 @@ def main():
         snpe_launches, _ = drive_snpe(device, tmp, card)
     summary["inference_seconds"] = time.time() - t_new
 
+    # phase 4i: the deep ensemble on train_run's member axis, precision and
+    # memory options at the flagship width, the uncertainty example
+    t_new = time.time()
+    summary["adam_update"] = check_adam_update(device, card)[
+        "foreach_vs_per_leaf"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ensemble = drive_ensemble(device, tmp, card)
+    precision = drive_precision(device, card)
+    example = drive_example_uncertainty(card)
+    summary["a13_seconds"] = time.time() - t_new
+    summary["example_uncertainty_seconds"] = example["seconds"]
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -4232,6 +4823,26 @@ def main():
     for row in kernels:
         if row["name"] in a12:
             row["launches_on_inference_phases"] = a12[row["name"]]
+        if row["name"] == "train_run":
+            row["member_axis"] = dict(
+                members=ENSEMBLE_K,
+                launches_on_ensemble_main_path=ensemble[
+                    "train_run_launches"],
+                one_launch_ms=ensemble["one_launch_ms"],
+                k_launches_ms=ensemble["k_launches_ms"],
+                plain_program_epochs=ensemble["plain_program_epochs"],
+                eager_program_ms=ensemble["eager_program_ms"],
+                vmapped_program_ms=ensemble["vmapped_program_ms"],
+                bound_ms=ensemble["bound_ms_k"],
+                ms_by_members={k: v["ms"]
+                               for k, v in ensemble["sweep"].items()})
+        if row["name"] in ("chain_apply", "chain_sample"):
+            row["launches_on_a13_phases"] = (
+                dict(ensemble["chain_apply_launches"],
+                     bf16_log_prob=precision["bf16_chain_launches"][
+                         "log_prob"])
+                if row["name"] == "chain_apply" else
+                dict(bf16_sample=precision["bf16_chain_launches"]["sample"]))
 
     # the numbers of the earlier lines once more, near the end of the output
     say(phase="summary", gradient_max_abs_err=err_g, **summary)

@@ -30,7 +30,12 @@ routes them (a non-standard base or an embedding on ``chain_apply``, the
 RealNVP layers of a mixed chain on the per-layer coupling kernels). So does
 the inference engine (``inference``, ``parallel.resample``): SNPE fits train
 on ``train_run``, posterior draws and SBC on ``chain_sample``, MCMC steps,
-proposal densities and rejection rounds on ``chain_apply``.
+proposal densities and rejection rounds on ``chain_apply``. Deep ensembles
+(``train_ensemble``, ``EnsembleFlow``) train K members in one ``train_run``
+launch of K blocks; ``cast_conditioners`` stores conditioners in bfloat16
+(the kernels upcast them as they pack them), and ``train(remat=True)`` /
+``train(mixed_precision=True)`` run the plain program. The examples of the
+JAX package have their counterparts in ``densityflows_tpu_torch.examples``.
 """
 
 from ._device import resolve_device
@@ -39,6 +44,8 @@ from .convert import (
     adam_state_from_jax_leaves,
     adam_state_to_jax_leaves,
     chain_from_spec_and_leaves,
+    ensemble_from_jax_numpy,
+    ensemble_to_jax_numpy,
     flow_from_jax_numpy,
 )
 from . import native
@@ -82,6 +89,7 @@ from .models.layers import (
     NICECouplingLayer,
     RNVPCouplingLayer,
     RQSCouplingLayer,
+    cast_conditioners,
     coupling_layer,
     set_fused_kernels,
 )
@@ -130,6 +138,7 @@ from .parallel.mesh import (
     shard_batch,
 )
 from .parallel.resample import systematic_resample_sharded
+from .ensemble import EnsembleFlow, stack_models, train_ensemble
 from .train import (
     Adam,
     AdamState,
@@ -145,9 +154,11 @@ from .train import (
 )
 from .utils.checkpoint import (
     load_element,
+    load_ensemble,
     load_flow,
     register_element,
     save_element,
+    save_ensemble,
     save_flow,
 )
 from .utils.config import (
@@ -177,7 +188,7 @@ __all__ = [
     "rnvp_forward", "rnvp_backward", "nice_forward", "nice_backward",
     "RNVPCouplingLayer", "NICECouplingLayer", "RQSCouplingLayer",
     "JointRNVPCouplingLayer", "coupling_layer", "set_fused_kernels",
-    "NormalizationLayer", "normalization_layer",
+    "cast_conditioners", "NormalizationLayer", "normalization_layer",
     "PermutationLayer", "permutation_layer",
     "LogitLayer", "logit_layer",
     "MAFLayer", "maf_layer", "IAFLayer", "iaf_layer",
@@ -190,14 +201,16 @@ __all__ = [
     "Flow", "nll_loss",
     "summarize",
     "save_flow", "load_flow", "save_element", "load_element",
-    "register_element",
+    "register_element", "save_ensemble", "load_ensemble",
     "chain_from_spec_and_leaves", "flow_from_jax_numpy",
+    "ensemble_from_jax_numpy", "ensemble_to_jax_numpy",
     "adam_state_from_jax_leaves", "adam_state_to_jax_leaves",
     "train", "evaluate", "make_train_step", "make_train_program",
     "batch_iterator", "masked_nll_loss", "Adam", "AdamState", "adam",
     "UnsupportedFusedTrain", "chain_train_fold", "train_fused",
     "make_fused_step_fn", "make_fused_step_mesh_program",
     "native", "StreamingLoader", "train_streaming",
+    "EnsembleFlow", "train_ensemble", "stack_models",
     "Mesh", "make_mesh", "distributed_init", "host_local_rows",
     "host_local_slice", "shard_batch", "put_replicated",
     "NetConfig", "DataConfig", "TrainConfig", "FlowConfig", "build_flow",

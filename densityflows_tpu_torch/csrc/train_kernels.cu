@@ -70,8 +70,17 @@
 // after another) and the few CUDA builtins used here in a header given to the
 // compiler with -include. That is how the CPU tests execute this source.
 //
-// C interface (ctypes): df_train_run. It launches on the given stream,
-// allocates nothing, does not synchronise, and returns cudaGetLastError().
+// Members. A launch of K blocks trains K independent runs of one plan, block
+// k member k (a deep ensemble: ensemble.py). The rows, weights, constants,
+// gradient masks and programs are shared; each member has its own parameters,
+// moments, batch order, histories and best snapshot, at a stride of one
+// member's size in every such buffer (member_args). Block k runs
+// train_run_body on its own view, exactly as a launch of one block would, so
+// member k of a K-block launch equals its own one-block launch bit for bit.
+//
+// C interface (ctypes): df_train_run_members (one run is a launch of one
+// member). It launches on the given stream, allocate nothing, do not synchronise, and
+// returns cudaGetLastError().
 
 #ifndef DF_HOST_EMULATION
 #include <cuda_runtime.h>
@@ -113,6 +122,9 @@ struct Args {
     float* hist_t; float* hist_v; float* hist_s; float* best;
     const int* eval_prog;
     float* clk;     // DF_TRAIN_CLOCKS: the phase cycles, else null
+    // DF_TRAIN_CLOCKS: each block's first and last %globaltimer (ns), two
+    // words a block, or null
+    unsigned long long* stamps;
     int epochs, n_batches, n_train, n_valid, count0, track_best, weighted,
         guard;
     float lr, b1, b2, eps, omb1, omb2, logb1, logb2;
@@ -664,8 +676,10 @@ Args make_args(const void* const* p, const int* ia, const float* fa) {
     a.eval_prog = (const int*)p[20];
 #if defined(DF_TRAIN_CLOCKS)
     a.clk = (float*)p[21];
+    a.stamps = (unsigned long long*)p[22];
 #else
     a.clk = nullptr;
+    a.stamps = nullptr;
 #endif
     a.epochs = ia[0]; a.n_batches = ia[1]; a.n_train = ia[2];
     a.n_valid = ia[3]; a.count0 = ia[4]; a.track_best = ia[5];
@@ -675,12 +689,40 @@ Args make_args(const void* const* p, const int* ia, const float* fa) {
     return a;
 }
 
+// member k's view of the arguments: its parameters, moments, outputs and
+// best snapshot np floats apart, its batch order epochs x n_batches * B
+// ints apart, its histories epochs floats apart; the clocks are block 0's
+DF_FN Args member_args(Args a, int k) {
+    const long long np = a.prog[H_NP];
+    const long long n_pad = (long long)a.n_batches * a.prog[H_B];
+    const long long e = a.epochs;
+    a.p_in += k * np; a.mu_in += k * np; a.nu_in += k * np;
+    a.p_out += k * np; a.mu_out += k * np; a.nu_out += k * np;
+    if (a.best != nullptr) a.best += k * np;
+    a.perm += k * e * n_pad;
+    a.hist_t += k * e; a.hist_v += k * e; a.hist_s += k * e;
+    if (k != 0) a.clk = nullptr;
+    return a;
+}
+
 // at most 512 threads: 128 registers a thread (at 1,024 the phases spilled)
 #ifndef DF_HOST_EMULATION
 __global__ void __launch_bounds__(512, 1)
 train_run_kernel(Args a) {
     extern __shared__ float4 smem4[];
-    train_run_body(a, reinterpret_cast<float*>(smem4));
+#if defined(DF_TRAIN_CLOCKS)
+    unsigned long long t0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+#endif
+    train_run_body(member_args(a, blockIdx.x), reinterpret_cast<float*>(smem4));
+#if defined(DF_TRAIN_CLOCKS)
+    unsigned long long t1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+    if (threadIdx.x == 0 && a.stamps != nullptr) {
+        a.stamps[2 * blockIdx.x] = t0;
+        a.stamps[2 * blockIdx.x + 1] = t1;
+    }
+#endif
 }
 #endif
 
@@ -693,34 +735,43 @@ extern "C" {
 // gradient mask, constants, program, params out, mu out, nu out, train
 // history, valid history, skip history, best snapshot, evaluation program;
 // in the DF_TRAIN_CLOCKS build a 22nd, the clock buffer (2 + 2 *
-// CLK_PHASES floats).
+// CLK_PHASES floats), and a 23rd, two 64-bit words a block for its first
+// and last %globaltimer (or null).
 // iargs: epochs, n_batches, n_train, n_valid, count0, track_best, weighted,
 // guard. fargs: lr, b1, b2, eps, 1-b1, 1-b2, log b1, log b2.
+// `members` runs, one block each: the per-member buffers (params, mu, nu, perm, the outputs, the histories and
+// the best snapshot) hold the members one after another.
 #ifndef DF_HOST_EMULATION
-int df_train_run(const void* const* ptrs, const int* iargs,
-                 const float* fargs, int threads, int shared_bytes,
-                 void* stream) {
+int df_train_run_members(const void* const* ptrs, const int* iargs,
+                         const float* fargs, int members, int threads,
+                         int shared_bytes, void* stream) {
     const Args a = make_args(ptrs, iargs, fargs);
     cudaError_t err = cudaFuncSetAttribute(
         train_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         shared_bytes);
     if (err != cudaSuccess) return (int)err;
-    train_run_kernel<<<1, threads, shared_bytes,
+    train_run_kernel<<<members, threads, shared_bytes,
                        static_cast<cudaStream_t>(stream)>>>(a);
     return (int)cudaGetLastError();
 }
 #else
-// The same run on host pointers, its threads one after another in the
-// order the -include'd header is told (reverse != 0: last thread first).
-int df_train_run_emulated(const void* const* ptrs, const int* iargs,
-                          const float* fargs, int threads, int shared_bytes,
-                          int reverse) {
+// The same runs on host pointers, the blocks one after another (reverse_
+// blocks != 0: last member first), each block's threads one after another
+// in the order the -include'd header is told (reverse != 0: last thread
+// first), each block on a fresh shared array filled with NaN.
+int df_train_run_members_emulated(const void* const* ptrs, const int* iargs,
+                                  const float* fargs, int members,
+                                  int threads, int shared_bytes, int reverse,
+                                  int reverse_blocks) {
     const Args a = make_args(ptrs, iargs, fargs);
     df_emulation_threads = threads;
     df_emulation_reverse = reverse;
     float* S = new float[shared_bytes / 4];
-    for (int i = 0; i < shared_bytes / 4; ++i) S[i] = NAN;
-    train_run_body(a, S);
+    for (int j = 0; j < members; ++j) {
+        const int k = reverse_blocks ? members - 1 - j : j;
+        for (int i = 0; i < shared_bytes / 4; ++i) S[i] = NAN;
+        train_run_body(member_args(a, k), S);
+    }
     delete[] S;
     return 0;
 }

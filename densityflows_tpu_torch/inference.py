@@ -114,8 +114,7 @@ def _adam_step(model, optimizer, opt_state, loss_fn):
     loss, leaves, grads = _autograd(model, loss_fn)
     updates, opt_state = optimizer.update(grads, opt_state, leaves)
     with torch.no_grad():
-        for p, u in zip(leaves, updates):
-            p.add_(u)
+        torch._foreach_add_(leaves, list(updates))
     return opt_state, loss
 
 

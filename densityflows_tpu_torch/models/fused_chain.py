@@ -13,7 +13,8 @@ these. A chain containing anything else (a spline coupling, a MAF / IAF
 layer) is not fusable:
 :func:`maybe_apply_fused` returns ``None`` and the caller keeps the
 per-layer path. A chain of these layers that the kernels cannot run
-(parameters that are not float32; on CUDA, a hidden width past the kernels'
+(a parameter that is not float32, but for bfloat16 conditioners, which are
+upcast as they are packed; on CUDA, a hidden width past the kernels'
 shared-memory limit) raises instead of giving way to the per-layer path.
 
 Routing: ``set_fused_kernels("auto")`` sends every fusable chain whose data
@@ -91,6 +92,12 @@ def _scatter_cols(w, ax):
     return out
 
 
+def _f32(t):
+    """A conditioner tensor for the kernels: detached, bfloat16 upcast to
+    float32 as the JAX package's packers upcast it."""
+    return t.detach().float()
+
+
 def _coupling_entry(layer, dirn):
     """Fold the static split/recombine into the conditioner weights so the
     kernel does no selection work: the final dense layer (H, A) scatters
@@ -110,7 +117,7 @@ def _coupling_entry(layer, dirn):
     params = []
 
     def fold_net(net):
-        ws = [w.detach() for w in net.weights]
+        ws = [_f32(w) for w in net.weights]
         if len(ws) < 2:
             raise _Unsupported
         _fold_first(ws[0], ax, params)
@@ -118,8 +125,8 @@ def _coupling_entry(layer, dirn):
         params.append(_scatter_cols(ws[-1], ax))
         if net.has_bias:
             for b in list(net.biases)[:-1]:
-                params.append(b.detach().reshape(1, -1))
-            params.append(_scatter_cols(net.biases[-1].detach()[None], ax))
+                params.append(_f32(b).reshape(1, -1))
+            params.append(_scatter_cols(_f32(net.biases[-1])[None], ax))
         return len(ws), net.activation, net.has_bias
 
     if kind == "nvp":
@@ -141,7 +148,7 @@ def _joint_coupling_entry(layer, dirn):
     if ax.transform_dim == 0 or ax.nn_input_dim == 0:
         raise _Unsupported
     a = ax.transform_dim
-    ws = [w.detach() for w in net.weights]
+    ws = [_f32(w) for w in net.weights]
     n_layers = len(ws)
     if n_layers < 2:
         raise _Unsupported  # a single dense layer has no shared stack
@@ -153,8 +160,8 @@ def _joint_coupling_entry(layer, dirn):
     params.append(_scatter_cols(wf[:, a:], ax))
     if net.has_bias:
         for b in list(net.biases)[:-1]:
-            params.append(b.detach().reshape(1, -1))
-        bf = net.biases[-1].detach()[None]
+            params.append(_f32(b).reshape(1, -1))
+        bf = _f32(net.biases[-1])[None]
         params.append(_scatter_cols(bf[:, :a], ax))
         params.append(_scatter_cols(bf[:, a:], ax))
     op = ("coupling", "joint", dirn, n_layers, 0, net.activation,
@@ -310,15 +317,21 @@ def chain_is_fusable(chain, d: int, n: int) -> bool:
 
 
 def _require_kernel_limits(chain, d: int, n: int, device) -> None:
-    """Raise for a fusable chain the kernels cannot run: parameters that are
-    not float32, or, for a CUDA device, a hidden width whose smallest row
-    tile does not fit a block's shared memory."""
+    """Raise for a fusable chain the kernels cannot run: conditioner
+    parameters that are neither float32 nor bfloat16 (bfloat16 ones are
+    upcast as they are packed), other parameters that are not float32, or,
+    for a CUDA device, a hidden width whose smallest row tile does not fit a
+    block's shared memory."""
+    nets = {id(p) for layer in _iter_layers(chain, "fwd")
+            for net in _conditioner_nets(layer) for p in net.parameters()}
     for name, t in chain.named_parameters():
-        if t.dtype != torch.float32:
+        ok = ((torch.float32, torch.bfloat16) if id(t) in nets
+              else (torch.float32,))
+        if t.dtype not in ok:
             raise TypeError(
-                f"the chain kernels are float32 only: parameter {name} is "
-                f"{t.dtype} (set_fused_kernels(False) selects the per-layer "
-                "path)")
+                f"the chain kernels are float32 only (bfloat16 conditioners "
+                f"are upcast): parameter {name} is {t.dtype} "
+                "(set_fused_kernels(False) selects the per-layer path)")
     if torch.device(device).type == "cuda":
         hmax4 = (_max_hidden(chain) + 3) & ~3
         pick_tile_rows(d, n, hmax4 + 4 if hmax4 else 0)

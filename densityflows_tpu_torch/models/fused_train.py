@@ -139,9 +139,21 @@ def _check_net(net):
     if len(net.weights) < 2:
         raise UnsupportedFusedTrain("single-dense conditioners unsupported")
     for t in list(net.weights) + list(net.biases):
-        if t.dtype != torch.float32:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise UnsupportedFusedTrain(
-                f"the train kernel is float32 only (got {t.dtype})")
+                f"the train kernel takes float32 or bfloat16 conditioners "
+                f"(got {t.dtype})")
+
+
+def _f32(t):
+    """A trainable tensor for the kernel: detached, float32; bfloat16
+    (conditioners stored by ``cast_conditioners``) is upcast as the JAX
+    package's packers upcast it, any other dtype raises."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise UnsupportedFusedTrain(
+            f"the train kernel takes float32 or bfloat16 tensors (got "
+            f"{t.dtype})")
+    return t.detach().float()
 
 
 def _scatter_rows(w, d, idx):
@@ -425,8 +437,7 @@ def chain_train_fold(chain):
         return plan, tcounts, tparams, masks_dense, cparams
 
     with torch.no_grad():
-        plan, tcounts, tparams, masks_dense, cparams = fold(
-            lambda p: p.detach())
+        plan, tcounts, tparams, masks_dense, cparams = fold(_f32)
     if not any(tcounts):
         raise UnsupportedFusedTrain("no trainable layers")
 
@@ -474,7 +485,8 @@ def chain_train_fold(chain):
                 f"trainable leaves, got {len(values)}")
         by_id = {id(t): v for t, v in zip(leaves, values)}
         with torch.no_grad():
-            return fold(lambda p: by_id[id(p)].detach().to(p.device))[2]
+            return fold(lambda p: by_id[id(p)].detach().to(p.device,
+                                                          torch.float32))[2]
 
     return (tuple(plan), tuple(tcounts), tparams, masks, tuple(mask_slots),
             cparams, fold_state, unfold)

@@ -15,12 +15,18 @@ Under ``set_fused_kernels(True)`` every RNVP / NICE coupling call takes the
 per-layer fused kernels (``ops/coupling_kernels.py``: ``coupling_fwd``, and
 ``coupling_bwd`` for its gradient), as the JAX layers take their Pallas
 kernels. The spline coupling layer has no kernel: it runs in plain PyTorch
-under every policy, as in the JAX package. Not in this package yet: bf16
-conditioners.
+under every policy, as in the JAX package.
+
+``cast_conditioners`` casts the conditioner networks (every ``MLP`` /
+``MaskedMLP``) to another dtype, bfloat16 by default: ``apply_mlp`` then
+computes in bfloat16, while the transform constants stay float32. The
+kernels upcast such weights to float32 as they pack them, as the JAX
+package's kernels do.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import numpy as np
@@ -36,8 +42,56 @@ from ..ops.spline import n_spline_params, rq_spline
 __all__ = [
     "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
     "RQSCouplingLayer", "coupling_layer", "set_fused_kernels",
-    "use_fused_chain", "use_fused",
+    "use_fused_chain", "use_fused", "cast_conditioners",
 ]
+
+
+def _is_net(module) -> bool:
+    from ..ops.made import MaskedMLP
+
+    return isinstance(module, (MLP, MaskedMLP))
+
+
+def cast_conditioners(model, dtype=torch.bfloat16):
+    """A copy of ``model`` whose conditioner-network parameters (every
+    :class:`MLP` / ``MaskedMLP`` subtree) are cast to ``dtype``; transform
+    constants (normalization / ActNorm scales, LU factors, logit and spline
+    bounds) keep their dtype. The caller's model is not modified.
+
+    :func:`~densityflows_tpu_torch.ops.mlp.apply_mlp` computes in the
+    weights' dtype, so bfloat16 conditioners run bfloat16 products while
+    s / t / ldj and the loss stay float32. ``train(mixed_precision=True)``
+    applies the same cast inside the loss (master parameters, gradients and
+    the optimizer state stay float32)."""
+    out = copy.deepcopy(model)
+    for net in [m for m in out.modules() if _is_net(m)]:
+        for sub in net.modules():
+            for name, p in list(sub._parameters.items()):
+                if p is not None and p.is_floating_point():
+                    sub._parameters[name] = nn.Parameter(
+                        p.detach().to(dtype), requires_grad=p.requires_grad)
+    return out
+
+
+def _cast_in_graph(model, dtype=torch.bfloat16):
+    """``cast_conditioners`` for a loss: a structural copy of ``model`` that
+    shares every tensor but the conditioner parameters, which it holds as
+    differentiable casts of the originals (gradients flow back to them in
+    their own dtype)."""
+    def view(module, in_net):
+        in_net = in_net or _is_net(module)
+        c = copy.copy(module)
+        c.__dict__.pop("_fused_plan_cache", None)  # the originals' plans
+        c.__dict__["_parameters"] = {
+            k: (p.to(dtype) if in_net and p is not None
+                and p.is_floating_point() else p)
+            for k, p in module._parameters.items()}
+        c.__dict__["_modules"] = {k: (view(m, in_net) if m is not None
+                                      else None)
+                                  for k, m in module._modules.items()}
+        return c
+
+    return view(model, False)
 
 # Kernel policy. "auto" routes every fusable chain through the CUDA chain
 # kernels when the data is on a CUDA device, and never takes the per-layer

@@ -25,8 +25,9 @@ Kernels (``csrc/coupling_kernels.cu``, built by ``_build.py`` at first use):
 
 A wrapper uses its plain version (:func:`coupling_fwd_plain`,
 :func:`coupling_bwd_plain`) only for tensors that lie on the CPU; for CUDA
-tensors it launches the kernel or raises. The kernels are float32 only: any
-other dtype raises ``TypeError``. ``coupling_fwd.launches``,
+tensors it launches the kernel or raises. The kernels are float32 only:
+``fused_coupling`` upcasts bfloat16 weights and biases (conditioners stored
+by ``cast_conditioners``), and any other dtype raises ``TypeError``. ``coupling_fwd.launches``,
 ``coupling_bwd.launches`` (the products and the pullback) and
 ``coupling_bwd.reduce_launches`` count kernel launches (:func:`launch_counts`).
 
@@ -835,7 +836,7 @@ def fused_coupling(s_net, t_net, h, y_af, *, direction, with_ldj=True):
     ``'inverse'``). ``s_net=None`` selects the NICE (additive) transform.
     Returns ``(y_out, ldj)`` with ldj of shape (B,), or just ``y_out`` when
     ``with_ldj=False``. Differentiable in ``h``, ``y_af`` and every weight
-    and bias; float32 only.
+    and bias; float32, with bfloat16 weights and biases upcast to it.
     """
     _check_direction(direction)
     ws_t, bs_t, act_t = _net_params(t_net)
@@ -847,7 +848,11 @@ def fused_coupling(s_net, t_net, h, y_af, *, direction, with_ldj=True):
     for name, x in (("h", h), ("y_af", y_af)):
         _require_f32(x, name)
     for i, p in enumerate(params):
-        _require_f32(p, f"conditioner parameter {i}")
+        if p.dtype != torch.bfloat16:
+            _require_f32(p, f"conditioner parameter {i}")
+    # bfloat16 conditioners are upcast (differentiably) to the kernels'
+    # float32, as the JAX kernels upcast them inside
+    params = [p.float() for p in params]
     spec = _Spec(direction, bool(with_ldj), len(ws_s), len(bs_s), act_s,
                  len(ws_t), len(bs_t), act_t)
     return _FusedCoupling.apply(spec, h, y_af, *params)

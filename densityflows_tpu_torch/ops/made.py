@@ -129,7 +129,8 @@ def apply_made(net: MaskedMLP, h: torch.Tensor) -> torch.Tensor:
     a = h
     for i, (w, b, m) in enumerate(zip(net.weights, net.biases,
                                       net.masks(h.device))):
-        a = a @ (w * m) + b
+        # in the weights' dtype, as apply_mlp; one cast back at the output
+        a = a.to(w.dtype) @ (w * m.to(w.dtype)) + b
         if i < n - 1:
             a = act(a)
-    return a
+    return a.to(h.dtype)

@@ -108,17 +108,22 @@ def init_mlp(
 
 
 def apply_mlp(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
-    """Apply the MLP along the last axis: (batch..., in) → (batch..., out)."""
+    """Apply the MLP along the last axis: (batch..., in) → (batch..., out).
+
+    Compute runs in the WEIGHTS' dtype: the input is cast once to it, bias
+    and activation stay in it between layers, and the output is cast back
+    to ``x.dtype`` once at the end (bfloat16 conditioners: bfloat16 products
+    forward and backward)."""
     act = ACTIVATIONS[mlp.activation]
     n = len(mlp.weights)
     h = x
     for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
-        h = h @ w
+        h = h.to(w.dtype) @ w
         if b.shape[0]:
             h = h + b
         if i < n - 1:  # final layer is linear
             h = act(h)
-    return h
+    return h.to(x.dtype)
 
 
 def count_params(mlp: MLP) -> int:

@@ -67,7 +67,7 @@ __all__ = [
     "TRAIN_ACTS", "train_op_param_count", "folded_batch_grads",
     "fused_train_plain", "PackedTrainPlan", "pack_train_plan",
     "packed_batch_grads", "packed_train_reference", "run_fused_train",
-    "pad_epoch_perms", "run_phase_names", "run_layout", "MAX_SHARED_BYTES",
+    "run_fused_train_members", "pad_epoch_perms", "run_phase_names", "run_layout", "MAX_SHARED_BYTES",
 ]
 
 TRAIN_ACTS = ("relu", "tanh", "sigmoid", "identity")
@@ -1386,11 +1386,11 @@ def _library():
         from .._build import load_library
 
         lib = load_library("train_kernels")
-        lib.df_train_run.argtypes = [
+        lib.df_train_run_members.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.df_train_run.restype = ctypes.c_int
+            ctypes.c_int, ctypes.c_void_p]
+        lib.df_train_run_members.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -1464,23 +1464,30 @@ def _device_f32(t, name, shape, device):
     return t.contiguous()
 
 
-def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
-               theta, x_valid, theta_valid, epoch_perms, *, batchsize, count0,
-               lr, b1, b2, eps, track_best, w, w_valid, guard_nonfinite,
-               packed, threads):
+def _train_run_members(launch, plan, tparams, masks, mask_slots, cparams, mu,
+                       nu, x, theta, x_valid, theta_valid, epoch_perms, *,
+                       batchsize, count0, lr, b1, b2, eps, track_best, w,
+                       w_valid, guard_nonfinite, packed, threads):
     """Check the arguments, lay out the buffers on ``x``'s device and hand
-    them to ``launch(ptrs, iargs, fargs, threads, shared_bytes) → error
-    code``, the C entry point of ``csrc/train_kernels.cu``."""
+    them to ``launch(ptrs, iargs, fargs, members, threads, shared_bytes) →
+    error code``, the C entry point of ``csrc/train_kernels.cu``.
+    ``tparams`` / ``mu`` / ``nu`` / ``epoch_perms``: one entry per member,
+    laid out one member after another; returns one result tuple per
+    member."""
     device = x.device
     n_rows, d = x.shape
     n_valid = x_valid.shape[0]
     n_cond = theta.shape[-1] if theta is not None else 0
+    members = len(tparams)
+    if members < 1 or not len(mu) == len(nu) == len(epoch_perms) == members:
+        raise ValueError(
+            "pass one entry of tparams, mu, nu and epoch_perms per member")
     if (w is None) != (w_valid is None):
         raise ValueError("pass both w and w_valid, or neither")
     if n_rows == 0 or n_valid == 0:
         raise ValueError("empty training or validation split")
     if packed is None:
-        packed = pack_train_plan(plan, tparams, masks, mask_slots, cparams,
+        packed = pack_train_plan(plan, tparams[0], masks, mask_slots, cparams,
                                  d, n_cond, batchsize)
     if (packed.plan != tuple(plan) or packed.d != d or packed.n != n_cond
             or packed.batchsize != batchsize):
@@ -1492,8 +1499,10 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
     if packed.eval_prog is None:
         raise ValueError("packed plan has no evaluation program: lower it "
                          "with state_in_shared=True")
-    idx = pad_epoch_perms(epoch_perms, n_rows, batchsize)
-    epochs, n_pad = idx.shape
+    idx = [pad_epoch_perms(p, n_rows, batchsize) for p in epoch_perms]
+    epochs, n_pad = idx[0].shape
+    if any(i.shape != (epochs, n_pad) for i in idx):
+        raise ValueError("every member needs as many epochs")
     if epochs == 0:
         raise ValueError("epochs must be at least 1")
     if threads is None:
@@ -1512,18 +1521,19 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
         w = _device_f32(w.reshape(-1), "w", (n_rows,), device)
         w_valid = _device_f32(w_valid.reshape(-1), "w_valid", (n_valid,),
                               device)
-    flat = {name: _device_f32(packed.flatten(ts), name, (packed.n_params,),
-                              device)
-            for name, ts in (("params", tparams), ("mu", mu), ("nu", nu))}
+    flat = {name: _stack_members(packed, per_member, name, device)
+            for name, per_member in (("params", tparams), ("mu", mu),
+                                     ("nu", nu))}
     if packed.prog.device != device:
         raise ValueError(
             f"plan parameters are on {packed.prog.device}, data on {device}")
-    perm = torch.as_tensor(idx, device=device)
+    perm = torch.as_tensor(np.stack(idx), device=device)
     f32 = dict(dtype=torch.float32, device=device)
-    out = {name: torch.empty(packed.n_params, **f32)
+    out = {name: torch.empty(members, packed.n_params, **f32)
            for name in ("params", "mu", "nu")}
-    hist = {name: torch.empty(epochs, **f32) for name in ("t", "v", "s")}
-    best = torch.empty(packed.n_params if track_best else 0, **f32)
+    hist = {name: torch.empty(members, epochs, **f32)
+            for name in ("t", "v", "s")}
+    best = torch.empty(members, packed.n_params if track_best else 0, **f32)
 
     def ptr(t):
         return t.data_ptr() if t is not None and t.numel() else None
@@ -1541,25 +1551,42 @@ def _train_run(launch, plan, tparams, masks, mask_slots, cparams, mu, nu, x,
     hp = _adam_scalars(lr, b1, b2, eps)
     fargs = (ctypes.c_float * 8)(*(float(hp[k]) for k in (
         "lr", "b1", "b2", "eps", "omb1", "omb2", "logb1", "logb2")))
-    err = launch(ptrs, iargs, fargs, int(threads), packed.shared_bytes)
+    err = launch(ptrs, iargs, fargs, members, int(threads),
+                 packed.shared_bytes)
     if err != 0:
         raise RuntimeError(f"train_run launch failed (CUDA error {err})")
+    # each output tensor once for all members (one copy a folded tensor),
+    # member k's the views [k]
+    params, mus, nus = (_unstack_members(packed, out[name])
+                        for name in ("params", "mu", "nu"))
+    bests = _unstack_members(packed, best) if track_best else None
     skips = hist["s"].to(torch.int32) if guard_nonfinite else None
-    return (packed.unflatten(out["params"]), packed.unflatten(out["mu"]),
-            packed.unflatten(out["nu"]), hist["t"], hist["v"],
-            packed.unflatten(best) if track_best else None, skips)
+    return [([t[k] for t in params], [t[k] for t in mus],
+             [t[k] for t in nus], hist["t"][k], hist["v"][k],
+             [t[k] for t in bests] if track_best else None,
+             skips[k] if guard_nonfinite else None)
+            for k in range(members)]
 
 
-def _launch_train_run(plan, tparams, masks, mask_slots, cparams, mu, nu, x,
-                      *data, threads, **kw):
-    """``train_run`` on the current stream of ``x``'s CUDA device;
-    ``threads=None`` takes :func:`_block_threads`."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        return _train_run(
-            lambda *a: _library().df_train_run(*a, stream), plan, tparams,
-            masks, mask_slots, cparams, mu, nu, x, *data, threads=threads,
-            **kw)
+def _stack_members(packed, per_member, name, device):
+    """``(K, n_params)``: the members' folded tensors in the packed order,
+    one stack a folded tensor and one concatenation, whatever K."""
+    for ts in per_member:
+        if len(ts) != len(packed.shapes):
+            raise ValueError(f"expected {len(packed.shapes)} folded tensors, "
+                             f"got {len(ts)}")
+        for t, shape in zip(ts, packed.shapes):
+            _device_f32(t, name, shape, device)
+    return torch.cat([torch.stack([ts[j].reshape(-1) for ts in per_member])
+                      for j in range(len(packed.shapes))], 1).contiguous()
+
+
+def _unstack_members(packed, flat):
+    """The inverse of :func:`_stack_members`: one ``(K, *shape)`` tensor a
+    folded tensor."""
+    k = flat.shape[0]
+    return [flat[:, o:o + int(np.prod(s))].reshape((k,) + tuple(s)).clone()
+            for o, s in zip(packed.offsets, packed.shapes)]
 
 
 def run_fused_train(plan, tparams, masks, mask_slots, cparams, mu, nu, x,
@@ -1589,21 +1616,50 @@ def run_fused_train(plan, tparams, masks, mask_slots, cparams, mu, nu, x,
     raises when the block's working set exceeds the shared memory of one
     block; on CPU tensors it runs :func:`fused_train_plain`.
     """
+    return run_fused_train_members(
+        plan, [tparams], masks, mask_slots, cparams, [mu], [nu], x, theta,
+        x_valid, theta_valid, [epoch_perms], batchsize=batchsize,
+        count0=count0, lr=lr, b1=b1, b2=b2, eps=eps, track_best=track_best,
+        w=w, w_valid=w_valid, guard_nonfinite=guard_nonfinite,
+        packed=packed)[0]
+
+
+run_fused_train.launches = 0
+
+
+def run_fused_train_members(plan, tparams, masks, mask_slots, cparams, mu, nu,
+                            x, theta, x_valid, theta_valid, epoch_perms, *,
+                            batchsize, count0=0, lr=1e-3, b1=0.9, b2=0.999,
+                            eps=1e-8, track_best=False, w=None, w_valid=None,
+                            guard_nonfinite=False, packed=None):
+    """K independent runs of one plan, as :func:`run_fused_train` runs one:
+    ``tparams`` / ``mu`` / ``nu`` / ``epoch_perms`` hold one entry per
+    member (its folded tensors, its moments, its ``(epochs, n)`` batch
+    order); the rows, weights, constants and hyperparameters are shared.
+    Returns one :func:`run_fused_train` result tuple per member.
+
+    On CUDA tensors this is ONE launch of ``train_run`` with K blocks, block
+    k training member k with the body a one-member launch runs, so member k
+    equals its own :func:`run_fused_train` bit for bit. On CPU tensors it
+    runs :func:`fused_train_plain` once per member."""
     device = x.device
     kw = dict(batchsize=batchsize, count0=count0, lr=lr, b1=b1, b2=b2,
               eps=eps, track_best=track_best, w=w, w_valid=w_valid,
               guard_nonfinite=guard_nonfinite)
     if device.type == "cpu":
-        return fused_train_plain(plan, tparams, masks, mask_slots, cparams,
-                                 mu, nu, x, theta, x_valid, theta_valid,
-                                 epoch_perms, **kw)
+        if not len(mu) == len(nu) == len(epoch_perms) == len(tparams):
+            raise ValueError("pass one entry of tparams, mu, nu and "
+                             "epoch_perms per member")
+        return [fused_train_plain(plan, tp, masks, mask_slots, cparams, m,
+                                  v, x, theta, x_valid, theta_valid, p, **kw)
+                for tp, m, v, p in zip(tparams, mu, nu, epoch_perms)]
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    out = _launch_train_run(plan, tparams, masks, mask_slots, cparams, mu, nu,
-                            x, theta, x_valid, theta_valid, epoch_perms,
-                            packed=packed, threads=None, **kw)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = _train_run_members(
+            lambda *a: _library().df_train_run_members(*a, stream), plan,
+            tparams, masks, mask_slots, cparams, mu, nu, x, theta, x_valid,
+            theta_valid, epoch_perms, packed=packed, threads=None, **kw)
     run_fused_train.launches += 1
     return out
-
-
-run_fused_train.launches = 0

@@ -39,8 +39,14 @@ single-device one batch for batch. Two programs do that:
 - the **plain program** with an all-reduce of the autograd gradients, for
   runs outside the kernel's envelope.
 
-Not ported yet (the arguments exist and raise ``NotImplementedError``):
-``remat`` and ``mixed_precision`` (ROADMAP A13).
+Precision and memory options of the plain program: ``remat=True`` runs
+each layer of a chain under ``torch.utils.checkpoint`` (its activations are
+recomputed in the backward pass), ``mixed_precision=True`` casts the
+conditioner networks to bfloat16 inside the loss
+(``models.layers.cast_conditioners``); master parameters, gradients, the
+optimizer state and the epoch histories stay float32. The kernels implement
+neither: under ``"auto"`` such a run takes the plain program with the
+decline recorded, and ``fused_kernel=True`` with either raises.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .data import DataArrays, normalize_input
 from .models.flow import Flow, _chain_eval
@@ -116,16 +123,23 @@ class Adam:
                          [torch.zeros_like(p) for p in params])
 
     def update(self, grads, state: AdamState, params=None):
+        # one multi-tensor launch per operation over all the leaves; each
+        # element is rounded as b1·m + (1 − b1)·g, b2·v + (1 − b2)·g²,
+        # −lr · ((m / bc1) / (√(v / bc2) + eps)) written out leaf by leaf
         count = state.count + 1
         bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
-        mu = [self.b1 * m + (1.0 - self.b1) * g
-              for m, g in zip(state.mu, grads)]
-        nu = [self.b2 * v + (1.0 - self.b2) * (g * g)
-              for v, g in zip(state.nu, grads)]
-        updates = [-self.learning_rate * ((m / bc1)
-                                          / (torch.sqrt(v / bc2) + self.eps))
-                   for m, v in zip(mu, nu)]
-        return updates, AdamState(count, mu, nu)
+        grads = list(grads)
+        mu = torch._foreach_add(torch._foreach_mul(list(state.mu), self.b1),
+                                torch._foreach_mul(grads, 1.0 - self.b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(list(state.nu), self.b2),
+            torch._foreach_mul(torch._foreach_mul(grads, grads),
+                               1.0 - self.b2))
+        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(den, self.eps)
+        updates = list(torch._foreach_div(torch._foreach_div(mu, bc1), den))
+        torch._foreach_mul_(updates, -self.learning_rate)
+        return updates, AdamState(count, list(mu), list(nu))
 
     def __repr__(self):
         return (f"adam(learning_rate={self.learning_rate}, b1={self.b1}, "
@@ -138,7 +152,7 @@ def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return Adam(learning_rate, b1=b1, b2=b2, eps=eps)
 
 
-def _not_ported(remat=False, mixed_precision=False, mesh=None):
+def _not_ported(mesh=None):
     if mesh is not None:
         from .parallel.mesh import Mesh
 
@@ -147,9 +161,6 @@ def _not_ported(remat=False, mixed_precision=False, mesh=None):
                 "mesh= takes the data-parallel Mesh of parallel.mesh."
                 "make_mesh(); any other mesh (a 'model' axis, tensor "
                 "parallelism: ROADMAP A9) is not ported")
-    if remat or mixed_precision:
-        raise NotImplementedError(
-            "remat / mixed_precision are not ported yet (ROADMAP A13)")
 
 
 def _write_metrics(metrics_log, flow, epochs):
@@ -175,12 +186,41 @@ def masked_nll_loss(model, base, x, theta, mask, *, remat: bool = False,
     −Σ mᵢ·log p(xᵢ|θᵢ) / max(Σ mᵢ, 1e-12), so non-0/1 masks give the
     importance-weighted NLL and the all-ones mask the plain one. The epsilon
     only guards the all-padded batch, whose numerator is exactly 0.
+
+    ``remat=True`` runs each layer's inverse of a chain (the whole model's,
+    for any other model) under ``torch.utils.checkpoint``: the backward pass
+    recomputes one layer's activations at a time instead of keeping the
+    whole chain's. ``mixed_precision=True`` casts the conditioner networks
+    to bfloat16 inside the loss (``cast_conditioners``); the gradients come
+    back to the float32 parameters through the cast, and s / t, ldj and the
+    loss stay float32.
     """
-    _not_ported(remat, mixed_precision)
-    z, ldj = model.inverse(x, theta)
+    z, ldj = _loss_inverse(model, x, theta, remat, mixed_precision)
     per_sample = base.log_prob(z) + ldj
     denom = torch.clamp(mask.sum(), min=1e-12)
     return -(per_sample * mask).sum() / denom
+
+
+def _loss_inverse(model, x, theta, remat=False, mixed_precision=False):
+    """``model.inverse(x, theta)`` under the loss options of
+    :func:`masked_nll_loss`."""
+    if mixed_precision:
+        from .models.layers import _cast_in_graph
+
+        model = _cast_in_graph(model, torch.bfloat16)
+    if not remat:
+        return model.inverse(x, theta)
+    from .models.chains import FlowChain
+
+    if isinstance(model, FlowChain):
+        # one layer at a time, in the inverse order, as FlowChain.inverse
+        y, ldj = x, None
+        for layer in reversed(model.layers):
+            y, ldj_i = checkpoint(layer.inverse, y, theta,
+                                  use_reentrant=False)
+            ldj = ldj_i if ldj is None else ldj + ldj_i
+        return y, ldj
+    return checkpoint(model.inverse, x, theta, use_reentrant=False)
 
 
 def _eval_nll(model, base, x, theta):
@@ -216,15 +256,18 @@ def _autograd(model, loss_fn):
     return loss.detach(), leaves, grads
 
 
-def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None):
+def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None,
+                    remat=False, mixed_precision=False):
     """Loss and autograd gradients of one batch. With a ``mesh``, ``x`` is
     this rank's shard: the loss is normalized by the global denominator, and
     loss and gradients are summed over the ranks (one all-reduce of one
-    buffer), which gives every rank the whole batch's values."""
+    buffer), which gives every rank the whole batch's values. ``remat`` /
+    ``mixed_precision``: as in :func:`masked_nll_loss`."""
     def loss_fn():
         if mesh is None and denom is None:
-            return masked_nll_loss(model, base, x, theta, mask)
-        z, ldj = model.inverse(x, theta)
+            return masked_nll_loss(model, base, x, theta, mask, remat=remat,
+                                   mixed_precision=mixed_precision)
+        z, ldj = _loss_inverse(model, x, theta, remat, mixed_precision)
         den = torch.clamp(_global_denominator(mask, mesh, denom), min=1e-12)
         return -((base.log_prob(z) + ldj) * mask).sum() / den
 
@@ -254,16 +297,17 @@ def make_train_step(optimizer, *, remat: bool = False,
     With a ``mesh`` the step is data-parallel: every rank passes ITS rows of
     the batch, the loss is normalized by the global ``Σ mask`` (``denom``
     when the caller has it already), and the autograd gradients are summed
-    over the ranks before the update; the returned loss is the global one."""
-    _not_ported(remat, mixed_precision)
+    over the ranks before the update; the returned loss is the global one.
+    ``remat`` / ``mixed_precision``: as in :func:`masked_nll_loss`."""
+    _not_ported(mesh)
 
     def train_step(model, opt_state, base, x, theta, mask, denom=None):
         loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask,
-                                              mesh, denom)
+                                              mesh, denom, remat,
+                                              mixed_precision)
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         with torch.no_grad():
-            for p, u in zip(leaves, updates):
-                p.add_(u)
+            torch._foreach_add_(leaves, list(updates))
         return model, opt_state, loss
 
     return train_step
@@ -328,8 +372,11 @@ def make_train_program(
       rows (``parallel.mesh.host_local_rows``) and the ranks sum loss and
       gradients, so every rank applies the whole batch's update. The
       full-split evaluations run on every rank in full.
+    - ``remat`` / ``mixed_precision``: the batch losses as in
+      :func:`masked_nll_loss`; the epoch evaluations stay plain float32
+      (the histories are the record).
     """
-    _not_ported(remat, mixed_precision)
+    _not_ported(mesh)
     local = slice(None)
     if mesh is not None:
         from .parallel.mesh import host_local_rows
@@ -355,15 +402,15 @@ def make_train_program(
                 if weighted:
                     m = m * w[rows]
                 loss, leaves, grads = _loss_and_grads(
-                    model, base, x[rows], theta[rows], m, mesh)
+                    model, base, x[rows], theta[rows], m, mesh,
+                    remat=remat, mixed_precision=mixed_precision)
                 if guard_nonfinite and not _all_finite(loss, grads):
                     e_skips += 1
                     continue
                 updates, opt_state = optimizer.update(grads, opt_state,
                                                       leaves)
                 with torch.no_grad():
-                    for p, u in zip(leaves, updates):
-                        p.add_(u)
+                    torch._foreach_add_(leaves, list(updates))
             with torch.no_grad():
                 tl = float(masked_nll_loss(model, base, x, theta,
                                            w if weighted else ones_t))
@@ -642,7 +689,7 @@ def _train_with_checkpoints(
     flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
     generator, debug, checkpoint_dir, checkpoint_every, resume,
     metrics_log=None, weights=None, skip_nonfinite=False, epoch_perms=None,
-    mesh=None,
+    mesh=None, remat=False, mixed_precision=False,
 ):
     """Chunked training with checkpoint-restart recovery: chunks of
     ``checkpoint_every`` epochs with a full checkpoint (model + optimizer
@@ -678,7 +725,8 @@ def _train_with_checkpoints(
             batchsize=batchsize, shuffle=shuffle, verbose=verbose,
             generator=_chunk_generator(seed, done), debug=debug,
             metrics_log=metrics_log, weights=weights,
-            skip_nonfinite=skip_nonfinite, mesh=mesh,
+            skip_nonfinite=skip_nonfinite, mesh=mesh, remat=remat,
+            mixed_precision=mixed_precision,
             _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
         done += chunk
         # every rank holds the same model and state: rank 0 writes
@@ -693,7 +741,7 @@ def _train_early_stopping(
     flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
     generator, debug, patience, min_delta, check_every, restore_best,
     metrics_log, weights=None, skip_nonfinite=False, epoch_perms=None,
-    mesh=None,
+    mesh=None, remat=False, mixed_precision=False,
 ):
     """Chunked training with validation-based early stopping. Between chunks
     of ``check_every`` epochs the host inspects the validation-loss tail and
@@ -715,7 +763,8 @@ def _train_early_stopping(
             generator=_chunk_generator(seed, done), debug=debug,
             metrics_log=metrics_log, weights=weights,
             skip_nonfinite=skip_nonfinite, _track_best=restore_best,
-            mesh=mesh, _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
+            mesh=mesh, remat=remat, mixed_precision=mixed_precision,
+            _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
         opt_state, chunk_best = res if restore_best else (res, None)
         done += chunk
         tail = flow.valid_loss[-chunk:]
@@ -890,11 +939,16 @@ def train(
     mesh forces the step-kernel program (on a CPU flow: the kernel's plain
     version) or raises.
 
+    ``remat`` / ``mixed_precision`` (see :func:`masked_nll_loss`) are
+    options of the plain program: under ``"auto"`` such a run takes it with
+    the decline recorded ("off-kernel training surface"); with
+    ``fused_kernel=True`` they raise ``ValueError``.
+
     ``flow.trained_path`` is ``"fused"``, ``"fused-step-mesh"`` or
     ``"torch"`` after the call. A kernel that fails to build or launch
     raises; nothing turns such a failure into a run on the other path.
     """
-    _not_ported(remat, mixed_precision, mesh)
+    _not_ported(mesh)
     requested = fused_kernel
     # Adam hyperparameters the kernel can honor: None → Adam(1e-3); an
     # adam(...) → its lr/b1/b2/eps. Exact-type check: an Adam SUBCLASS may
@@ -935,6 +989,8 @@ def train(
         blocked = [name for name, flag in (
             ("mesh", mesh is not None),
             ("debug", debug),
+            ("remat", remat),
+            ("mixed_precision", mixed_precision),
             ("optimizer other than adam(...)",
              optimizer is not None and type(optimizer) is not Adam),
         ) if flag]
@@ -954,12 +1010,12 @@ def train(
                 note_decline(f"outside the kernel envelope: {e}", warn=True)
         fused_kernel = False
     if fused_kernel:
-        if (debug or checkpoint_dir is not None
+        if (remat or mixed_precision or debug or checkpoint_dir is not None
                 or early_stopping_patience is not None):
             raise ValueError(
                 "fused_kernel=True supports the plain training surface only "
-                "(no debug/checkpointing/early stopping) — drop fused_kernel "
-                "to use the plain program")
+                "(no remat/mixed_precision/debug/checkpointing/early "
+                "stopping) — drop fused_kernel to use the plain program")
         if optimizer is not None and type(optimizer) is not Adam:
             raise ValueError(
                 "fused_kernel=True uses the built-in Adam update; pass an "
@@ -984,7 +1040,8 @@ def train(
                          or min(early_stopping_patience, 10)),
             restore_best=restore_best, metrics_log=metrics_log,
             weights=weights, skip_nonfinite=skip_nonfinite,
-            epoch_perms=_epoch_perms, mesh=mesh)
+            epoch_perms=_epoch_perms, mesh=mesh, remat=remat,
+            mixed_precision=mixed_precision)
     if checkpoint_dir is not None:
         return _train_with_checkpoints(
             flow, data, optimizer, opt_state, epochs=epochs,
@@ -993,7 +1050,7 @@ def train(
             checkpoint_every=checkpoint_every, resume=resume,
             metrics_log=metrics_log, weights=weights,
             skip_nonfinite=skip_nonfinite, epoch_perms=_epoch_perms,
-            mesh=mesh)
+            mesh=mesh, remat=remat, mixed_precision=mixed_precision)
     if optimizer is None:
         optimizer = Adam()
 
@@ -1010,6 +1067,7 @@ def train(
                 generator=_chunk_generator(seed, done), debug=True,
                 metrics_log=metrics_log, weights=weights,
                 skip_nonfinite=skip_nonfinite, fused_kernel=False, mesh=mesh,
+                remat=remat, mixed_precision=mixed_precision,
                 _epoch_perms=_chunk_perms(_epoch_perms, done, chunk))
             done += chunk
         return opt_state
@@ -1048,7 +1106,7 @@ def train(
         # its moments)
         forced = requested is True
         wanted = forced or (requested == "auto" and dev.type == "cuda"
-                            and not debug)
+                            and not (debug or remat or mixed_precision))
         if wanted and type(optimizer) is Adam:
             try:
                 if opt_state is not None \
@@ -1085,7 +1143,8 @@ def train(
         opt_state = optimizer.init(trainable_leaves(model))
 
     program = make_train_program(
-        optimizer, batchsize, epochs, shuffle, weighted=weights is not None,
+        optimizer, batchsize, epochs, shuffle, remat=remat,
+        mixed_precision=mixed_precision, weighted=weights is not None,
         track_best=_track_best, guard_nonfinite=skip_nonfinite, mesh=mesh)
     t0 = time.perf_counter()
     if weights is not None:

@@ -21,6 +21,16 @@ The leaf order of an element is the field order of the JAX dataclass:
 ``PermutationLayer`` and ``StandardNormal``: none; containers: their
 children in order.
 
+Dtypes: float32, and bfloat16 for the conditioners that
+``models.layers.cast_conditioners`` casts. A bfloat16 leaf is stored as its
+2-byte raw values (``|V2`` in the npz, the bytes the JAX package writes) and
+read back through the dtype its element's spec names.
+
+Ensembles: ``save_ensemble`` writes ``ensemble.json`` (the member spec, the
+base spec, metadata and the ``(epochs, K)`` histories), ``stacked.npz``
+(every member leaf with a leading K axis, the JAX package's stacked pytree)
+and ``base.npz``.
+
 Optimizer state: ``save_flow(dir, flow, opt_state)`` writes ``opt_state.npz``
 in the leaf order of the JAX package's ``optax.adam`` state — the int32
 count, then one first-moment array per model leaf, then one second-moment
@@ -64,7 +74,8 @@ from ..ops.made import MaskedMLP, made_masks
 from ..ops.mlp import MLP
 
 __all__ = [
-    "save_flow", "load_flow", "save_element", "load_element",
+    "save_flow", "load_flow", "save_ensemble", "load_ensemble",
+    "save_element", "load_element",
     "element_spec", "element_from_spec", "element_leaves",
     "set_element_leaves", "register_element",
     "adam_state_to_leaves", "adam_state_from_leaves",
@@ -151,16 +162,42 @@ def set_element_leaves(el, arrays) -> None:
     with torch.no_grad():
         for leaf, a in zip(leaves, arrays):
             if not isinstance(a, torch.Tensor):
-                a = torch.as_tensor(np.array(a))  # a writable copy
+                a = _array_tensor(a)
             if tuple(a.shape) != tuple(leaf.shape):
                 raise ValueError(
                     f"leaf shape {tuple(leaf.shape)} != array shape "
                     f"{tuple(a.shape)}")
-            if a.dtype != torch.float32:
+            if a.dtype not in _DTYPES.values():
                 raise TypeError(
-                    f"checkpoint arrays must be float32, got {a.dtype} "
-                    "(bf16 conditioners are not ported yet, ROADMAP A13)")
+                    f"checkpoint arrays must be float32 or bfloat16, got "
+                    f"{a.dtype}")
+            if a.dtype != leaf.dtype:
+                raise TypeError(
+                    f"a {a.dtype} array for a {leaf.dtype} leaf: the spec "
+                    "names the leaf's dtype")
             leaf.copy_(a)
+
+
+def _array_tensor(a) -> torch.Tensor:
+    """A writable tensor copy of a numpy array. A bfloat16 leaf comes as
+    2-byte raw values (``|V2``: what ``np.load`` gives for a bfloat16 array
+    written by the JAX package) or as an ``ml_dtypes`` bfloat16 array; both
+    carry the bfloat16 bits, which are taken as they are."""
+    a = np.asarray(a)
+    if (a.dtype.kind == "V" and a.dtype.itemsize == 2) \
+            or a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.as_tensor(np.array(a))
+
+
+def _leaf_array(t: torch.Tensor) -> np.ndarray:
+    """A leaf as the numpy array the JAX package writes: float32 as it is,
+    bfloat16 as its 2-byte raw values (``|V2``), the bytes JAX stores."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 # -- built-in registrations ---------------------------------------------------
@@ -175,26 +212,32 @@ def _axes_from_spec(s: dict) -> CouplingAxes:
                         tuple(s["axis_af"]), tuple(s["axis_nn"]))
 
 
-def _zeros(shape, device):
-    return torch.zeros(*shape, dtype=torch.float32, device=device) \
-        if len(shape) else torch.zeros((), device=device)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _zeros(shape, device, dtype=torch.float32):
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
 
 
 def _dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
-def _check_f32(s):
-    if s.get("dtype", "float32") != "float32":
+def _spec_dtype(s) -> torch.dtype:
+    """The element's array dtype as its spec names it: float32, or bfloat16
+    (conditioners stored by ``cast_conditioners``)."""
+    name = s.get("dtype", "float32")
+    if name not in _DTYPES:
         raise NotImplementedError(
-            f"checkpoint dtype {s['dtype']} is not ported yet (float32 only; "
-            "ROADMAP A13: mixed precision)")
+            f"checkpoint dtype {name} is not supported (float32 or "
+            "bfloat16)")
+    return _DTYPES[name]
 
 
 def _mlp_from_spec(s, device):
-    _check_f32(s)
-    return MLP([_zeros(sh, device) for sh in s["weight_shapes"]],
-               [_zeros(sh, device) for sh in s["bias_shapes"]],
+    dt = _spec_dtype(s)
+    return MLP([_zeros(sh, device, dt) for sh in s["weight_shapes"]],
+               [_zeros(sh, device, dt) for sh in s["bias_shapes"]],
                s["activation"])
 
 
@@ -295,9 +338,9 @@ def _made_descriptor_from_spec(s: dict) -> tuple:
 
 
 def _made_from_spec(s, device):
-    _check_f32(s)
-    return MaskedMLP([_zeros(sh, device) for sh in s["weight_shapes"]],
-                     [_zeros(sh, device) for sh in s["bias_shapes"]],
+    dt = _spec_dtype(s)
+    return MaskedMLP([_zeros(sh, device, dt) for sh in s["weight_shapes"]],
+                     [_zeros(sh, device, dt) for sh in s["bias_shapes"]],
                      _made_descriptor_from_spec(s), s["activation"])
 
 
@@ -341,8 +384,7 @@ register_element(
 
 
 def _norm_from_spec(s, device):
-    _check_f32(s)
-    z = _zeros((s["d"],), device)
+    z = _zeros((s["d"],), device, _spec_dtype(s))
     # skeleton x_max=1 keeps the placeholder valid (x_max > x_min)
     return NormalizationLayer(z, z + 1, s["alpha"], s["beta"])
 
@@ -368,8 +410,9 @@ register_element(
 
 
 def _actnorm_from_spec(s, device):
-    _check_f32(s)
-    return ActNormLayer(_zeros((s["d"],), device), _zeros((s["d"],), device))
+    dt = _spec_dtype(s)
+    return ActNormLayer(_zeros((s["d"],), device, dt),
+                        _zeros((s["d"],), device, dt))
 
 
 register_element(
@@ -381,10 +424,10 @@ register_element(
 
 
 def _invlinear_from_spec(s, device):
-    _check_f32(s)
-    d = s["d"]
+    dt, d = _spec_dtype(s), s["d"]
     return InvertibleLinearLayer(
-        _zeros((d, d), device), _zeros((d, d), device), _zeros((d,), device),
+        _zeros((d, d), device, dt), _zeros((d, d), device, dt),
+        _zeros((d,), device, dt),
         tuple(s["perm"]), tuple(s["sign"]))
 
 
@@ -419,8 +462,7 @@ register_element(
 
 
 def _logit_from_spec(s, device):
-    _check_f32(s)
-    z = _zeros((s["d"],), device)
+    z = _zeros((s["d"],), device, _spec_dtype(s))
     return LogitLayer(z, z + 1, s["eps"])
 
 
@@ -441,8 +483,9 @@ register_element(
 
 
 def _diag_from_spec(s, device):
-    _check_f32(s)
-    return DiagNormal(_zeros((s["d"],), device), _zeros((s["d"],), device) + 1)
+    dt = _spec_dtype(s)
+    return DiagNormal(_zeros((s["d"],), device, dt),
+                      _zeros((s["d"],), device, dt) + 1)
 
 
 register_element(
@@ -454,10 +497,10 @@ register_element(
 
 
 def _mixture_from_spec(s, device):
-    _check_f32(s)
-    k, d = s["k"], s["d"]
-    return GaussianMixture(_zeros((k, d), device), _zeros((k, d), device) + 1,
-                           _zeros((k,), device))
+    dt, k, d = _spec_dtype(s), s["k"], s["d"]
+    return GaussianMixture(_zeros((k, d), device, dt),
+                           _zeros((k, d), device, dt) + 1,
+                           _zeros((k,), device, dt))
 
 
 register_element(
@@ -469,8 +512,7 @@ register_element(
 
 
 def _box_from_spec(s, device):
-    _check_f32(s)
-    z = _zeros((s["d"],), device)
+    z = _zeros((s["d"],), device, _spec_dtype(s))
     return BoxUniform(z, z + 1)
 
 
@@ -501,7 +543,7 @@ def save_element(directory: str, el, *, erase: bool = False) -> None:
     with open(os.path.join(directory, "spec.json"), "w") as f:
         json.dump({"format_version": _FORMAT_VERSION,
                    "spec": element_spec(el)}, f, indent=1)
-    arrays = {f"leaf_{i:05d}": leaf.detach().cpu().numpy()
+    arrays = {f"leaf_{i:05d}": _leaf_array(leaf)
               for i, leaf in enumerate(element_leaves(el))}
     np.savez(os.path.join(directory, "arrays.npz"), **arrays)
 
@@ -612,6 +654,69 @@ def save_flow(directory: str, flow: Flow, opt_state=None, *,
         arrays = adam_state_to_leaves(flow.model, opt_state)
         np.savez(os.path.join(directory, "opt_state.npz"),
                  **{f"leaf_{i:05d}": a for i, a in enumerate(arrays)})
+
+
+def _metadata_dict(md) -> dict:
+    return {"hash": md.hash, "d": md.d, "n": md.n,
+            "theta_min": np.asarray(md.theta_min).tolist(),
+            "theta_max": np.asarray(md.theta_max).tolist()}
+
+
+def _metadata_from(md) -> MetaData:
+    return MetaData(md["hash"], md["d"], md["n"],
+                    np.asarray(md["theta_min"], np.float32),
+                    np.asarray(md["theta_max"], np.float32))
+
+
+def _npz_leaves(path, n) -> list:
+    with np.load(path) as npz:
+        return [npz[f"leaf_{i:05d}"] for i in range(n)]
+
+
+def save_ensemble(directory: str, ens, *, erase: bool = False) -> None:
+    """Persist an :class:`~densityflows_tpu_torch.ensemble.EnsembleFlow` in
+    the JAX package's ensemble format: the stacked member parameters (every
+    leaf with a leading K axis) through the element spec/arrays format."""
+    _prepare_dir(directory, erase)
+    with open(os.path.join(directory, "ensemble.json"), "w") as f:
+        json.dump({
+            "format_version": _FORMAT_VERSION,
+            "n_members": ens.n_members,
+            "member_spec": element_spec(ens.model[0]),
+            "base": element_spec(ens.base),
+            "metadata": _metadata_dict(ens.metadata),
+            "train_loss": [list(map(float, row)) for row in ens.train_loss],
+            "valid_loss": [list(map(float, row)) for row in ens.valid_loss],
+        }, f, indent=1)
+    np.savez(os.path.join(directory, "stacked.npz"),
+             **{f"leaf_{i:05d}": _leaf_array(leaf)
+                for i, leaf in enumerate(ens.model.leaves())})
+    np.savez(os.path.join(directory, "base.npz"),
+             **{f"leaf_{i:05d}": _leaf_array(leaf)
+                for i, leaf in enumerate(element_leaves(ens.base))})
+
+
+def load_ensemble(directory: str, *, device=None):
+    """Load an ensemble saved by :func:`save_ensemble` (of this package or of
+    the JAX package) onto ``device``."""
+    from ..ensemble import EnsembleFlow, StackedModels
+
+    device = resolve_device(device)
+    with open(os.path.join(directory, "ensemble.json")) as f:
+        meta = json.load(f)
+    k = int(meta["n_members"])
+    members = [element_from_spec(meta["member_spec"], device)
+               for _ in range(k)]
+    stacked = _npz_leaves(os.path.join(directory, "stacked.npz"),
+                          len(element_leaves(members[0])))
+    for i, m in enumerate(members):
+        set_element_leaves(m, [a[i] for a in stacked])
+    base = element_from_spec(meta["base"], device)
+    set_element_leaves(base, _npz_leaves(os.path.join(directory, "base.npz"),
+                                         len(element_leaves(base))))
+    return EnsembleFlow(StackedModels(members), _metadata_from(meta["metadata"]),
+                        base, k, train_loss=meta["train_loss"],
+                        valid_loss=meta["valid_loss"], device=device)
 
 
 def load_flow(directory: str, optimizer=None, *, device=None):

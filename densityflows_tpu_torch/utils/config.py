@@ -48,8 +48,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters. ``mixed_precision`` and ``remat`` are not
-    ported yet (ROADMAP A13): ``run_experiment`` raises if either is set."""
+    """Training hyperparameters. ``mixed_precision`` and ``remat`` go to
+    ``train`` as they are (the plain program's options)."""
 
     epochs: int = 100
     batchsize: int = 64
@@ -154,10 +154,6 @@ def run_experiment(config: FlowConfig, x, theta=None, *, generator=None,
     from ..data import DataArrays
     from ..train import Adam, train
 
-    for name in ("mixed_precision", "remat"):
-        if getattr(config.train, name):
-            raise NotImplementedError(
-                f"TrainConfig.{name} is not ported yet (ROADMAP A13)")
     data = DataArrays.make(
         x, theta, f_training=config.data.f_training,
         f_validation=config.data.f_validation, rng=0)
@@ -166,5 +162,6 @@ def run_experiment(config: FlowConfig, x, theta=None, *, generator=None,
         flow, data, Adam(config.train.learning_rate),
         epochs=config.train.epochs, batchsize=config.train.batchsize,
         shuffle=config.train.shuffle, verbose=config.train.verbose,
-        generator=generator, mesh=mesh)
+        generator=generator, mesh=mesh, remat=config.train.remat,
+        mixed_precision=config.train.mixed_precision)
     return flow, data, opt_state

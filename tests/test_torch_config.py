@@ -1,9 +1,11 @@
 """The port's config builders (``utils/config.py``) and toy data sets
 (``utils/datasets.py``) against the JAX package on the CPU: ``build_flow``
 gives the JAX package's ``element_spec`` for every family and tail,
-``run_experiment`` trains from a config and refuses the surfaces that are
-not ported by name, and the data sets equal JAX's bit for bit.
+``run_experiment`` trains from a config and hands its precision and
+memory options to ``train``, and the data sets equal JAX's bit for bit.
 """
+
+import sys
 
 import jax
 import numpy as np
@@ -91,10 +93,24 @@ def test_run_experiment(data):
                       family="rqs", n_blocks=1), x, th)
     np.testing.assert_array_equal(np.asarray(dset.partition.training),
                                   np.asarray(jdata.partition.training))
+    # the precision and memory options reach train() as they are
+    seen = {}
+    real_train = sys.modules["densityflows_tpu_torch.train"].train
+
+    def spy(*a, **kw):
+        seen.update(remat=kw["remat"], mixed_precision=kw["mixed_precision"])
+        return real_train(*a, **kw)
+
     for name in ("mixed_precision", "remat"):
-        cfg = dt.FlowConfig(train=dt.TrainConfig(**{name: True}))
-        with pytest.raises(NotImplementedError, match=f"{name}.*A13"):
-            dt.run_experiment(cfg, x, th, device="cpu")
+        cfg = dt.FlowConfig(train=dt.TrainConfig(epochs=1, verbose=False,
+                                                 **{name: True}))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sys.modules["densityflows_tpu_torch.train"], "train",
+                       spy)
+            flow, _, _ = dt.run_experiment(
+                cfg, x, th, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+        assert seen[name] is True and flow.trained_path == "torch"
 
 
 @pytest.mark.parametrize("fn,kw", [

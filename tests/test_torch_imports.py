@@ -158,7 +158,9 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                    "models/distributions.py", "ops/spline.py", "ops/made.py",
                    "models/autoregressive.py", "models/embedding.py",
                    "utils/datasets.py", "utils/config.py",
-                   "inference.py", "parallel/resample.py"):
+                   "inference.py", "parallel/resample.py", "ensemble.py",
+                   "examples/__init__.py",
+                   "examples/uncertainty_and_mcmc.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -303,3 +305,24 @@ def test_inference_surface_is_the_jax_packages():
             assert name in dt.__all__, name
     for name in not_ported:
         assert not hasattr(inference, name) and not hasattr(dt, name)
+
+
+def test_the_package_surface_is_the_jax_packages_but_clear_caches():
+    """Every public name of the JAX package is the port's, but one left out
+    on purpose: ``clear_caches`` empties the JAX package's jit program
+    caches, and eager PyTorch compiles no program to cache (ROADMAP A.7)."""
+    import densityflows_tpu as jdf
+
+    import densityflows_tpu_torch as dt
+
+    assert set(jdf.__all__) - set(dt.__all__) == {"clear_caches"}
+    for name in ("EnsembleFlow", "stack_models", "train_ensemble",
+                 "save_ensemble", "load_ensemble", "cast_conditioners"):
+        assert name in dt.__all__ and callable(getattr(dt, name)), name
+    assert not hasattr(dt, "clear_caches")
+    from densityflows_tpu_torch import examples
+
+    assert set(examples.NAMES) == {
+        os.path.splitext(f)[0] for f in os.listdir(os.path.join(ROOT,
+                                                                "examples"))
+        if f.endswith(".py")}

@@ -403,18 +403,28 @@ def test_forced_kernel_surface_errors(cond, tmp_path):
 
 
 @pytest.mark.parametrize("kw, names", [
-    (dict(mesh=object()), "A9"), (dict(remat=True), "A13"),
-    (dict(mixed_precision=True), "A13")])
+    pytest.param(dict(mesh=object()), "A9", id="kw0-A9"),
+    pytest.param(dict(remat=True), "remat", id="kw1-A13"),
+    pytest.param(dict(mixed_precision=True), "mixed_precision",
+                 id="kw2-A13")])
 def test_surfaces_not_ported_raise_by_name(cond, kw, names):
+    """A mesh that is not the data-parallel one raises by its ROADMAP item.
+    remat / mixed_precision (ported with A13) are options of the plain
+    program: the kernel path raises on them by name, the plain program
+    runs them."""
     jd, td, x = cond
     ft = torch_flow(df.Flow(small_chain(jd, x), jd), td)
-    with pytest.raises(NotImplementedError, match=names):
-        dt.train(ft, td, epochs=1, verbose=False, **kw)
-    if "mesh" not in kw:
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match=names):
-            dt.make_train_program(dt.adam(), 32, 1, **kw)
-        with pytest.raises(NotImplementedError, match=names):
-            dt.make_train_step(dt.adam(), **kw)
+            dt.train(ft, td, epochs=1, verbose=False, **kw)
+        return
+    with pytest.raises(ValueError, match=names):
+        dt.train(ft, td, epochs=1, verbose=False, fused_kernel=True, **kw)
+    dt.train(ft, td, epochs=1, verbose=False, **kw,
+             generator=torch.Generator().manual_seed(0))
+    assert ft.trained_path == "torch" and len(ft.train_loss) == 1
+    assert callable(dt.make_train_program(dt.adam(), 32, 1, **kw))
+    assert callable(dt.make_train_step(dt.adam(), **kw))
 
 
 # -- (i) chunked loops, checkpoints, optimizer state across packages -------------

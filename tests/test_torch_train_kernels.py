@@ -294,24 +294,25 @@ def _compile_emulated(tmp_path_factory, flags=()):
 def emulated(tmp_path_factory):
     """``csrc/train_kernels.cu`` compiled as plain C++ (its DF_HOST_EMULATION
     mode, with tests/cuda_host_emulation.h standing in for the CUDA
-    builtins): ``launch(threads, reverse)`` gives a launcher for
-    ``ops.train_kernels._train_run`` that runs the kernel's body on CPU
-    tensors, the threads of each phase one after another."""
+    builtins): ``launch(threads, reverse, reverse_blocks=0)`` gives a
+    launcher for ``ops.train_kernels._train_run_members`` that runs the
+    kernel's body on CPU tensors, the blocks one after another and the
+    threads of each phase one after another."""
     return _launcher(_compile_emulated(tmp_path_factory))
 
 
 def _launcher(out):
     lib = ctypes.CDLL(out)
-    lib.df_train_run_emulated.argtypes = [
+    lib.df_train_run_members_emulated.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int]
-    lib.df_train_run_emulated.restype = ctypes.c_int
+        ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 5
+    lib.df_train_run_members_emulated.restype = ctypes.c_int
 
-    def launch(threads, reverse):
-        return lambda ptrs, iargs, fargs, _threads, shared_bytes: \
-            lib.df_train_run_emulated(ptrs, iargs, fargs, threads,
-                                      shared_bytes, reverse)
+    def launch(threads, reverse, reverse_blocks=0):
+        return lambda ptrs, iargs, fargs, k, _threads, shared_bytes: \
+            lib.df_train_run_members_emulated(ptrs, iargs, fargs, k, threads,
+                                              shared_bytes, reverse,
+                                              reverse_blocks)
 
     return launch
 
@@ -320,11 +321,11 @@ def _emulate(case, launch, perms=None, tparams=None, mu=None, nu=None, **kw):
     full = dict(count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
                 track_best=False, w=None, w_valid=None, guard_nonfinite=False)
     full.update(kw)
-    return TK._train_run(
-        launch, case.plan, tparams or case.tparams, case.masks, case.slots,
-        case.cparams, mu or case.zeros, nu or case.zeros, *case.data,
-        case.perms if perms is None else perms, batchsize=case.bs,
-        packed=case.packed, threads=None, **full)
+    return TK._train_run_members(
+        launch, case.plan, [tparams or case.tparams], case.masks, case.slots,
+        case.cparams, [mu or case.zeros], [nu or case.zeros], *case.data,
+        [case.perms if perms is None else perms], batchsize=case.bs,
+        packed=case.packed, threads=None, **full)[0]
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -366,6 +367,76 @@ def test_cuda_source_dense_handlers_on_ragged_row_groups(emulated, variant):
     _assert_runs_close(got, _emulate(case, emulated(160, 1), **kw), atol=0.0)
 
 
+def _member_inputs(case, k_members, epochs=3):
+    """K members of one plan: perturbed parameters, moments from a short
+    plain run for all but the first, a batch order each."""
+    rng = np.random.default_rng(11)
+    tps, mus, nus, perms = [], [], [], []
+    n = case.data[0].shape[0]
+    for k in range(k_members):
+        tps.append([p + (0.05 * k) * _t(rng.normal(size=p.shape))
+                    for p in case.tparams])
+        if k:
+            warm = case.plain(perms=case.perms[:1], tparams=tps[-1])
+            mus.append(warm[1])
+            nus.append(warm[2])
+        else:
+            mus.append(case.zeros)
+            nus.append(case.zeros)
+        perms.append(np.stack([rng.permutation(n) for _ in range(epochs)]))
+    return tps, mus, nus, perms
+
+
+@pytest.mark.parametrize("mode", ["plain", "weighted_best", "guard_tagged"])
+def test_cuda_source_emulated_members_equal_their_own_launches(emulated,
+                                                                mode):
+    """One launch of K = 3 blocks (the ensemble's member axis): member k
+    equals its own one-member launch bit for bit, with the blocks run in
+    either order, and the plain members at 1e-4."""
+    case = Case("actnorm")
+    kw = _mode_kwargs(case, mode)
+    full = dict(count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                track_best=False, w=None, w_valid=None,
+                guard_nonfinite=False)
+    full.update(kw)
+    tps, mus, nus, perms = _member_inputs(case, 3)
+    singles = [_emulate(case, emulated(96, 0), perms=p, tparams=tp, mu=m,
+                        nu=v, **kw)
+               for tp, m, v, p in zip(tps, mus, nus, perms)]
+    for reverse_blocks in (0, 1):
+        got = TK._train_run_members(
+            emulated(96, 0, reverse_blocks), case.plan, tps,
+            case.masks, case.slots, case.cparams, mus, nus, *case.data,
+            perms, batchsize=case.bs, packed=case.packed, threads=None,
+            **full)
+        assert len(got) == 3
+        for one, member in zip(singles, got):
+            _assert_runs_close(member, one, atol=0.0)
+    plain = TK.run_fused_train_members(
+        case.plan, tps, case.masks, case.slots, case.cparams, mus, nus,
+        *case.data, perms, batchsize=case.bs, **kw)
+    for member, want in zip(got, plain):
+        _assert_runs_close(member, want)
+    # the members differ: each trained its own parameters on its own order
+    assert not torch.equal(got[0][3], got[1][3])
+
+
+def test_member_launch_checks_its_arguments():
+    case = Case("reference", epochs=2)
+    tps, mus, nus, perms = _member_inputs(case, 2, epochs=2)
+    with pytest.raises(ValueError, match="per member"):
+        TK.run_fused_train_members(case.plan, tps, case.masks, case.slots,
+                                   case.cparams, mus[:1], nus, *case.data,
+                                   perms, batchsize=case.bs)
+    with pytest.raises(ValueError, match="as many epochs"):
+        TK._train_run_members(
+            lambda *a: 0, case.plan, tps, case.masks, case.slots,
+            case.cparams, mus, nus, *case.data, [perms[0], perms[1][:1]],
+            batchsize=case.bs, count0=0, lr=1e-3, b1=0.9, b2=0.999,
+            eps=1e-8, track_best=False, w=None, w_valid=None,
+            guard_nonfinite=False, packed=case.packed, threads=None)
+
+
 def test_kernel_source_is_hand_written():
     src = os.path.join(ROOT, "densityflows_tpu_torch", "csrc",
                        "train_kernels.cu")
@@ -377,8 +448,8 @@ def test_kernel_source_is_hand_written():
     assert '#include "flow_phases.cuh"' in text
     with open(os.path.join(os.path.dirname(src), "flow_phases.cuh")) as f:
         text += f.read()
-    for symbol in ("df_train_run", "train_run_kernel", "__global__",
-                   "f_dense4", "b_dense4", "b_dense", "adam_update",
+    for symbol in ("df_train_run", "df_train_run_members", "member_args",
+                   "train_run_kernel", "__global__", "f_dense4", "b_dense4", "b_dense", "adam_update",
                    "mask_and_check",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert symbol in text

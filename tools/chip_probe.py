@@ -32,7 +32,12 @@ wrappers only, so that the same script runs on two trees of the port:
   K 24, A 16, hidden 256, three dense layers per net): call time, the
   device time of each kernel and of each launch from ``torch.profiler``,
   ``coupling_fwd``'s call and device time, and the time of six
-  ``w.t().contiguous()`` copies of the nets' weights.
+  ``w.t().contiguous()`` copies of the nets' weights;
+- ``members``: ``train_run``'s member axis at the README / BASELINE run,
+  one launch of K blocks for K in ``MEMBER_SWEEP``: ms, and from its
+  ``DF_TRAIN_CLOCKS`` build every block's run time and start (its first and
+  last ``%globaltimer``) and block 0's cycles of a step and an evaluation
+  tile.
 
 With ``--variants`` it builds ``csrc/step_kernels.cu`` once per setting of
 its tuning switch and its per-phase clock build (``-D`` flags, into
@@ -525,29 +530,50 @@ def run_phase_names(packed):
     return step, ["load_rows"] + fwd + ["row_log_prob", "eval_accumulate"]
 
 
+def members_launcher(lib, clk=None, stamps=None):
+    """``launch(ptrs, iargs, fargs, members, threads, shared)`` for
+    ``tk._train_run_members``: ``lib``'s df_train_run_members on the current
+    stream, with the DF_TRAIN_CLOCKS build's clock buffer ``clk`` and
+    per-block timestamps ``stamps`` (or null) appended when ``clk`` is
+    given."""
+    import ctypes
+
+    i, v = ctypes.c_int, ctypes.c_void_p
+    lib.df_train_run_members.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(ptrs, iargs, fargs, members, threads, shared):
+        if clk is not None:
+            ptrs = (ctypes.c_void_p * (len(ptrs) + 2))(
+                *ptrs, clk.data_ptr(),
+                stamps.data_ptr() if stamps is not None else None)
+        return lib.df_train_run_members(ptrs, iargs, fargs, i(members),
+                                        i(threads), i(shared), v(stream))
+    return launch
+
+
+def train_one(launch, head, arrays, perms, **kw):
+    """One run of the BASELINE ``head`` through ``launch``: a launch of one
+    member."""
+    plan, tparams, masks, slots, cparams, mu, nu = head
+    return tk._train_run_members(launch, plan, [tparams], masks, slots,
+                                 cparams, [mu], [nu], *arrays, [perms],
+                                 **kw)[0]
+
+
 def train_clocks(device, lib, head, arrays, perms, packed):
     """The DF_TRAIN_CLOCKS build of csrc/train_kernels.cu (``lib``) on the
     BASELINE run: cycles of each phase of one step and of one evaluation
     tile, by phase and summed by kind, the median of three launches."""
-    import ctypes
-
-    i, f, v = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.df_train_run.restype = i
     clk = torch.zeros(2 + 2 * 256, device=device)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(ptrs, iargs, fargs, threads, shared):
-        full = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, clk.data_ptr())
-        return lib.df_train_run(full, iargs, fargs, i(threads), i(shared),
-                                v(stream))
-
+    launch = members_launcher(lib, clk)   # no per-block timestamps
     kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
               track_best=False, w=None, w_valid=None, guard_nonfinite=False,
               packed=packed, threads=None)
     runs = []
     for _ in range(3):
         clk.zero_()
-        tk._train_run(launch, *head, *arrays, perms, **kw)
+        train_one(launch, head, arrays, perms, **kw)
         torch.cuda.synchronize()
         runs.append(clk.tolist())
     step_names, eval_names = run_phase_names(packed)
@@ -564,8 +590,8 @@ def train_clocks(device, lib, head, arrays, perms, packed):
             total_cycles=sum(cycles),
             cycles_per_phase=sum(cycles) / n if n else None,
             cycles_by_kind=by_kind, cycles_by_phase=list(zip(names, cycles)))
-    ms_clk = event_ms(lambda: tk._train_run(launch, *head, *arrays, perms,
-                                            **kw), warmup=1, runs=3)
+    ms_clk = event_ms(lambda: train_one(launch, head, arrays, perms, **kw),
+                      warmup=1, runs=3)
     out["clock_build_ms"] = ms_clk
     return out
 
@@ -605,8 +631,8 @@ def train(device, clocks=False):
         kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999,
                   eps=1e-8, track_best=False, w=None, w_valid=None,
                   guard_nonfinite=False, packed=packed)
-        return tk._launch_train_run(*head, *arrays, perms, threads=threads,
-                                    **kw)
+        return train_one(members_launcher(tk._library()), head, arrays,
+                         perms, threads=threads, **kw)
 
     a, b = run(), run()
     torch.cuda.synchronize()
@@ -653,6 +679,63 @@ def train(device, clocks=False):
     return row
 
 
+def members(device):
+    """train_run's member axis at the BASELINE run (50 epochs): one launch
+    of K blocks for K in MEMBER_SWEEP, CUDA-event ms, and from the
+    DF_TRAIN_CLOCKS build block 0's cycles of one step and of one
+    evaluation tile plus every block's first and last %globaltimer: how
+    long each block ran, how far apart the blocks started, and the clock
+    rate block 0 saw (its step's cycles over its step's share of its
+    time)."""
+    flow, head, arrays, perms = baseline_case(device)
+    xt, tht = arrays[0], arrays[1]
+    packed = tk.pack_train_plan(*head[:5], xt.shape[1], tht.shape[1], 64)
+    lib = build_one("train_kernels", "clocks", ["-DDF_TRAIN_CLOCKS=1"])
+    steps = perms.shape[0] * -(-xt.shape[0] // 64)
+    kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+              track_best=False, w=None, w_valid=None, guard_nonfinite=False,
+              packed=packed, threads=None)
+    out = dict(steps=steps, shared_bytes=packed.shared_bytes,
+               threads=tk._block_threads(packed), by_members={})
+    for k in MEMBER_SWEEP:
+        clk = torch.zeros(2 + 2 * 256, device=device)
+        stamps = torch.zeros(2 * k, dtype=torch.int64, device=device)
+
+        launch = members_launcher(lib, clk, stamps)
+        tps = [head[1]] * k
+        zs = [head[5]] * k
+        pm = [perms] * k
+        run = lambda: tk._train_run_members(  # noqa: E731
+            launch, head[0], tps, head[2], head[3], head[4], zs, zs,
+            *arrays, pm, **kw)
+        fused_ms = event_ms(lambda: tk.run_fused_train_members(
+            head[0], tps, head[2], head[3], head[4], zs, zs, *arrays, pm,
+            batchsize=64, packed=packed), warmup=1, runs=3)
+        run()
+        torch.cuda.synchronize()
+        t = stamps.view(k, 2).cpu().numpy().astype(np.float64)
+        dur_ms = (t[:, 1] - t[:, 0]) / 1e6
+        step_cycles = sum(clk[2:2 + int(clk[0])].tolist())
+        row = dict(
+            ms=fused_ms, clock_build_ms=event_ms(run, warmup=0, runs=2),
+            block_ms_min=float(dur_ms.min()),
+            block_ms_median=float(np.median(dur_ms)),
+            block_ms_max=float(dur_ms.max()),
+            start_spread_ms=float((t[:, 0].max() - t[:, 0].min()) / 1e6),
+            block0_step_cycles=step_cycles,
+            block0_eval_tile_cycles=sum(
+                clk[2 + 256:2 + 256 + int(clk[1])].tolist()))
+        # block 0 ran ``steps`` steps and the evaluations in dur_ms[0]
+        row["block0_cycles_per_ns_if_steps_only"] = (
+            step_cycles * steps / (dur_ms[0] * 1e6))
+        out["by_members"][k] = row
+        print(json.dumps({"members": k, **row}), flush=True)
+    return out
+
+
+MEMBER_SWEEP = (1, 2, 4, 8, 16, 32, 132)
+
+
 def train_variants(device):
     """train_run's layouts timed in turns at the BASELINE run: the s- and
     t-nets paired or not, the gradients summed in 4 or 1 segments of rows,
@@ -660,7 +743,6 @@ def train_variants(device):
     of a step and of an evaluation tile. (The dense handlers of
     flow_phases.cuh and a bound of 1,024 threads, timed here before they
     were removed, are reached with ``--tree`` on an older commit.)"""
-    import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     if not hasattr(tk, "run_layout"):
@@ -671,20 +753,6 @@ def train_variants(device):
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip([j[0] for j in jobs], pool.map(
             lambda j: build_one("train_kernels", j[0], j[1]), jobs)))
-    i, v = ctypes.c_int, ctypes.c_void_p
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launcher(lib, clk=None):
-        lib.df_train_run.restype = i
-
-        def launch(ptrs, iargs, fargs, threads, shared):
-            if clk is not None:
-                ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs,
-                                                          clk.data_ptr())
-            return lib.df_train_run(ptrs, iargs, fargs, i(threads),
-                                    i(shared), v(stream))
-        return launch
-
     kw = dict(batchsize=64, count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
               track_best=False, w=None, w_valid=None, guard_nonfinite=False)
     grid = [(True, 4), (True, 1), (False, 4), (False, 1)]
@@ -698,15 +766,15 @@ def train_variants(device):
                        eval_rows=packed.eval_rows)
             for threads in (256, 512):
                 row[f"ms_{threads}"] = event_ms(
-                    lambda: tk._train_run(
-                        launcher(libs["variants"]), *head, *arrays, perms,
-                        packed=packed, threads=threads, **kw),
+                    lambda: train_one(
+                        members_launcher(libs["variants"]), head, arrays,
+                        perms, packed=packed, threads=threads, **kw),
                     warmup=1, runs=3)
             if rnd == 0:
                 clk = torch.zeros(2 + 2 * 256, device=device)
-                tk._train_run(launcher(libs["variants_clocks"], clk),
-                              *head, *arrays, perms, packed=packed,
-                              threads=512, **kw)
+                train_one(members_launcher(libs["variants_clocks"], clk),
+                          head, arrays, perms, packed=packed, threads=512,
+                          **kw)
                 torch.cuda.synchronize()
                 c = clk.tolist()
                 step = c[2:2 + int(c[0])]
@@ -1033,7 +1101,7 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated probes to run (chain_nan, "
                          "step_host, coupling, stream, chain, train, "
-                         "families, mixed_grads, variants)")
+                         "families, mixed_grads, members, variants)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
@@ -1092,7 +1160,8 @@ def main():
     probes = [("chain_nan", chain_nan), ("step_host", step_host),
               ("coupling", coupling), ("stream", stream), ("chain", chain),
               ("train", lambda dev: train(dev, clocks=args.variants)),
-              ("families", families), ("mixed_grads", mixed_grads)]
+              ("families", families), ("mixed_grads", mixed_grads),
+              ("members", members)]
     if args.variants:
         probes.append(("train_variants", train_variants))
     if args.variants:
