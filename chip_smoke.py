@@ -77,7 +77,18 @@ the port's main paths through the entry points a user calls:
   flagship width ``train(mixed_precision=True)`` against the f32 program,
   ``remat``'s gradients and peak memory, a ``cast_conditioners`` chain
   through ``chain_apply`` / ``chain_sample``; and the port's
-  ``uncertainty_and_mcmc`` example at its own budgets.
+  ``uncertainty_and_mcmc`` example at its own budgets;
+- ``mesh=`` and tensor parallelism: ``log_prob`` / ``sample`` /
+  ``sample_sweep`` and the four particle entry points of the inference
+  engine with ``mesh=`` of a one-rank NCCL group against the calls without
+  it, ``chain_sample``'s row offset (a 4-way split of 2^18 + 3 rows joined
+  against one launch), then this script as two gloo ranks on the one card
+  (``--mesh-rank``): a (2, 1) data mesh serving the flagship chain at 2^18
+  rows, a (1, 2) model mesh training it tensor-parallel against the
+  replicated chain; the instruments (``StepTimer``, ``trace`` /
+  ``annotate``, ``Throughput``), ``scaling_report`` at
+  ``benchmarks/scaling.py``'s config, and the probe behind the decision on
+  the row-chunked folds at 2^18 rows (ROADMAP A.6).
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -4569,6 +4580,577 @@ def drive_example_uncertainty(card):
     return report
 
 
+# -- phase 4j: mesh=, tensor parallelism, the instruments, the A.6 probe ----------
+
+# the 2-D mesh phase: the wide chain trained tensor-parallel against the
+# replicated chain in one process: rtol 1e-5 on the losses (the tolerance of
+# JAX test_tp_training_matches_replicated); on the gathered parameters after
+# the 8 Adam steps 1e-4 on all but at most `past_1e-4` coordinates and 3e-4
+# on every one: Adam divides each coordinate's step by its own gradient
+# scale, so a coordinate whose gradient is near 0 moves further on rounding
+# alone (1.03e-4 on 1 of 1,220,864 coordinates on an H100 with the losses
+# equal bit for bit)
+TP = {"steps": 8, "batch": 1024, "loss_rtol": 1e-5, "param_atol": 3e-4,
+      "past_1e-4": 8}
+MESH_TWO_RANKS_TIMEOUT = 420
+# the inference phase on a one-rank mesh
+MESH_MCMC = dict(chains=4096, steps=60, burn_in=10)
+MESH_VI = dict(steps=10, particles=1024)
+# benchmarks/scaling.py's config (d 16, n 4, two blocks of hidden 64 and a
+# normalization layer), per-device batch 1024
+SCALING = dict(d=16, n=4, hidden=64, batch=1024, reps=5)
+CHUNK_ROWS = (4096, 16384)
+
+
+def bits_same(a, b):
+    return a.shape == b.shape and bool(torch.equal(a.detach(), b.detach()))
+
+
+def same_or_gated(got, want, what, reason, rtol, atol):
+    """``{"bit_equal": True}`` when ``got`` equals ``want`` bit for bit,
+    else the difference and its reason, held to ``rtol`` / ``atol``."""
+    if bits_same(got, want):
+        return {"bit_equal": True}
+    err = require_close(got.float(), want.float(), what, rtol, atol)
+    return {"bit_equal": False, "max_abs_err": err, "reason": reason,
+            "gate": dict(rtol=rtol, atol=atol)}
+
+
+def drive_mesh_serving(device, mesh, card):
+    """``log_prob`` / ``sample`` / ``sample_sweep`` with ``mesh=`` on a
+    one-rank NCCL data mesh against the same calls without it (bit for bit,
+    one kernel launch each), and the row-offset split of ``chain_sample``:
+    a 4-way ceil split of 2^18 + 3 rows, each share one launch with
+    ``row_offset = lo``, concatenated, against the one-launch draw (bit for
+    bit) and the numpy Philox model at each share's first and last 512
+    rows."""
+    rng = np.random.default_rng(SEED + 71)
+    meta, x, theta, theta_tuple = flagship_inputs(rng, N_COND, ROWS, device,
+                                                  "mesh")
+    flow = dt.Flow(wide_chain(False, rng, device), meta, device=device)
+    thetas = theta[:8].cpu().numpy()
+    gen = lambda: torch.Generator().manual_seed(SEED + 5)  # noqa: E731
+    calls = {
+        "log_prob": (lambda m: flow.log_prob(x, theta, mesh=m),
+                     dict(chain_apply=1)),
+        "sample": (lambda m: flow.sample((ROWS,), theta_tuple,
+                                         generator=gen(), mesh=m),
+                   dict(chain_sample=1)),
+        "sample_sweep": (lambda m: flow.sample_sweep(
+            thetas, ROWS // 8, generator=gen(), mesh=m),
+            dict(chain_sample=1)),
+    }
+    report, launches = {}, {}
+    for name, (call, want) in calls.items():
+        got, c = counted(lambda: call(mesh))
+        if not launches_are(c, **want):
+            fail(f"mesh {name}: launches {c}, expected {want}")
+        launches[name] = c
+        with torch.no_grad():
+            if not bits_same(got, call(None)):
+                fail(f"{name}(mesh=...) differs from {name}() on one rank")
+            report[name] = dict(
+                bit_equal=True,
+                ms=time_ms(lambda: call(mesh), warmup=1, runs=5),
+                ms_no_mesh=time_ms(lambda: call(None), warmup=1, runs=5))
+
+    plan, params = fc._plan_params(flow.model, "fwd")
+    total, seed = ROWS + 3, 0x5EED_0FF5E7
+    th1 = theta[:1].contiguous()
+    one, noise = ck.run_chain_sample(plan, params, total, D, th1, seed=seed,
+                                     return_noise=True)
+    spans = [dt.host_local_rows(dt.Mesh(None, 4, r), total)
+             for r in range(4)]
+    ck.reset_launch_counts()
+    parts = [ck.run_chain_sample(plan, params, sl.stop - sl.start, D, th1,
+                                 seed=seed, row_offset=sl.start,
+                                 return_noise=True) for sl in spans]
+    torch.cuda.synchronize()
+    if ck.launch_counts()["chain_sample"] != 4:
+        fail("row-offset split: expected 4 chain_sample launches")
+    if not (bits_same(torch.cat([p[0] for p in parts]), one)
+            and bits_same(torch.cat([p[1] for p in parts]), noise)):
+        fail("chain_sample row-offset split: the shares do not join to the "
+             "one-launch draw")
+    ref_err = 0.0
+    for sl, (_, r) in zip(spans, parts):
+        for lo in (0, sl.stop - sl.start - 512):
+            ref = torch.as_tensor(ck.philox_normal_reference(
+                seed, 512, D, sl.start + lo)).to(device)
+            ref_err = max(ref_err, require_close(
+                r[lo:lo + 512], ref, "row-offset draw vs numpy Philox",
+                0.0, 1e-5))
+    report["row_offset_split"] = dict(
+        rows=total, shares=[sl.stop - sl.start for sl in spans],
+        joined_equals_one_launch="bit for bit",
+        numpy_philox_max_abs_err=ref_err, tolerance=dict(rtol=0, atol=1e-5))
+    say(phase="mesh_serving_path", card=card, rows=ROWS, mesh=repr(mesh),
+        backend="nccl", launches=launches, **report)
+    return launches, report
+
+
+def drive_mesh_inference(device, mesh, card):
+    """The four particle entry points with ``mesh=`` of one NCCL rank
+    against the same calls without it, from the same generator state:
+    ``flow_mcmc`` (independence, 4,096 chains) and ``sample_with_rejection``
+    (2^16 rows) on the flagship chain, ``fit_variational`` on it (1,024
+    particles), ``run_smc`` at d 32 with 2^16 particles. Bit for bit where
+    the arithmetic is the same; where a mean over the axis is a sum over the
+    ranks divided by the count, the difference, its reason and the gate of
+    the inference phases (``MCMC_TOL``)."""
+    rng = np.random.default_rng(SEED + 61)
+    meta, _, _, theta_tuple = flagship_inputs(rng, N_COND, 16, device,
+                                              "mesh-inference")
+    chain = wide_chain(False, rng, device)
+    mean_reason = ("the mesh path sums over the axis and divides by the "
+                   "count where the one-process path takes a mean")
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def flow_of(model):
+        return dt.Flow(copy.deepcopy(model), meta, device=device)
+
+    flow = flow_of(chain)
+
+    def log_density(x):
+        return flow.log_prob(x, theta_tuple)
+
+    report, launches = {}, {}
+    runs = {}
+    for tag, m in (("mesh", mesh), ("none", None)):
+        reset_counts()
+        t0 = time.perf_counter()
+        kept, diag = dt.flow_mcmc(
+            flow, log_density, theta=theta_tuple,
+            n_chains=MESH_MCMC["chains"], n_steps=MESH_MCMC["steps"],
+            burn_in=MESH_MCMC["burn_in"], generator=gen(SEED + 1), mesh=m)
+        torch.cuda.synchronize()
+        runs[tag] = (kept, torch.as_tensor(diag["accept_rate"]),
+                     time.perf_counter() - t0, read_counts())
+    launches["flow_mcmc"] = runs["mesh"][3]
+    if runs["mesh"][3]["chain_apply"] != 2 * (MESH_MCMC["steps"] + 1):
+        fail(f"flow_mcmc(mesh=...): launches {runs['mesh'][3]}")
+    report["flow_mcmc"] = dict(
+        chains=MESH_MCMC["chains"], steps=MESH_MCMC["steps"],
+        seconds=runs["mesh"][2], seconds_no_mesh=runs["none"][2],
+        draws=same_or_gated(runs["mesh"][0], runs["none"][0],
+                            "flow_mcmc(mesh=...) draws", mean_reason,
+                            **MCMC_TOL),
+        accept_rate=same_or_gated(runs["mesh"][1], runs["none"][1],
+                                  "flow_mcmc(mesh=...) accept rate",
+                                  mean_reason, 0.0, 1e-6))
+
+    cut = float(torch.median(flow.sample(
+        (4096,), theta_tuple, generator=gen(SEED + 2))[:, 0]))
+    outs = {}
+    for tag, m in (("mesh", mesh), ("none", None)):
+        reset_counts()
+        outs[tag] = (dt.sample_with_rejection(
+            flow, REJECTION_SAMPLES, lambda v: v[..., 0] > cut, theta_tuple,
+            generator=gen(SEED + 3), mesh=m), read_counts())
+    launches["sample_with_rejection"] = outs["mesh"][1]
+    report["sample_with_rejection"] = dict(
+        rows=REJECTION_SAMPLES, rounds=outs["mesh"][1]["chain_apply"],
+        draws=same_or_gated(outs["mesh"][0], outs["none"][0],
+                            "rejection(mesh=...)", mean_reason, **MCMC_TOL))
+
+    vi = {}
+    for tag, m in (("mesh", mesh), ("none", None)):
+        f = flow_of(chain)
+        t0 = time.perf_counter()
+        dt.fit_variational(
+            f, lambda v: -0.5 * (v * v).sum(-1), theta=theta_tuple,
+            steps=MESH_VI["steps"], n_particles=MESH_VI["particles"],
+            generator=gen(SEED + 4), mesh=m)
+        torch.cuda.synchronize()
+        vi[tag] = (torch.as_tensor(f.train_loss),
+                   torch.cat([p.detach().reshape(-1)
+                              for p in ft.trainable_leaves(f.model)]),
+                   time.perf_counter() - t0)
+    report["fit_variational"] = dict(
+        steps=MESH_VI["steps"], particles=MESH_VI["particles"],
+        seconds=vi["mesh"][2], seconds_no_mesh=vi["none"][2],
+        losses=same_or_gated(vi["mesh"][0], vi["none"][0],
+                             "fit_variational(mesh=...) losses",
+                             mean_reason, 0.0, 1e-4),
+        parameters=same_or_gated(vi["mesh"][1], vi["none"][1],
+                                 "fit_variational(mesh=...) parameters",
+                                 mean_reason, 0.0, 1e-4))
+
+    d = SMC["d"]
+    mu = torch.linspace(-1.0, 1.0, d, device=device)
+
+    def log_p(v):
+        return -0.5 * ((v - mu) ** 2).sum(-1)
+
+    smc = {}
+    for tag, m in (("mesh", mesh), ("none", None)):
+        t0 = time.perf_counter()
+        parts, log_w, diag = dt.run_smc(
+            log_p, d, SMC["particles"], n_steps=SMC["steps"],
+            mh_step_size=SMC["mh_step"], n_mh=SMC["n_mh"],
+            generator=gen(SEED + 77), mesh=m, device=device)
+        torch.cuda.synchronize()
+        smc[tag] = (parts, log_w, diag, time.perf_counter() - t0)
+    report["run_smc"] = dict(
+        d=d, particles=SMC["particles"], steps=SMC["steps"],
+        seconds=smc["mesh"][3], seconds_no_mesh=smc["none"][3],
+        resampled_steps=int((smc["mesh"][2]["ess"]
+                             < 0.5 * SMC["particles"]).sum()),
+        particles_=same_or_gated(smc["mesh"][0], smc["none"][0],
+                                 "run_smc(mesh=...) particles", mean_reason,
+                                 **MCMC_TOL),
+        ess=same_or_gated(smc["mesh"][2]["ess"], smc["none"][2]["ess"],
+                          "run_smc(mesh=...) ESS", mean_reason, 1e-5, 0.0),
+        mh_accept=same_or_gated(smc["mesh"][2]["mh_accept"],
+                                smc["none"][2]["mh_accept"],
+                                "run_smc(mesh=...) acceptance", mean_reason,
+                                0.0, 1e-6))
+    say(phase="mesh_inference_path", card=card, mesh=repr(mesh),
+        backend="nccl", launches=launches, **report)
+    return launches, report
+
+
+def drive_instruments(device, card, tmp):
+    """``StepTimer`` around ``log_prob`` at 2^18 rows against the CUDA-event
+    median of ``time_ms`` (a timer that did not wait would read the enqueue
+    only); ``trace`` + ``annotate`` around one ``log_prob``: the Chrome
+    trace holds the chain kernel's symbol and the region's name;
+    ``Throughput``."""
+    from densityflows_tpu_torch.utils import profiling as prof
+
+    rng = np.random.default_rng(SEED + 73)
+    meta, x, theta, _ = flagship_inputs(rng, N_COND, ROWS, device, "instr")
+    flow = dt.Flow(wide_chain(False, rng, device), meta, device=device)
+    with torch.no_grad():
+        event_ms = time_ms(lambda: flow.log_prob(x, theta), warmup=2, runs=9)
+        timer = prof.StepTimer()
+        meter = prof.Throughput()
+        for _ in range(9):
+            timer.start()
+            lp = flow.log_prob(x, theta)
+            meter.add(ROWS, timer.stop(lp))
+        if timer.p50_ms < 0.95 * event_ms:
+            fail(f"StepTimer p50 {timer.p50_ms:.3f} ms < 0.95 x the event "
+                 f"median {event_ms:.3f} ms: it did not wait for the card")
+        logdir = os.path.join(tmp, "trace")
+        with prof.trace(logdir):
+            with prof.annotate("df_smoke_log_prob"):
+                flow.log_prob(x, theta)
+            torch.cuda.synchronize()
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"trace wrote {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        text = f.read()
+    for needle in ("chain_apply_kernel", "df_smoke_log_prob"):
+        if needle not in text:
+            fail(f"the trace does not hold {needle!r}")
+    report = dict(rows=ROWS, step_timer_p50_ms=timer.p50_ms,
+                  step_timer_mean_ms=timer.mean_ms,
+                  step_timer_p99_ms=timer.p99_ms, cuda_event_median_ms=event_ms,
+                  p50_over_event_median=timer.p50_ms / event_ms,
+                  trace_bytes=len(text),
+                  trace_holds=["chain_apply_kernel", "df_smoke_log_prob"],
+                  rows_per_sec=meter.per_sec,
+                  rows_per_sec_per_chip=meter.per_sec_per_chip,
+                  device_count=prof.device_count())
+    say(phase="instruments", card=card, **report)
+    return report
+
+
+def drive_scaling(device, card):
+    """``scaling_report`` at ``benchmarks/scaling.py``'s config on the one
+    card (``device_counts=[1]``, a one-rank NCCL group): the train step
+    ``train(mesh=...)`` takes (``step_grads`` + folded Adam) and the
+    ``Flow.sample(mesh=...)`` sweep (``chain_sample``)."""
+    from densityflows_tpu_torch.parallel.scaling import scaling_report
+
+    d, n, h = SCALING["d"], SCALING["n"], SCALING["hidden"]
+    x_ref = np.random.default_rng(SEED).normal(size=(256, d)).astype(
+        np.float32)
+
+    def make_model(generator):
+        return dt.flow_chain(
+            *[dt.coupling_block(d, None, n=n, generator=generator,
+                                hidden_dim_s=h, hidden_dim_t=h,
+                                device=device) for _ in range(2)],
+            dt.normalization_layer(x_ref, -1.0, 1.0, device=device))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    pts = scaling_report(make_model, d, n, per_device_batch=SCALING["batch"],
+                         reps=SCALING["reps"], device_counts=[1],
+                         device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    p = pts[0]
+    if p.train_path != "fused-step-mesh" or counts["step_grads"] < 1:
+        fail(f"scaling_report's train step took {p.train_path} "
+             f"({counts})")
+    if counts["chain_sample"] < 1 or p.train_efficiency != 1.0:
+        fail(f"scaling_report's sweep: {counts}, {p}")
+    report = dict(config=f"d {d}, n {n}, 2 blocks hidden {h} + "
+                         "normalization", per_device_batch=SCALING["batch"],
+                  reps=SCALING["reps"], n_devices=p.n_devices,
+                  train_samples_per_sec=p.train_samples_per_sec,
+                  sample_draws_per_sec=p.sample_draws_per_sec,
+                  train_spread=p.train_spread,
+                  sample_spread=p.sample_spread,
+                  train_efficiency=p.train_efficiency,
+                  sample_efficiency=p.sample_efficiency,
+                  train_method=p.train_method, sample_method=p.sample_method,
+                  train_path=p.train_path, launches=counts, seconds=seconds)
+    say(phase="scaling_main_path", card=card, **report)
+    return counts, report
+
+
+def drive_mesh_one_rank(device, card, tmp):
+    """The one-rank NCCL phases: serving, inference and the scaling
+    harness on one process group."""
+    import torch.distributed as dist
+
+    dt.distributed_init(f"file://{tmp}/mesh_rendezvous", 1, 0,
+                        backend="nccl")
+    try:
+        mesh = dt.make_mesh()
+        if mesh.group is None or mesh.size != 1:
+            fail(f"mesh: {mesh}")
+        serve = drive_mesh_serving(device, mesh, card)
+        infer = drive_mesh_inference(device, mesh, card)
+        scaling = drive_scaling(device, card)
+    finally:
+        dist.destroy_process_group()
+    return serve, infer, scaling
+
+
+# the two-rank phase: two processes on the one card over gloo (NCCL refuses
+# two ranks on one device); this script is the worker
+def mesh_rank_main(rank, world, init_file, out_dir):
+    """One rank of ``mesh_two_ranks``: a (2, 1) data mesh serving the
+    flagship chain, then a (1, 2) model mesh training it tensor-parallel;
+    rank 0 also runs the one-process references. Writes
+    ``rank_<rank>.json``."""
+    from densityflows_tpu_torch.parallel.mesh import shard_params_tp
+    from densityflows_tpu_torch.utils.checkpoint import _gather_tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    dt.distributed_init(f"file://{init_file}", world, rank, backend="gloo")
+    rng = np.random.default_rng(SEED + 79)
+    meta, x, theta, theta_tuple = flagship_inputs(rng, N_COND, ROWS, device,
+                                                  "two-ranks")
+    chain = wide_chain(False, rng, device)
+    flow = dt.Flow(copy.deepcopy(chain), meta, device=device)
+    out = {"rank": rank}
+
+    dp = dt.make_mesh((2, 1), ("data", "model"))
+    gen = lambda: torch.Generator().manual_seed(SEED + 6)  # noqa: E731
+    (lp, smp), counts = counted(lambda: (
+        flow.log_prob(x, theta, mesh=dp),
+        flow.sample((ROWS,), theta_tuple, generator=gen(), mesh=dp)))
+    out["serving_launches"] = counts
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        flow.log_prob(x, theta, mesh=dp)
+    torch.cuda.synchronize()
+    out["log_prob_seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        with torch.no_grad():
+            out["log_prob_bit_equal"] = bits_same(lp, flow.log_prob(x, theta))
+            out["sample_bit_equal"] = bits_same(
+                smp, flow.sample((ROWS,), theta_tuple, generator=gen()))
+
+    tp_mesh = dt.make_mesh((1, 2), ("data", "model"))
+    tp_flow = dt.Flow(copy.deepcopy(chain), meta, device=device)
+    tp_flow.model = shard_params_tp(tp_mesh, tp_flow.model)
+    if fc.chain_is_fusable(tp_flow.model, D, N_COND):
+        raise SystemExit("the chain kernel would take a tensor-parallel chain")
+    xb = torch.as_tensor((rng.normal(size=(TP["steps"] * TP["batch"], D))
+                          * 0.5).astype(np.float32)).to(device)
+    thb = torch.as_tensor(rng.uniform(size=(TP["steps"] * TP["batch"],
+                                            N_COND)).astype(np.float32)
+                          ).to(device)
+    mask = torch.ones(TP["batch"], device=device)
+
+    def steps(model, mesh):
+        opt = dt.adam(1e-3)
+        step = dt.make_train_step(opt, mesh=mesh)
+        state = opt.init(ft.trainable_leaves(model))
+        losses = []
+        for i in range(TP["steps"]):
+            rows = slice(i * TP["batch"], (i + 1) * TP["batch"])
+            _, state, loss = step(model, state, dt.StandardNormal(D),
+                                  xb[rows], thb[rows], mask)
+            losses.append(float(loss))
+        return losses
+
+    t0 = time.perf_counter()
+    out["tp_losses"] = steps(tp_flow.model, tp_mesh)
+    torch.cuda.synchronize()
+    out["tp_seconds"] = time.perf_counter() - t0
+    gathered = _gather_tp(tp_flow.model, None)[0]
+    if rank == 0:
+        rep = copy.deepcopy(chain)
+        t0 = time.perf_counter()
+        out["rep_losses"] = steps(rep, None)
+        torch.cuda.synchronize()
+        out["rep_seconds"] = time.perf_counter() - t0
+        diffs = [(a.detach() - b.detach()).abs() for a, b in zip(
+            ft.trainable_leaves(gathered), ft.trainable_leaves(rep))]
+        out["param_max_abs_err"] = max(float(e.max()) for e in diffs)
+        out["params_past_1e-4"] = sum(int((e > 1e-4).sum()) for e in diffs)
+        out["params"] = sum(e.numel() for e in diffs)
+    tp_mesh.barrier()
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def drive_mesh_two_ranks(card, tmp):
+    """``mesh_two_ranks``: this script twice on the one card, as two gloo
+    ranks (file rendezvous, a time limit each): a (2, 1) mesh's
+    ``log_prob`` / ``sample`` at 2^18 rows equal one process bit for bit; a
+    (1, 2) mesh trains the wide chain tensor-parallel for 8 steps at batch
+    1,024, against the replicated chain in one process (losses rtol 1e-5,
+    gathered parameters 1e-4 but for at most 8 coordinates, 3e-4 all)."""
+    init = os.path.join(tmp, "two_ranks_rendezvous")
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "2", init, tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=MESH_TWO_RANKS_TIMEOUT)
+            logs.append(o[-2000:] + e[-3000:])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail("mesh_two_ranks: a rank did not finish in time")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"mesh_two_ranks: rank {r} failed:\n{log}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+            res.append(json.load(f))
+    r0, r1 = res
+    if not (r0["log_prob_bit_equal"] and r0["sample_bit_equal"]):
+        fail("mesh_two_ranks: the (2, 1) mesh's log_prob / sample differ "
+             "from one process")
+    for r in res:
+        if not launches_are(r["serving_launches"], chain_apply=1,
+                            chain_sample=1):
+            fail(f"mesh_two_ranks: rank launches {r['serving_launches']}")
+    if r0["tp_losses"] != r1["tp_losses"]:
+        fail("mesh_two_ranks: the ranks' tensor-parallel losses differ")
+    loss_err = float(np.max(np.abs(np.asarray(r0["tp_losses"])
+                                   - np.asarray(r0["rep_losses"]))
+                            / np.abs(np.asarray(r0["rep_losses"]))))
+    if loss_err > TP["loss_rtol"] or r0["param_max_abs_err"] > \
+            TP["param_atol"] or r0["params_past_1e-4"] > TP["past_1e-4"]:
+        fail(f"mesh_two_ranks: tensor-parallel training off the replicated "
+             f"chain: loss rel err {loss_err}, parameters "
+             f"{r0['param_max_abs_err']}, {r0['params_past_1e-4']} past "
+             "1e-4")
+    report = dict(
+        backend="gloo (collectives of CUDA tensors through host copies)",
+        ranks=2, rows=ROWS, serving_mesh="(2, 1) data x model",
+        log_prob_and_sample_vs_one_process="bit for bit",
+        serving_launches_per_rank=r0["serving_launches"],
+        log_prob_seconds_per_rank=[r["log_prob_seconds"] for r in res],
+        tp_mesh="(1, 2) data x model", tp_steps=TP["steps"],
+        tp_batch=TP["batch"], tp_losses=r0["tp_losses"],
+        tp_loss_max_rel_err_vs_replicated=loss_err,
+        tp_param_max_abs_err_vs_replicated=r0["param_max_abs_err"],
+        tp_params_past_1e_4=r0["params_past_1e-4"], tp_params=r0["params"],
+        tp_seconds=r0["tp_seconds"], replicated_seconds=r0["rep_seconds"],
+        tolerance=dict(loss_rtol=TP["loss_rtol"],
+                       param_atol=TP["param_atol"],
+                       params_past_1e_4=TP["past_1e-4"]),
+        seconds=time.time() - t0)
+    say(phase="mesh_two_ranks", card=card, **report)
+    return report
+
+
+def chunked_fold_probe(device, card, sizes=(ROWS,)):
+    """The measurement behind ROADMAP A.6 (the JAX package's row-chunked
+    folds): ``log_prob`` of the RQS chain (benchmarks/spline_crossover.py's
+    widest config) and of a chain the chain kernel declines (the 4-block MAF
+    flow of maf_main_path) at each row count of ``sizes`` (here 2^18;
+    ``tools/chip_probe.py --only a6`` adds 2^20), straight and as a loop
+    over 4,096- and 16,384-row slices, each with its time (CUDA events, the
+    faster of two runs after the reference run) and its peak of allocated
+    device memory above the inputs."""
+    rng = np.random.default_rng(SEED + 83)
+    big = max(sizes)
+    meta, x, theta, _ = flagship_inputs(rng, N_COND, big, device, "a6")
+    rqs = dt.Flow(rqs_chain(rng, device), meta, device=device)
+    th01 = rng.uniform(size=(SEQ_ROWS, N_COND)).astype(np.float32)
+    dset = dt.DataArrays.make(
+        (rng.normal(size=(SEQ_ROWS, D)) * 0.5).astype(np.float32),
+        meta.theta_min + (meta.theta_max - meta.theta_min) * th01, rng=0)
+    maf = dt.build_flow(dt.FlowConfig(net=dt.NetConfig(hidden_dim_t=HIDDEN),
+                                      n_blocks=N_BLOCKS, family="maf"),
+                        dset, generator=torch.Generator().manual_seed(SEED),
+                        device=device)
+    numpy_weights_(maf.model, rng, 0.1)
+    report = {}
+    for name, flow in (("rqs", rqs), ("maf_declined", maf)):
+        if fc.chain_is_fusable(flow.model, D, N_COND):
+            fail(f"chunked_fold_probe: the chain kernel takes {name}")
+        rows_report = {}
+        for rows in sizes:
+            xs, ts = x[:rows], theta[:rows]
+
+            def straight():
+                return flow.log_prob(xs, ts)
+
+            def looped(chunk):
+                return lambda: torch.cat([
+                    flow.log_prob(xs[i:i + chunk], ts[i:i + chunk])
+                    for i in range(0, rows, chunk)])
+
+            with torch.no_grad():
+                want = straight()
+                entry = {}
+                for label, fn in [("straight", straight)] + [
+                        (f"chunks_{c}", looped(c)) for c in CHUNK_ROWS]:
+                    # two timed runs; the first one's peak memory
+                    times = []
+                    for run in range(2):
+                        torch.cuda.synchronize()
+                        base = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        e0 = torch.cuda.Event(enable_timing=True)
+                        e1 = torch.cuda.Event(enable_timing=True)
+                        e0.record()
+                        got = fn()
+                        e1.record()
+                        torch.cuda.synchronize()
+                        times.append(e0.elapsed_time(e1))
+                        if run == 0:
+                            peak = torch.cuda.max_memory_allocated() - base
+                            err = float((got - want).abs().max())
+                        del got
+                    entry[label] = dict(ms=min(times), ms_runs=times,
+                                        peak_mib=peak / 2**20,
+                                        max_abs_err_vs_straight=err)
+            rows_report[str(rows)] = entry
+        report[name] = rows_report
+    say(phase="chunked_fold_probe", card=card,
+        config=f"d {D}, n {N_COND}, {N_BLOCKS} blocks hidden {HIDDEN}",
+        **report)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4783,6 +5365,18 @@ def main():
     summary["a13_seconds"] = time.time() - t_new
     summary["example_uncertainty_seconds"] = example["seconds"]
 
+    # phase 4j: mesh= on serving and the inference engine (one NCCL rank),
+    # two gloo ranks on the card (a data mesh, a tensor-parallel model
+    # mesh), the instruments, the scaling harness, and the A.6 probe
+    t_new = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        (serve_launches, _), (infer_launches, _), (scaling_launches, _) = \
+            drive_mesh_one_rank(device, card, tmp)
+        summary["mesh_two_ranks"] = drive_mesh_two_ranks(card, tmp)
+        summary["instruments"] = drive_instruments(device, card, tmp)
+    chunked_fold_probe(device, card)
+    summary["a9_a4_seconds"] = time.time() - t_new
+
     # phase 5: times
     for joint in (False, True):
         flow, x, theta, theta_tuple, _ = driven[joint]
@@ -4836,6 +5430,24 @@ def main():
                 bound_ms=ensemble["bound_ms_k"],
                 ms_by_members={k: v["ms"]
                                for k, v in ensemble["sweep"].items()})
+        mesh_paths = {
+            "chain_apply": dict(
+                log_prob_mesh=serve_launches["log_prob"]["chain_apply"],
+                flow_mcmc_mesh=infer_launches["flow_mcmc"]["chain_apply"],
+                sample_with_rejection_mesh=infer_launches[
+                    "sample_with_rejection"]["chain_apply"],
+                mesh_two_ranks_per_rank=1),
+            "chain_sample": dict(
+                sample_mesh=serve_launches["sample"]["chain_sample"],
+                sample_sweep_mesh=serve_launches["sample_sweep"][
+                    "chain_sample"],
+                row_offset_split=4, mesh_two_ranks_per_rank=1,
+                scaling_report=scaling_launches["chain_sample"]),
+            "step_grads": dict(
+                scaling_report=scaling_launches["step_grads"]),
+        }
+        if row["name"] in mesh_paths:
+            row["launches_on_mesh_phases"] = mesh_paths[row["name"]]
         if row["name"] in ("chain_apply", "chain_sample"):
             row["launches_on_a13_phases"] = (
                 dict(ensemble["chain_apply_launches"],
@@ -4856,4 +5468,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5]))
     sys.exit(main())

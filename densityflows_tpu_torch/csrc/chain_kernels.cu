@@ -130,7 +130,8 @@ chain_sample_kernel(float* __restrict__ y, float* __restrict__ r_out,
                     const int* __restrict__ prog, int n_instr,
                     const float* __restrict__ P,
                     const float* __restrict__ tiled, long long rows, int d,
-                    int n, int ldh, uint32_t seed_lo, uint32_t seed_hi) {
+                    int n, int ldh, uint32_t seed_lo, uint32_t seed_hi,
+                    long long row_offset) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const Tile t = carve<TB>(smem, d, n, ldh);
@@ -159,16 +160,18 @@ chain_sample_kernel(float* __restrict__ y, float* __restrict__ r_out,
     }
     consumer_sync();
 
-    // base draw: counter = (row, column pair), so a draw depends on
-    // (seed, row, column) and not on the tile size or the launch shape
+    // base draw: counter = (global row, column pair), so a draw depends on
+    // (seed, row_offset + row, column) and not on the tile size or the
+    // launch shape; a launch of rows [lo, hi) of a larger draw with
+    // row_offset = lo gives exactly those rows of it
     const int pairs = (d + 1) / 2;
     for (int idx = threadIdx.x; idx < TB * pairs; idx += CONSUMERS) {
         const int r = idx / pairs, p = idx - r * pairs;
         const long long g = row0 + r;
         if (g >= rows) continue;
+        const unsigned long long c = (unsigned long long)(row_offset + g);
         const uint4 bits = philox4x32_10(
-            make_uint4((uint32_t)g, (uint32_t)((unsigned long long)g >> 32),
-                       (uint32_t)p, 0u),
+            make_uint4((uint32_t)c, (uint32_t)(c >> 32), (uint32_t)p, 0u),
             make_uint2(seed_lo, seed_hi));
         const int j = 2 * p;
         const float z0 = box_muller(bits.x, bits.y);
@@ -213,7 +216,7 @@ int launch_sample(float* y, float* r_out, const float* theta,
                   int theta_broadcast, const int* prog, int n_instr,
                   const float* P, const float* tiled, long long rows, int d,
                   int n, int ldh, uint32_t seed_lo, uint32_t seed_hi,
-                  cudaStream_t stream) {
+                  long long row_offset, cudaStream_t stream) {
     const size_t bytes = block_floats(TB, d, n, ldh) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         chain_sample_kernel<TB>,
@@ -222,7 +225,7 @@ int launch_sample(float* y, float* r_out, const float* theta,
     const unsigned grid = (unsigned)((rows + TB - 1) / TB);
     chain_sample_kernel<TB><<<grid, THREADS, bytes, stream>>>(
         y, r_out, theta, theta_broadcast, prog, n_instr, P, tiled, rows, d,
-        n, ldh, seed_lo, seed_hi);
+        n, ldh, seed_lo, seed_hi, row_offset);
     return (int)cudaGetLastError();
 }
 
@@ -261,12 +264,14 @@ int df_chain_apply(const void* x, const void* theta, void* y, void* ldj,
 
 // y (rows, d); r_out (rows, d) or null; theta (rows, n), (1, n) with
 // theta_broadcast = 1, or null when n == 0; params and tiled as for
-// df_chain_apply.
+// df_chain_apply. row_offset: the global index of row 0 in the generator's
+// counter (the outputs are written from row 0).
 int df_chain_sample(void* y, void* r_out, const void* theta,
                     int theta_broadcast, const void* prog, int n_instr,
                     const void* params, const void* tiled, long long rows,
                     int d, int n, int ldh, unsigned int seed_lo,
-                    unsigned int seed_hi, int tile_rows, void* stream) {
+                    unsigned int seed_hi, long long row_offset, int tile_rows,
+                    void* stream) {
     if (rows <= 0) return 0;
     auto s = static_cast<cudaStream_t>(stream);
     auto yf = static_cast<float*>(y);
@@ -277,13 +282,16 @@ int df_chain_sample(void* y, void* r_out, const void* theta,
     auto wf = static_cast<const float*>(tiled);
     if (tile_rows == 64)
         return launch_sample<64>(yf, rf, tf, theta_broadcast, pg, n_instr, pf,
-                                 wf, rows, d, n, ldh, seed_lo, seed_hi, s);
+                                 wf, rows, d, n, ldh, seed_lo, seed_hi,
+                                 row_offset, s);
     if (tile_rows == 32)
         return launch_sample<32>(yf, rf, tf, theta_broadcast, pg, n_instr, pf,
-                                 wf, rows, d, n, ldh, seed_lo, seed_hi, s);
+                                 wf, rows, d, n, ldh, seed_lo, seed_hi,
+                                 row_offset, s);
     if (tile_rows == 16)
         return launch_sample<16>(yf, rf, tf, theta_broadcast, pg, n_instr, pf,
-                                 wf, rows, d, n, ldh, seed_lo, seed_hi, s);
+                                 wf, rows, d, n, ldh, seed_lo, seed_hi,
+                                 row_offset, s);
     return -1;
 }
 

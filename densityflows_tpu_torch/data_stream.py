@@ -257,11 +257,14 @@ def train_streaming(
     (x_valid, theta_valid)`` (raw, un-normalized) adds a per-epoch validation
     NLL. Returns ``opt_state``.
 
-    ``mesh`` (``parallel.mesh.make_mesh()``): each rank streams ITS OWN
-    loader shard (``host_id`` / ``num_hosts`` default to the rank and the
-    world size), the global batch of a step is the ranks' ``batchsize`` rows
-    each, and loss and gradients are summed over the ranks; the loader's
-    ceil split guarantees every rank the SAME batch count per epoch.
+    ``mesh`` (``parallel.mesh.make_mesh()``): each rank of the ``data``
+    axis streams ITS OWN loader shard (``host_id`` / ``num_hosts`` default
+    to its index and the axis's size), the global batch of a step is the
+    ranks' ``batchsize`` rows each, and loss and gradients are summed over
+    the axis; the loader's ceil split guarantees every rank the SAME batch
+    count per epoch. The ranks of a ``model`` axis stream the same shard and
+    each trains its own tensor-parallel shards
+    (``parallel.mesh.shard_params_tp``) on the plain step.
 
     ``fused_kernel``: ``"auto"`` (default) runs the step kernel when the flow
     is on a CUDA device, the optimizer is ``adam(...)`` (or None) and the
@@ -273,9 +276,10 @@ def train_streaming(
     """
     from .data import normalize_input
     from .models.fused_train import trainable_leaves
-    from .train import Adam, _eval_nll, _not_ported, make_train_step
+    from .parallel.mesh import check_mesh
+    from .train import Adam, _eval_nll, make_train_step
 
-    _not_ported(mesh=mesh)
+    check_mesh(mesh)
     multiproc = mesh is not None and mesh.size > 1
     if host_id is None:
         host_id = mesh.rank if multiproc else 0
@@ -290,7 +294,7 @@ def train_streaming(
         optimizer = Adam()
     device = flow.device
     fused = _fused_streaming_setup(flow, optimizer, opt_state, mesh,
-                                   fused_kernel)
+                                   fused_kernel, batchsize)
     loader = StreamingLoader(
         x, theta, batchsize=batchsize, shuffle=shuffle, seed=seed,
         host_id=host_id, num_hosts=num_hosts)
@@ -379,7 +383,8 @@ def train_streaming(
     return opt_state
 
 
-def _fused_streaming_setup(flow, optimizer, opt_state, mesh, fused_kernel):
+def _fused_streaming_setup(flow, optimizer, opt_state, mesh, fused_kernel,
+                           batchsize):
     """``None`` (the reason in ``flow.fused_decline_reason``), or the
     enter / step / eval / exit callables that run the streaming loop on
     FOLDED parameters with the grads-only step kernel and Adam over the flat
@@ -388,6 +393,7 @@ def _fused_streaming_setup(flow, optimizer, opt_state, mesh, fused_kernel):
     from .models.fused_train import (
         UnsupportedFusedTrain,
         fold_for_step,
+        fold_for_step_mesh,
         load_leaves_,
     )
     from .ops.step_kernels import folded_nll
@@ -426,7 +432,9 @@ def _fused_streaming_setup(flow, optimizer, opt_state, mesh, fused_kernel):
     if opt_state is not None and not isinstance(opt_state, AdamState):
         return decline("opt_state is not an Adam state (need count, mu, nu)")
     try:
-        folded = fold_for_step(flow)
+        # on a mesh with a 'model' axis: JAX's "non-DP mesh axes"
+        folded = (fold_for_step(flow) if mesh is None else
+                  fold_for_step_mesh(flow, batchsize * mesh.size, mesh))
     except UnsupportedFusedTrain as e:
         return decline(f"outside the step kernel's envelope: {e}",
                        warn=on_cuda)

@@ -435,9 +435,10 @@ def train_ensemble(
     from the members' generators (tests inject another program's orders).
     """
     from .models.fused_train import UnsupportedFusedTrain, draw_epoch_perms
-    from .train import Adam, _chunk_seed, _not_ported, _put
+    from .parallel.mesh import check_mesh
+    from .train import Adam, _chunk_seed, _put
 
-    _not_ported(mesh=mesh)
+    check_mesh(mesh)
     device = resolve_device(device)
     k = int(n_members)
     if k < 1:

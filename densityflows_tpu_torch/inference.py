@@ -28,12 +28,22 @@ are a different stream from JAX's. Inputs and outputs are float32 tensors,
 except for the numpy diagnostics and the host-side SNPE plumbing, which
 take and return numpy arrays as in JAX.
 
+``mesh=`` (a ``parallel.mesh.Mesh``) on ``sample_with_rejection``,
+``fit_variational``, ``run_smc`` and ``flow_mcmc`` splits the candidate,
+particle or chain axis over the mesh's ``data`` axis
+(``parallel.mesh.host_local_rows``): each rank folds its rows through the
+flow, the reductions over the axis (acceptance counts, ESS and its sums,
+the variational loss and gradients) are all-reduced, SMC resamples with the
+ring resampler ``parallel.resample.systematic_resample_sharded``, and every
+rank returns the whole result. Every rank passes the same arguments and an
+equally seeded generator: each draw is made whole on every rank (the
+one-process stream) and each rank takes its rows of it, so a run equals the
+one-process run of the same generator state up to the order of the sums.
+``fit_posterior(mesh=...)`` is the data-parallel ``train(mesh=...)``.
+
 Not ported: ``clear_caches`` and ``trace_counts`` (the JAX engine caches
 its jitted programs by the identity of their Python objects; eager PyTorch
-has no program to cache). ``mesh=`` on ``sample_with_rejection``,
-``fit_variational``, ``run_smc`` and ``flow_mcmc`` raises
-``NotImplementedError`` (ROADMAP A9); ``fit_posterior(mesh=...)`` is the
-data-parallel ``train(mesh=...)``.
+has no program to cache).
 """
 
 from __future__ import annotations
@@ -45,10 +55,11 @@ import numpy as np
 import torch
 
 from ._device import as_float32, resolve_device
-from .models.flow import Flow, _chain_eval, _no_mesh
+from .models.flow import Flow, _chain_eval
 from .models.fused_train import trainable_leaves
 from .data import DataArrays, normalize_input
-from .train import Adam, _autograd, train
+from .parallel.mesh import check_mesh, host_local_rows
+from .train import Adam, _autograd, _reduce_grads, train
 
 __all__ = [
     "sample_with_rejection",
@@ -70,6 +81,19 @@ __all__ = [
     "sbc_ranks",
     "sbc_uniformity",
 ]
+
+
+# -- the particle axis under a mesh -----------------------------------------------
+
+def _share(mesh, n: int) -> slice:
+    """This rank's rows of an axis of ``n`` rows (all of them without a
+    mesh)."""
+    return slice(0, n) if mesh is None else host_local_rows(mesh, n)
+
+
+def _whole(mesh, local, n: int):
+    """The ``n`` rows of every rank's share, on every rank."""
+    return local if mesh is None else mesh.all_gather_rows(local, n)
 
 
 # -- where the random numbers come from ----------------------------------------
@@ -107,11 +131,14 @@ class _Draws:
                              self._gen_device).to(self.device)
 
 
-def _adam_step(model, optimizer, opt_state, loss_fn):
+def _adam_step(model, optimizer, opt_state, loss_fn, mesh=None):
     """One optimizer step on ``loss_fn()``'s autograd gradients, the model's
-    trainable leaves updated in place. Returns the new state and the
-    detached loss."""
+    trainable leaves updated in place; with a ``mesh`` the loss and the
+    gradients are summed over its ``data`` axis first. Returns the new state
+    and the detached loss."""
     loss, leaves, grads = _autograd(model, loss_fn)
+    if mesh is not None:
+        loss, leaves, grads = _reduce_grads(mesh, loss, leaves, grads)
     updates, opt_state = optimizer.update(grads, opt_state, leaves)
     with torch.no_grad():
         torch._foreach_add_(leaves, list(updates))
@@ -141,19 +168,27 @@ def sample_with_rejection(
     accepted rows of the round fill the output in draw order, and rows past
     ``n_samples`` are dropped. Raises ``RuntimeError`` if ``max_rounds``
     rounds accept fewer than ``n_samples`` rows.
+
+    ``mesh``: each round's candidates are split over the ``data`` axis;
+    each rank folds and tests its rows, and the rows and their verdicts are
+    gathered in global row order before the accepted ones fill the output.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     if batch is None:
         batch = max(2 * n_samples, 1024)
     draws = _draws if _draws is not None else _Draws(generator, flow.device)
-    theta_n = flow.prepare_theta(theta, (batch,))
+    rows = _share(mesh, batch)
+    theta_n = flow.prepare_theta(theta, (batch,))[rows]
     out = torch.empty((n_samples, flow.metadata.d), device=flow.device)
     filled = rounds = 0
     with torch.no_grad():
         while filled < n_samples and rounds < max_rounds:
-            r = draws.base(flow.base, (batch,))
+            r = draws.base(flow.base, (batch,))[rows]
             x = flow.model.forward_(r, theta_n)
-            ok = condition(x).reshape(batch).to(torch.bool)
+            ok = condition(x).reshape(-1).to(torch.bool)
+            if mesh is not None:
+                x = _whole(mesh, x, batch)
+                ok = _whole(mesh, ok.to(torch.float32), batch) > 0.5
             accepted = x[ok]
             take = min(accepted.shape[0], n_samples - filled)
             out[filled:filled + take] = accepted[:take]
@@ -555,25 +590,33 @@ def fit_variational(
 
     Appends the per-step losses to ``flow.train_loss``; returns the
     optimizer state.
+
+    ``mesh``: the particles are split over the ``data`` axis; each rank's
+    loss is its particles' sum over the GLOBAL count, and the loss and the
+    gradients are summed over the axis (one all-reduce a step) before every
+    rank applies the same update.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     if optimizer is None:
         optimizer = Adam()
-    theta_n = flow.prepare_theta(theta, (n_particles,))
+    rows = _share(mesh, n_particles)
+    theta_n = flow.prepare_theta(theta, (n_particles,))[rows]
     model, base = flow.model, flow.base
     draws = _draws if _draws is not None else _Draws(generator, flow.device)
 
     def vi_loss(z):
         x, ldj = model.forward(z, theta_n)
         log_q = base.log_prob(z) - ldj
-        return (log_q - log_density(x)).mean()
+        if mesh is None:
+            return (log_q - log_density(x)).mean()
+        return (log_q - log_density(x)).sum() / n_particles
 
     opt_state = optimizer.init(trainable_leaves(model))
     losses = []
     for _ in range(steps):
-        z = draws.base(base, (n_particles,))
+        z = draws.base(base, (n_particles,))[rows]
         opt_state, loss = _adam_step(model, optimizer, opt_state,
-                                     lambda: vi_loss(z))
+                                     lambda: vi_loss(z), mesh)
         losses.append(loss)
     losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
     flow.train_loss.extend(float(v) for v in losses)
@@ -670,6 +713,7 @@ def smc_step(
     mh_step_size: float = 0.1,
     n_mh: int = 1,
     _draws=None,
+    _mesh=None,
 ):
     """One tempered-SMC step on the ladder π_λ ∝ q0^(1−λ)·p̃^λ.
 
@@ -678,34 +722,62 @@ def smc_step(
     targeting π_{λ_new}. The resampling offset is drawn on every step,
     resampled or not, so the stream of draws does not depend on the test.
     Returns ``(state, ess, mean acceptance)``.
+
+    ``_mesh`` (``run_smc(mesh=...)``): ``state`` holds this rank's equal
+    block of the particles; ESS and the acceptance are over all of them
+    (all-reduces), resampling is the ring resampler.
     """
-    n = state.particles.shape[0]
+    mesh = _mesh
+    n_local = state.particles.shape[0]
+    n = n_local * (1 if mesh is None else mesh.size)
+    rows = _share(mesh, n)
     draws = _draws if _draws is not None else _Draws(
         generator, state.particles.device)
     dlam = lam_new - lam_old
     log_w = state.log_weights + dlam * (state.log_target - state.log_prior)
-    ess = effective_sample_size(log_w)
+    if mesh is None:
+        ess = effective_sample_size(log_w)
+    else:
+        top = mesh.all_reduce_(log_w.max().reshape(1),
+                               op=torch.distributed.ReduceOp.MAX)
+        w = torch.exp(log_w - top)
+        sums = mesh.all_reduce_(torch.stack([w.sum(), (w * w).sum()]))
+        ess = sums[0].square() / sums[1]
     u0 = draws.uniform(())
     particles, log_q0, log_tgt = (state.particles, state.log_prior,
                                   state.log_target)
     if bool(ess < ess_threshold * n):
-        idx = _systematic_resample(log_w, u0)
-        particles, log_q0, log_tgt = particles[idx], log_q0[idx], log_tgt[idx]
-        log_w = torch.zeros((n,), dtype=torch.float32, device=log_w.device)
+        if mesh is None:
+            idx = _systematic_resample(log_w, u0)
+            particles, log_q0, log_tgt = (particles[idx], log_q0[idx],
+                                          log_tgt[idx])
+        else:
+            from .parallel.resample import systematic_resample_sharded
+
+            # the cached densities travel with their particles
+            moved = systematic_resample_sharded(
+                log_w, torch.cat([particles, log_q0[:, None],
+                                  log_tgt[:, None]], 1), None, mesh, u0=u0)
+            particles, log_q0, log_tgt = (moved[:, :-2], moved[:, -2],
+                                          moved[:, -1])
+        log_w = torch.zeros((n_local,), dtype=torch.float32,
+                            device=log_w.device)
 
     # MH moves targeting π_{λ_new} ∝ q0^(1−λ)·p̃^λ
     accs = []
     for _ in range(n_mh):
-        prop = particles + mh_step_size * draws.normal(particles.shape)
+        step = draws.normal((n,) + tuple(particles.shape[1:]))[rows]
+        prop = particles + mh_step_size * step
         lq_prop = log_prior(prop)
         lp_prop = log_density(prop)
         log_alpha = ((1.0 - lam_new) * (lq_prop - log_q0)
                      + lam_new * (lp_prop - log_tgt))
-        accept = torch.log(draws.uniform(log_tgt.shape)) < log_alpha
+        accept = torch.log(draws.uniform((n,))[rows]) < log_alpha
         particles = torch.where(accept[..., None], prop, particles)
         log_q0 = torch.where(accept, lq_prop, log_q0)
         log_tgt = torch.where(accept, lp_prop, log_tgt)
-        accs.append(accept.to(torch.float32).mean())
+        accs.append(accept.to(torch.float32).mean() if mesh is None else
+                    mesh.all_reduce_(accept.to(torch.float32).sum()) / n)
     acc = (torch.stack(accs).mean() if accs
            else torch.full((), float("nan"), device=particles.device))
     return SMCState(particles, log_w, log_q0, log_tgt), ess, acc
@@ -732,11 +804,22 @@ def run_smc(
 
     Returns (particles, log_weights, {"ess": (n_steps,), "mh_accept":
     (n_steps,)}).
+
+    ``mesh``: the particles are split in equal blocks over the ``data``
+    axis (``n_particles`` must be a multiple of its size); every rank
+    returns all of them.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     device = resolve_device(device)
+    if mesh is not None and n_particles % mesh.size:
+        raise ValueError(
+            f"run_smc(mesh=...) splits the particles in equal blocks: "
+            f"n_particles {n_particles} is not a multiple of the data axis "
+            f"({mesh.size})")
+    rows = _share(mesh, n_particles)
+    n_local = rows.stop - rows.start
     draws = _draws if _draws is not None else _Draws(generator, device)
-    x0 = init_scale * draws.normal((n_particles, d))
+    x0 = init_scale * draws.normal((n_particles, d))[rows]
 
     def log_prior(x):
         return -0.5 * (x * x).sum(-1) / (init_scale**2)
@@ -745,8 +828,7 @@ def run_smc(
                           device=device)
     with torch.no_grad():
         state = SMCState(
-            x0, torch.zeros((n_particles,), dtype=torch.float32,
-                            device=device),
+            x0, torch.zeros((n_local,), dtype=torch.float32, device=device),
             log_prior(x0), log_density(x0),
         )
         ess_hist, acc_hist = [], []
@@ -754,15 +836,16 @@ def run_smc(
             state, ess, acc = smc_step(
                 state, log_density, log_prior, lams[i], lams[i + 1],
                 ess_threshold=ess_threshold, mh_step_size=mh_step_size,
-                n_mh=n_mh, _draws=draws,
+                n_mh=n_mh, _draws=draws, _mesh=mesh,
             )
             ess_hist.append(ess)
             acc_hist.append(acc.to(device))
     empty = torch.zeros((0,), device=device)
-    return state.particles, state.log_weights, {
-        "ess": torch.stack(ess_hist) if ess_hist else empty,
-        "mh_accept": torch.stack(acc_hist) if acc_hist else empty,
-    }
+    return (_whole(mesh, state.particles, n_particles),
+            _whole(mesh, state.log_weights, n_particles), {
+                "ess": torch.stack(ess_hist) if ess_hist else empty,
+                "mh_accept": torch.stack(acc_hist) if acc_hist else empty,
+            })
 
 
 # -- flow-accelerated MCMC --------------------------------------------------
@@ -803,24 +886,31 @@ def flow_mcmc(
     per-step mean acceptance (``accept_rate``, ``(n_steps,)``),
     ``burn_in`` and, when at least 4 steps are kept, ``r_hat`` / ``ess``
     from :func:`mcmc_diagnostics`.
+
+    ``mesh``: the chains are split over the ``data`` axis, each rank
+    folding its chains; the acceptance counts are summed over the axis (one
+    all-reduce at the end), and the kept draws gathered, so the diagnostics
+    are over all chains on every rank.
     """
     if method not in ("independence", "neutra"):
         raise ValueError("method must be 'independence' or 'neutra'")
     if not 0 <= burn_in < n_steps:
         raise ValueError(f"need 0 <= burn_in < n_steps, got {burn_in}/{n_steps}")
-    _no_mesh(mesh)
-    theta_n = flow.prepare_theta(theta, (n_chains,))
+    check_mesh(mesh)
+    rows = _share(mesh, n_chains)
+    n_local = rows.stop - rows.start
+    theta_n = flow.prepare_theta(theta, (n_chains,))[rows]
     model, base = flow.model, flow.base
     draws = _draws if _draws is not None else _Draws(generator, flow.device)
 
     def fold(z):
         return _chain_eval(model, z, theta_n, "fwd")
 
-    kept = torch.empty((n_steps - burn_in, n_chains, flow.metadata.d),
+    kept = torch.empty((n_steps - burn_in, n_local, flow.metadata.d),
                        device=flow.device)
     acc = torch.empty((n_steps,), device=flow.device)
     with torch.no_grad():
-        z = draws.base(base, (n_chains,))
+        z = draws.base(base, (n_chains,))[rows]
         x, ldj = fold(z)
         if method == "independence":
             # state: x, log p̃(x), log q(x)
@@ -829,24 +919,32 @@ def flow_mcmc(
             lp = log_density(x) + ldj
         for t in range(n_steps):
             if method == "independence":
-                z_p = draws.base(base, (n_chains,))
+                z_p = draws.base(base, (n_chains,))[rows]
                 x_p, ldj_p = fold(z_p)
                 lp_p = log_density(x_p)
                 lq_p = base.log_prob(z_p) - ldj_p
                 log_alpha = (lp_p - lq_p) - (lp - lq)
-                accept = torch.log(draws.uniform(lp.shape)) < log_alpha
+                accept = torch.log(draws.uniform((n_chains,))[rows]) \
+                    < log_alpha
                 lq = torch.where(accept, lq_p, lq)
             else:  # neutra: RW on the pulled-back target in latent space
-                z_p = z + step_size * draws.normal(z.shape)
+                z_p = z + step_size * draws.normal(
+                    (n_chains, flow.metadata.d))[rows]
                 x_p, ldj_p = fold(z_p)
                 lp_p = log_density(x_p) + ldj_p
-                accept = torch.log(draws.uniform(lp.shape)) < lp_p - lp
+                accept = torch.log(draws.uniform((n_chains,))[rows]) \
+                    < lp_p - lp
                 z = torch.where(accept[..., None], z_p, z)
             x = torch.where(accept[..., None], x_p, x)
             lp = torch.where(accept, lp_p, lp)
-            acc[t] = accept.to(torch.float32).mean()
+            acc[t] = (accept.to(torch.float32).mean() if mesh is None
+                      else accept.to(torch.float32).sum())
             if t >= burn_in:
                 kept[t - burn_in] = x
+    if mesh is not None:
+        acc = mesh.all_reduce_(acc) / n_chains
+        kept = mesh.all_gather_rows(kept.transpose(0, 1).contiguous(),
+                                    n_chains).transpose(0, 1)
     diag = {"accept_rate": acc, "burn_in": burn_in}
     if kept.shape[0] >= 4:  # split-R̂/ESS need a few kept steps
         diag.update(mcmc_diagnostics(kept.cpu().numpy()))

@@ -19,8 +19,18 @@ The Flow lives on one device, given at construction (``device=None`` means
 ``"cuda"``). Inputs may be numpy arrays or tensors and must be float32.
 Randomness comes from an explicit ``torch.Generator``.
 
-Not ported yet (the arguments exist and raise ``NotImplementedError``):
-``mesh=`` sharding (ROADMAP A9) and the row-chunked folds.
+``mesh=`` (a ``parallel.mesh.Mesh``) on ``sample`` / ``sample_sweep`` /
+``log_prob`` splits the row axis over the mesh's ``data`` axis: every rank
+works on its :func:`~..parallel.mesh.host_local_rows` share (one
+``chain_apply`` / ``chain_sample`` launch per rank for a fusable chain on
+CUDA) and returns the WHOLE result, gathered in one all-gather, as the JAX
+package returns a global array. Every rank passes the same inputs and an
+equally seeded generator. The draws equal the one-process draw of the same
+generator state: ``chain_sample`` counts its in-kernel generator by the
+global row (``row_offset``); the plain path and the CPU draw the whole base
+sample on every rank and fold their rows of it.
+
+Not ported: the row-chunked folds of the JAX package (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from torch import nn
 
 from .._device import as_float32, resolve_device
 from ..data import DataArrays, MetaData, normalize_input
+from ..parallel.mesh import Mesh, check_mesh, host_local_rows
 from .chains import FlowChain
 from .distributions import StandardNormal
 
@@ -41,13 +52,6 @@ def nll_loss(model, base, x, theta):
     """Forward-KL NLL: −mean(base.log_prob(z) + ldj) over the batch."""
     z, ldj = model.inverse(x, theta)
     return -(base.log_prob(z) + ldj).mean()
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= sharding is not ported yet (ROADMAP A9: data-parallel "
-            "paths on torch.distributed)")
 
 
 def _chain_eval(model, y, theta, dirn):
@@ -187,28 +191,23 @@ class Flow:
 
         ``theta``: None, a tuple of n scalars (shared by all draws), or an
         array of shape (*dims, n). ``generator``: a ``torch.Generator``
-        (None: a fresh non-deterministic one).
+        (None: a fresh non-deterministic one). ``mesh``: split the draws
+        over the mesh's ``data`` axis (module docstring); every rank gets
+        all of them.
         """
-        _no_mesh(mesh)
+        check_mesh(mesh)
         if isinstance(dims, int):
             dims = (dims,)
         dims = tuple(int(s) for s in dims)
-        d = self.metadata.d
         rows = int(np.prod(dims)) if dims else 1
-        if self._fused_sampler_applies():
-            from .fused_chain import maybe_sample_fused
-
-            # a scalar/tuple θ stays one row: the kernel broadcasts it
-            if theta is None or isinstance(theta, (int, float, tuple, list)):
-                theta_n = self.prepare_theta(theta, (1,))
-            else:
-                theta_n = self.prepare_theta(theta, dims)
-                theta_n = theta_n.reshape(rows, theta_n.shape[-1])
-            out = maybe_sample_fused(self.model, generator, rows, d, theta_n)
-            if out is not None:
-                return out.reshape(dims + (d,))
-        r = self.base.sample(generator, dims, self.device)
-        return self.model.forward_(r, self.prepare_theta(theta, dims))
+        # a scalar/tuple θ stays one row: the kernel broadcasts it
+        if theta is None or isinstance(theta, (int, float, tuple, list)):
+            theta_n = self.prepare_theta(theta, (1,))
+        else:
+            theta_n = self.prepare_theta(theta, dims).reshape(
+                rows, self.metadata.n)
+        return self._sample_rows(dims, theta_n, generator,
+                                 mesh).reshape(dims + (self.metadata.d,))
 
     def sample_sweep(self, thetas, n_per_theta: int, *, generator=None,
                      mesh=None):
@@ -216,9 +215,10 @@ class Flow:
 
         ``thetas``: (G, n) array (or list of tuples) of conditions. Returns
         draws of shape (G, n_per_theta, d) from one pass over the flattened
-        (G·n_per_theta) draw axis.
+        (G·n_per_theta) draw axis, split over ``mesh``'s ``data`` axis when
+        given.
         """
-        _no_mesh(mesh)
+        check_mesh(mesh)
         n, d = self.metadata.n, self.metadata.d
         if isinstance(thetas, torch.Tensor):
             thetas = thetas.to(self.device, torch.float32)
@@ -232,14 +232,33 @@ class Flow:
         theta_full = thetas.repeat_interleave(n_per_theta, dim=0)
         theta_n = normalize_input(theta_full, self._theta_min,
                                   self._theta_max) if n else theta_full
+        return self._sample_rows((total,), theta_n, generator,
+                                 mesh).reshape(g, n_per_theta, d)
+
+    def _sample_rows(self, dims, theta_n, generator, mesh):
+        """The draw of ``dims`` flattened to ``(rows, d)``. ``theta_n``: the
+        normalized θ, (1, n) broadcast or (rows, n). Each rank of ``mesh``
+        (None: this process alone) folds its :func:`host_local_rows` share
+        and the shares are gathered over the ``data`` axis."""
+        mesh = mesh if mesh is not None else Mesh()
+        d, n = self.metadata.d, self.metadata.n
+        rows = int(np.prod(dims)) if dims else 1
+        sl = host_local_rows(mesh, rows)
+        lo, hi = sl.start, sl.stop
+        th = theta_n if theta_n.shape[0] == 1 else theta_n[lo:hi]
+        out = None
         if self._fused_sampler_applies():
             from .fused_chain import maybe_sample_fused
 
-            out = maybe_sample_fused(self.model, generator, total, d, theta_n)
-            if out is not None:
-                return out.reshape(g, n_per_theta, d)
-        r = self.base.sample(generator, (total,), self.device)
-        return self.model.forward_(r, theta_n).reshape(g, n_per_theta, d)
+            out = maybe_sample_fused(self.model, generator, hi - lo, d, th,
+                                     row_offset=lo, total_rows=rows)
+        if out is None:
+            # every rank draws the whole base sample from its equally
+            # seeded generator (the one-process stream) and folds its rows
+            r = self.base.sample(generator, dims, self.device)
+            r = r.reshape(rows, d)[lo:hi]
+            out = self.model.forward_(r, th.expand(hi - lo, n))
+        return mesh.all_gather_rows(out, rows)
 
     # -- densities --------------------------------------------------------
     def log_prob(self, x, theta=None, *, grid_chunk: int = 65536, mesh=None):
@@ -251,17 +270,28 @@ class Flow:
         requires θ as a tuple of n scalars. Grids larger than ``grid_chunk``
         rows are evaluated in chunks of that many rows (peak memory
         O(grid_chunk·d) + output).
+
+        ``mesh`` (array form only): split the rows over the mesh's ``data``
+        axis; each rank evaluates its share (one ``chain_apply`` launch for
+        a fusable chain on CUDA) and every rank returns all of them.
         """
         if isinstance(x, (tuple, list)) and all(np.ndim(v) == 1 for v in x):
             if mesh is not None:
                 raise ValueError("mesh sharding applies to the array form "
                                  "of log_prob, not the grid form")
             return self._log_prob_grid(tuple(x), theta, grid_chunk)
-        _no_mesh(mesh)
+        check_mesh(mesh)
+        mesh = mesh if mesh is not None else Mesh()
         x = as_float32(x, self.device, "x")
         theta_n = self.prepare_theta(theta, x.shape[:-1])
-        z, ldj = _chain_eval(self.model, x, theta_n, "inv")
-        return self.base.log_prob(z) + ldj
+        batch_shape = x.shape[:-1]
+        rows = int(np.prod(batch_shape)) if batch_shape else 1
+        sl = host_local_rows(mesh, rows)
+        z, ldj = _chain_eval(self.model, x.reshape(rows, x.shape[-1])[sl],
+                             theta_n.reshape(rows, theta_n.shape[-1])[sl],
+                             "inv")
+        lp = mesh.all_gather_rows(self.base.log_prob(z) + ldj, rows)
+        return lp.reshape(batch_shape)
 
     def _log_prob_grid(self, axes_vectors: tuple, theta, grid_chunk: int):
         d = self.metadata.d

@@ -10,7 +10,9 @@ sampling sweep and density evaluation.
 Supported elements: RNVP / joint-RNVP / NICE couplings, Normalization,
 ActNorm, Permutation, InvertibleLinear (LU), Logit, and CouplingBlocks of
 these. A chain containing anything else (a spline coupling, a MAF / IAF
-layer) is not fusable:
+layer) is not fusable, and neither is a chain whose conditioners are
+tensor-parallel (``parallel.mesh.shard_params_tp``: the kernels hold whole
+networks, a rank holds shards):
 :func:`maybe_apply_fused` returns ``None`` and the caller keeps the
 per-layer path. A chain of these layers that the kernels cannot run
 (a parameter that is not float32, but for bfloat16 conditioners, which are
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import coupling as C
+from ..ops.mlp import TensorParallelMLP
 from ..ops.chain_kernels import (
     op_param_count,
     pack_plan,
@@ -311,6 +314,9 @@ def chain_is_fusable(chain, d: int, n: int) -> bool:
                 return False
             if any(len(net.weights) < 2 for net in _conditioner_nets(layer)):
                 return False
+            if any(isinstance(net, TensorParallelMLP)
+                   for net in _conditioner_nets(layer)):
+                return False
         elif not isinstance(layer, _PLAN_TYPES):
             return False
     return bool(len(chain.layers))
@@ -445,11 +451,13 @@ def _chain_fused(chain, x2, th2, dirn, with_ldj):
 
 
 def maybe_sample_fused(chain, generator, rows, d, theta_n, *,
-                       return_noise=False):
+                       return_noise=False, row_offset=0, total_rows=None):
     """One output-only kernel: in-kernel N(0, I) draw + the full forward
     sweep. ``theta_n`` may be (1, n) — one θ broadcast to every draw without
     being materialised as (rows, n). Returns (rows, d), or None when the
-    routing policy or the chain says per-layer.
+    routing policy or the chain says per-layer. ``row_offset`` /
+    ``total_rows``: rows ``[row_offset, row_offset + rows)`` of the draw of
+    ``total_rows`` (``ops.chain_kernels.run_chain_sample``).
 
     On CUDA the draws are deterministic in the generator's state but are a
     different stream from ``torch.randn``.
@@ -466,7 +474,8 @@ def maybe_sample_fused(chain, generator, rows, d, theta_n, *,
         theta_n = theta_n.contiguous()
     return run_chain_sample(plan, params, rows, d, theta_n,
                             generator=generator, packed=packed,
-                            return_noise=return_noise)
+                            return_noise=return_noise, row_offset=row_offset,
+                            total_rows=total_rows)
 
 
 def maybe_apply_fused(chain, y, theta, dirn, with_ldj):

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.mlp import TensorParallelMLP
 from ..ops.train_kernels import (
     MAX_SHARED_BYTES,
     TRAIN_ACTS,
@@ -132,6 +133,10 @@ def _inverse_order(chain):
 
 
 def _check_net(net):
+    if isinstance(net, TensorParallelMLP):
+        raise UnsupportedFusedTrain(
+            "tensor-parallel conditioners (a 'model' mesh axis): the kernel "
+            "holds whole networks")
     if net.activation not in TRAIN_ACTS:
         raise UnsupportedFusedTrain(
             f"activation {net.activation!r} has no value-based derivative "
@@ -554,7 +559,11 @@ def fused_step_reason(flow):
 
 def fold_for_step_mesh(flow, batchsize, mesh) -> FoldedStep:
     """:func:`fold_for_step` for the data-parallel step-kernel program, which
-    also needs a batch that the ranks of ``mesh`` divide evenly."""
+    also needs a mesh whose only axis of more than one rank is ``data`` and a
+    batch that the ranks of ``mesh`` divide evenly."""
+    if any(sz > 1 for name, sz in mesh.shape.items() if name != "data"):
+        raise UnsupportedFusedTrain(
+            "non-DP mesh axes (fused-step DP shards 'data' only)")
     ndev = int(mesh.shape.get("data", 1))
     if batchsize % ndev:
         raise UnsupportedFusedTrain(

@@ -48,8 +48,9 @@ __all__ = [
 
 def _is_net(module) -> bool:
     from ..ops.made import MaskedMLP
+    from ..ops.mlp import TensorParallelMLP
 
-    return isinstance(module, (MLP, MaskedMLP))
+    return isinstance(module, (MLP, MaskedMLP, TensorParallelMLP))
 
 
 def cast_conditioners(model, dtype=torch.bfloat16):
@@ -127,9 +128,16 @@ def use_fused(batch_rows: int) -> bool:
 
 
 def _can_fuse_impl(layer, y) -> bool:
+    """The per-layer kernels take whole conditioner networks: a layer whose
+    nets are tensor-parallel shards (``parallel.mesh.shard_params_tp``)
+    stays on the plain path."""
+    from ..ops.mlp import TensorParallelMLP
+
     rows = int(np.prod(y.shape[:-1])) if y.dim() > 1 else 1
     return (use_fused(rows) and layer.axes.nn_input_dim > 0
-            and layer.axes.transform_dim > 0)
+            and layer.axes.transform_dim > 0
+            and not any(isinstance(m, TensorParallelMLP)
+                        for m in layer.children()))
 
 
 def _flatten_batch(y, theta):

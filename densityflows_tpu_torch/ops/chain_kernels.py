@@ -29,9 +29,10 @@ Kernels (``csrc/chain_kernels.cu``, built by ``_build.py`` at first use):
 - ``run_chain_sample`` launches ``chain_sample``; it replaces
   ``densityflows_tpu/ops/pallas_chain.py::_sample_kernel``. The base draw is
   a counter-based Philox4x32-10 inside the kernel, keyed by a 64-bit seed
-  taken from the caller's ``torch.Generator``; a draw depends on (seed, row,
-  column) only. The stream differs from ``torch.randn``'s and from the
-  TPU's.
+  taken from the caller's ``torch.Generator``; a draw depends on (seed,
+  global row, column) only, the global row being ``row_offset`` plus the
+  launch's row, so a rank of a mesh draws its rows of the one-launch
+  draw. The stream differs from ``torch.randn``'s and from the TPU's.
 
 Both are bound by arithmetic on an H100 (a few MFLOP of conditioner products
 per row against a few hundred bytes of I/O). Their products run on the
@@ -636,7 +637,7 @@ def _library():
         lib.df_chain_apply.restype = i
         lib.df_chain_sample.argtypes = [
             p, p, p, i, p, i, p, p, ll, i, i, i,
-            ctypes.c_uint, ctypes.c_uint, i, p]
+            ctypes.c_uint, ctypes.c_uint, ll, i, p]
         lib.df_chain_sample.restype = i
         _LIB = lib
     return _LIB
@@ -741,7 +742,7 @@ def _seed_from(generator) -> int:
 
 def run_chain_sample(plan, params, rows, d, theta, *, generator=None,
                      seed=None, packed=None, tile_rows=None,
-                     return_noise=False):
+                     return_noise=False, row_offset=0, total_rows=None):
     """Draw ``rows`` base samples N(0, I_d) and fold them forward through the
     plan. ``theta``: (rows, n), (1, n) (broadcast without being
     materialised) or None. Returns (rows, d), or ``(samples, noise)`` with
@@ -749,8 +750,15 @@ def run_chain_sample(plan, params, rows, d, theta, *, generator=None,
 
     The device is the parameters'. On CUDA the
     ``chain_sample`` kernel draws inside the kernel with Philox4x32-10 keyed
-    by ``seed`` (64-bit; taken from ``generator`` when not given). On the CPU
-    ``chain_sample_plain`` draws with ``torch.randn(generator=...)``.
+    by ``seed`` (64-bit; taken from ``generator`` when not given), its
+    counter the GLOBAL row ``row_offset + r``: a launch of rows ``[lo, hi)``
+    of a larger draw with ``row_offset=lo`` gives exactly those rows of the
+    one-launch draw. On the CPU ``chain_sample_plain`` draws with
+    ``torch.randn(generator=...)``; with a ``row_offset`` (or
+    ``total_rows``) it draws the whole ``(total_rows, d)`` (default
+    ``row_offset + rows``) and folds rows ``[row_offset, row_offset +
+    rows)`` of it, which are the rows of the one-call draw of
+    ``total_rows``.
     """
     device = params[0].device
     n = theta.shape[-1] if theta is not None else 0
@@ -758,10 +766,19 @@ def run_chain_sample(plan, params, rows, d, theta, *, generator=None,
         theta = None
     if theta is not None and theta.shape[0] not in (1, rows):
         raise ValueError("theta rows must be 1 or match the draw count")
+    row_offset = int(row_offset)
+    if row_offset < 0:
+        raise ValueError("row_offset must be >= 0")
     if device.type == "cpu":
         if seed is not None:
             generator = torch.Generator().manual_seed(seed % (2**63))
-        noise = torch.randn(rows, d, generator=generator, dtype=torch.float32)
+        total = row_offset + rows if total_rows is None else int(total_rows)
+        if total < row_offset + rows:
+            raise ValueError("total_rows must cover row_offset + rows")
+        noise = torch.randn(total, d, generator=generator,
+                            dtype=torch.float32)
+        if total != rows:
+            noise = noise[row_offset:row_offset + rows].contiguous()
         out = chain_sample_plain(plan, params, rows, d, theta, noise=noise)
         return (out, noise) if return_noise else out
     if device.type != "cuda":
@@ -783,7 +800,7 @@ def run_chain_sample(plan, params, rows, d, theta, *, generator=None,
             1 if theta is not None and theta.shape[0] == 1 else 0,
             packed.prog.data_ptr(), packed.n_instr, packed.flat.data_ptr(),
             packed.tiled.data_ptr(), rows, d, n, packed.ldh,
-            seed & 0xFFFFFFFF, seed >> 32, tb, stream)
+            seed & 0xFFFFFFFF, seed >> 32, row_offset, tb, stream)
     if err != 0:
         raise RuntimeError(f"chain_sample launch failed (CUDA error {err})")
     run_chain_sample.launches += 1

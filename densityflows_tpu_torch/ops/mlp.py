@@ -9,6 +9,13 @@ Weights are stored ``(in, out)`` (row-major activations), the transpose of
 ``nn.Linear``'s convention, and initialised glorot-uniform — not
 ``nn.Linear``'s default init. Activations are referenced by name so modules
 stay checkpointable.
+
+:class:`TensorParallelMLP` is the same network with its layer pairs split
+over a mesh's ``model`` axis (``parallel.mesh.shard_params_tp``): Megatron's
+column / row parallel pairs, with the two operators as autograd functions
+over the axis's process group — before a column-parallel layer the identity
+forward and a sum of the input gradient backward, after a row-parallel layer
+a sum of the partial products forward and the identity backward.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from torch import nn
 
 from .._device import resolve_device
 
-__all__ = ["MLP", "init_mlp", "apply_mlp", "ACTIVATIONS", "count_params"]
+__all__ = ["MLP", "TensorParallelMLP", "init_mlp", "apply_mlp", "ACTIVATIONS",
+           "count_params"]
 
 ACTIVATIONS: dict[str, Callable] = {
     "relu": torch.relu,
@@ -60,6 +68,110 @@ class MLP(nn.Module):
     @property
     def has_bias(self) -> bool:
         return bool(len(self.biases)) and bool(self.biases[0].shape[0])
+
+    def forward(self, x):
+        return apply_mlp(self, x)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, the input gradient summed over the
+    ``model`` axis backward (each rank's column shard sees part of it)."""
+
+    @staticmethod
+    def forward(ctx, h, mesh):
+        ctx.mesh = mesh
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_model_(g.clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the row-parallel partial products summed over the
+    ``model`` axis forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, h, mesh):
+        return mesh.all_reduce_model_(h.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallelMLP(nn.Module):
+    """An :class:`MLP` whose layer pairs are split over a mesh's ``model``
+    axis: ``weights`` / ``biases`` hold this rank's shards, and
+    ``weight_specs`` / ``bias_specs`` say per layer how the full tensor was
+    split (``parallel.mesh.mlp_tp_specs``; ``()`` for a replicated one).
+    Built by :meth:`shard`; :meth:`gather` joins the shards back."""
+
+    def __init__(self, weights, biases, activation, weight_specs,
+                 bias_specs, mesh):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.weights = nn.ParameterList([nn.Parameter(w) for w in weights])
+        self.biases = nn.ParameterList([nn.Parameter(b) for b in biases])
+        self.activation = activation
+        self.weight_specs = tuple(tuple(s) for s in weight_specs)
+        self.bias_specs = tuple(tuple(s) for s in bias_specs)
+        self.mesh = mesh
+
+    @classmethod
+    def shard(cls, mlp: MLP, mesh) -> "TensorParallelMLP":
+        """This rank's shards of ``mlp`` (copies). A layer pair whose hidden
+        width the ``model`` size does not divide stays replicated, as JAX's
+        placement falls back for a dimension it cannot split."""
+        from ..parallel.mesh import mlp_tp_specs
+
+        t, m = mesh.model_size, mesh.model_rank
+        w_specs, b_specs = mlp_tp_specs(len(mlp.weights))
+        for i in range(0, len(w_specs) - 1, 2):
+            if mlp.weights[i].shape[1] % t:
+                w_specs[i] = w_specs[i + 1] = b_specs[i] = ()
+
+        def part(x, spec):
+            if "model" not in spec:
+                return x.detach().clone()
+            dim = spec.index("model")
+            step = x.shape[dim] // t
+            return x.detach().narrow(dim, m * step, step).clone()
+
+        return cls([part(w, s) for w, s in zip(mlp.weights, w_specs)],
+                   [part(b, s) for b, s in zip(mlp.biases, b_specs)],
+                   mlp.activation, w_specs, b_specs, mesh)
+
+    def shard_dims(self) -> list:
+        """Per leaf (weights, then biases), the dimension split over the
+        ``model`` axis, or None for a replicated leaf."""
+        return [s.index("model") if "model" in s else None
+                for s in self.weight_specs + self.bias_specs]
+
+    def gather(self) -> MLP:
+        """The full :class:`MLP`, the shards joined over the ``model`` axis
+        (a collective: every rank of the axis calls it)."""
+        leaves = list(self.weights) + list(self.biases)
+        full = [t.detach().clone() if dim is None
+                else self.mesh.all_gather_model(t.detach(), dim)
+                for t, dim in zip(leaves, self.shard_dims())]
+        k = len(self.weights)
+        return MLP(full[:k], full[k:], self.activation)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        """Layer widths [in, h1, ..., out] of the full network."""
+        t = self.mesh.model_size
+        dims = [int(self.weights[0].shape[0])]
+        for w, spec in zip(self.weights, self.weight_specs):
+            dims.append(int(w.shape[1]) * (t if spec == (None, "model")
+                                           else 1))
+        return tuple(dims)
+
+    @property
+    def has_bias(self) -> bool:
+        return bool(len(self.biases)) and bool(self.biases[-1].shape[0])
 
     def forward(self, x):
         return apply_mlp(self, x)
@@ -113,12 +225,35 @@ def apply_mlp(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     Compute runs in the WEIGHTS' dtype: the input is cast once to it, bias
     and activation stay in it between layers, and the output is cast back
     to ``x.dtype`` once at the end (bfloat16 conditioners: bfloat16 products
-    forward and backward)."""
+    forward and backward). A :class:`TensorParallelMLP` computes its
+    column / row pairs on its shards, with one sum over the ``model`` axis
+    after each pair."""
+    if isinstance(mlp, TensorParallelMLP):
+        return _apply_tp(mlp, x)
     act = ACTIVATIONS[mlp.activation]
     n = len(mlp.weights)
     h = x
     for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
         h = h.to(w.dtype) @ w
+        if b.shape[0]:
+            h = h + b
+        if i < n - 1:  # final layer is linear
+            h = act(h)
+    return h.to(x.dtype)
+
+
+def _apply_tp(mlp: TensorParallelMLP, x: torch.Tensor) -> torch.Tensor:
+    act = ACTIVATIONS[mlp.activation]
+    n = len(mlp.weights)
+    h = x
+    for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
+        spec = mlp.weight_specs[i]
+        h = h.to(w.dtype)
+        if spec == (None, "model"):
+            h = _CopyToModel.apply(h, mlp.mesh)
+        h = h @ w
+        if spec == ("model", None):
+            h = _ReduceFromModel.apply(h, mlp.mesh)
         if b.shape[0]:
             h = h + b
         if i < n - 1:  # final layer is linear

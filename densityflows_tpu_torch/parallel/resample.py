@@ -33,8 +33,15 @@ __all__ = ["systematic_resample_sharded"]
 
 
 def _ring_pass(mesh, tensors):
-    """Send each tensor to rank+1 and receive its counterpart from rank−1."""
+    """Send each tensor to rank+1 and receive its counterpart from rank−1
+    (CUDA tensors of a gloo group travel through host copies)."""
+    from .mesh import _carries_cuda
+
     group = mesh.group
+    device = tensors[0].device
+    if device.type == "cuda" and not _carries_cuda(group):
+        return [r.to(device)
+                for r in _ring_pass(mesh, [t.cpu() for t in tensors])]
     nxt = dist.get_global_rank(group, (mesh.rank + 1) % mesh.size)
     prv = dist.get_global_rank(group, (mesh.rank - 1) % mesh.size)
     recvs = [torch.empty_like(t) for t in tensors]
@@ -58,8 +65,8 @@ def systematic_resample_sharded(log_weights, particles, generator, mesh, *,
     ``generator`` and broadcasts it.
     """
     if axis != "data":
-        raise ValueError(f"the port's mesh has the 'data' axis only, got "
-                         f"{axis!r}")
+        raise ValueError(f"the particle axis is split over the mesh's "
+                         f"'data' axis, got {axis!r}")
     p, k = mesh.size, mesh.rank
     device = particles.device
     lw = log_weights.to(torch.float32)
@@ -70,18 +77,12 @@ def systematic_resample_sharded(log_weights, particles, generator, mesh, *,
         u0 = torch.rand((), generator=generator, device=gen_device)
     u0 = torch.as_tensor(u0, dtype=torch.float32).to(device).reshape(1)
     m = lw.max().reshape(1)
-    if mesh.group is not None:
-        mesh.broadcast_(u0)
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group)
+    mesh.broadcast_data_(u0)
+    mesh.all_reduce_(m, op=dist.ReduceOp.MAX)
 
     # global normalization without an (n,)-sized collective
     c = _cumsum(torch.exp(lw - m))
-    if mesh.group is not None:
-        parts = [torch.empty_like(c[-1:]) for _ in range(p)]
-        dist.all_gather(parts, c[-1:].contiguous(), group=mesh.group)
-        sums = torch.cat(parts)
-    else:
-        sums = c[-1:]
+    sums = mesh.all_gather_rows(c[-1:].contiguous(), p)
     denom = sums.sum()
     offset = sums[:k].sum()
     cdf = _nan_last((offset + c) / denom)

@@ -39,6 +39,14 @@ single-device one batch for batch. Two programs do that:
 - the **plain program** with an all-reduce of the autograd gradients, for
   runs outside the kernel's envelope.
 
+Tensor parallelism (a mesh with a ``model`` axis, ``make_mesh((D, T),
+("data", "model"))``, and a chain placed by
+``parallel.mesh.shard_params_tp``): the plain program, its gradients summed
+over the ``data`` axis only — the Megatron operators of ``ops/mlp.py`` make
+the ``model`` axis's replicated leaves agree by construction. The step
+kernel declines such a mesh ("non-DP mesh axes"), in
+``flow.fused_decline_reason``.
+
 Precision and memory options of the plain program: ``remat=True`` runs
 each layer of a chain under ``torch.utils.checkpoint`` (its activations are
 recomputed in the backward pass), ``mixed_precision=True`` casts the
@@ -73,6 +81,7 @@ from .models.fused_train import (
     trainable_leaves,
 )
 from .ops.step_kernels import folded_nll
+from .parallel.mesh import check_mesh
 
 __all__ = [
     "train", "evaluate", "make_train_step", "make_train_program",
@@ -150,17 +159,6 @@ def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Adam:
     """Kernel-routable Adam (see :class:`Adam`)."""
     return Adam(learning_rate, b1=b1, b2=b2, eps=eps)
-
-
-def _not_ported(mesh=None):
-    if mesh is not None:
-        from .parallel.mesh import Mesh
-
-        if not isinstance(mesh, Mesh):
-            raise NotImplementedError(
-                "mesh= takes the data-parallel Mesh of parallel.mesh."
-                "make_mesh(); any other mesh (a 'model' axis, tensor "
-                "parallelism: ROADMAP A9) is not ported")
 
 
 def _write_metrics(metrics_log, flow, epochs):
@@ -273,13 +271,19 @@ def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None,
 
     loss, leaves, grads = _autograd(model, loss_fn)
     if mesh is not None:
-        buf = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
-        mesh.all_reduce_(buf)
-        sizes = [g.numel() for g in grads]
-        grads = [c.view(g.shape) for c, g in
-                 zip(torch.split(buf[:-1], sizes), grads)]
-        loss = buf[-1]
+        loss, leaves, grads = _reduce_grads(mesh, loss, leaves, grads)
     return loss, leaves, grads
+
+
+def _reduce_grads(mesh, loss, leaves, grads):
+    """Loss and gradients summed over the ``data`` axis of ``mesh``: one
+    all-reduce of one packed buffer."""
+    buf = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    mesh.all_reduce_(buf)
+    sizes = [g.numel() for g in grads]
+    grads = [c.view(g.shape) for c, g in
+             zip(torch.split(buf[:-1], sizes), grads)]
+    return buf[-1], leaves, grads
 
 
 def _all_finite(loss, grads) -> bool:
@@ -299,7 +303,7 @@ def make_train_step(optimizer, *, remat: bool = False,
     when the caller has it already), and the autograd gradients are summed
     over the ranks before the update; the returned loss is the global one.
     ``remat`` / ``mixed_precision``: as in :func:`masked_nll_loss`."""
-    _not_ported(mesh)
+    check_mesh(mesh)
 
     def train_step(model, opt_state, base, x, theta, mask, denom=None):
         loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask,
@@ -376,7 +380,7 @@ def make_train_program(
       :func:`masked_nll_loss`; the epoch evaluations stay plain float32
       (the histories are the record).
     """
-    _not_ported(mesh)
+    check_mesh(mesh)
     local = slice(None)
     if mesh is not None:
         from .parallel.mesh import host_local_rows
@@ -685,6 +689,26 @@ def _chunk_perms(epoch_perms, done, chunk):
         np.asarray(epoch_perms)[done:done + chunk]
 
 
+def _shard_restored(mesh, model, opt_state):
+    """A replicated chain and Adam state (a checkpoint's) placed
+    tensor-parallel over ``mesh``'s ``model`` axis: each moment list is
+    loaded into a copy of the chain and sharded with it."""
+    from .parallel.mesh import shard_params_tp
+
+    placed = shard_params_tp(mesh, model)
+    if opt_state is None:
+        return placed, None
+
+    def shard(values):
+        holder = copy.deepcopy(model)
+        load_leaves_(holder, values)
+        return [t.detach().clone() for t in
+                trainable_leaves(shard_params_tp(mesh, holder))]
+
+    return placed, AdamState(opt_state.count, shard(opt_state.mu),
+                             shard(opt_state.nu))
+
+
 def _train_with_checkpoints(
     flow, data, optimizer, opt_state, *, epochs, batchsize, shuffle, verbose,
     generator, debug, checkpoint_dir, checkpoint_every, resume,
@@ -709,6 +733,10 @@ def _train_with_checkpoints(
         else:
             restored_flow, opt_state = restored, None
         flow.model = restored_flow.model
+        if mesh is not None and mesh.model_size > 1:
+            # the checkpoint holds the replicated chain: place it again
+            flow.model, opt_state = _shard_restored(mesh, flow.model,
+                                                    opt_state)
         flow.train_loss[:] = restored_flow.train_loss
         flow.valid_loss[:] = restored_flow.valid_loss
         done = len(flow.train_loss)
@@ -729,7 +757,9 @@ def _train_with_checkpoints(
             mixed_precision=mixed_precision,
             _epoch_perms=_chunk_perms(epoch_perms, done, chunk))
         done += chunk
-        # every rank holds the same model and state: rank 0 writes
+        # every rank of a data axis holds the same model and state: data
+        # rank 0 writes (with tensor-parallel shards, its model axis gathers
+        # them and the axis's rank 0 writes)
         if mesh is None or mesh.rank == 0:
             save_flow(checkpoint_dir, flow, opt_state, erase=True)
         if mesh is not None:
@@ -948,7 +978,7 @@ def train(
     ``"torch"`` after the call. A kernel that fails to build or launch
     raises; nothing turns such a failure into a run on the other path.
     """
-    _not_ported(mesh)
+    check_mesh(mesh)
     requested = fused_kernel
     # Adam hyperparameters the kernel can honor: None → Adam(1e-3); an
     # adam(...) → its lr/b1/b2/eps. Exact-type check: an Adam SUBCLASS may
@@ -1092,8 +1122,6 @@ def train(
     model = flow.model
 
     if mesh is not None:
-        from .parallel.mesh import put_replicated
-
         # one batch order for every rank: rank 0's
         n_rows = xt.shape[0]
         perms = (draw_epoch_perms(generator, epochs, n_rows, shuffle)
@@ -1103,17 +1131,19 @@ def train(
 
         # the step-kernel program: forced, or by default on a CUDA flow
         # inside the kernel's envelope (Adam only: the folded state needs
-        # its moments)
+        # its moments). A mesh with a 'model' axis is always declined: the
+        # kernel holds whole networks and shards 'data' only
         forced = requested is True
         wanted = forced or (requested == "auto" and dev.type == "cuda"
                             and not (debug or remat or mixed_precision))
-        if wanted and type(optimizer) is Adam:
+        reason = None
+        if mesh.model_size > 1 or (wanted and type(optimizer) is Adam):
             try:
+                folded = fold_for_step_mesh(flow, batchsize, mesh)
                 if opt_state is not None \
                         and not isinstance(opt_state, AdamState):
                     raise UnsupportedFusedTrain(
                         "opt_state is not an Adam state (need count, mu, nu)")
-                folded = fold_for_step_mesh(flow, batchsize, mesh)
             except UnsupportedFusedTrain as e:
                 reason = str(e)
             else:
@@ -1124,18 +1154,24 @@ def train(
                     generator, xt, tht, xv, thv, w_train, w_valid, hp,
                     opt_state, _track_best, skip_nonfinite, verbose,
                     metrics_log, _epoch_perms)
+        if reason is not None:
             if forced:
                 raise UnsupportedFusedTrain(reason)
             flow.fused_decline_reason = f"mesh fused-step not used — {reason}"
-            warnings.warn(
-                f"train: the step kernel declined this data-parallel run "
-                f"({reason}); the plain program trains it with an all-reduce "
-                "of the autograd gradients. Pass fused_kernel=False to "
-                "choose that path without this warning", RuntimeWarning,
-                stacklevel=2)
+            if wanted:
+                warnings.warn(
+                    f"train: the step kernel declined this data-parallel run "
+                    f"({reason}); the plain program trains it with an "
+                    "all-reduce of the autograd gradients. Pass "
+                    "fused_kernel=False to choose that path without this "
+                    "warning", RuntimeWarning, stacklevel=2)
             if verbose:
                 print(f"[mesh fused-step kernel not used — {reason}; using "
                       f"the plain data-parallel program]")
+        # rank 0's parameters on every rank of each data axis (a shard
+        # sharded over 'model' keeps its shard)
+        from .parallel.mesh import put_replicated
+
         put_replicated(mesh, [p.data for p in trainable_leaves(model)
                               if p.numel()])
 

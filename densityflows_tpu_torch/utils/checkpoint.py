@@ -38,10 +38,17 @@ array per model leaf — so a run saved by either package resumes in the other.
 Leaves that are buffers here (``NormalizationLayer.x_min`` / ``x_max``,
 ``LogitLayer.lo`` / ``hi``) carry zero moments in that file and none in this
 package's :class:`~densityflows_tpu_torch.train.AdamState`.
+
+Tensor parallelism: ``save_flow`` of a chain placed by
+``parallel.mesh.shard_params_tp`` joins every ``TensorParallelMLP``'s shards
+(and the Adam moments' shards) over the mesh's ``model`` axis, so the files
+hold the same bytes as the replicated chain's. Every rank of the axis calls
+it; its rank 0 writes.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -71,7 +78,7 @@ from ..models.normalization import (
     LogitLayer, NormalizationLayer, PermutationLayer,
 )
 from ..ops.made import MaskedMLP, made_masks
-from ..ops.mlp import MLP
+from ..ops.mlp import MLP, TensorParallelMLP
 
 __all__ = [
     "save_flow", "load_flow", "save_ensemble", "load_ensemble",
@@ -250,6 +257,19 @@ register_element(
         "activation": el.activation,
     },
     _mlp_from_spec,
+    children=lambda el: list(el.weights) + list(el.biases),
+)
+
+def _tp_spec(el):
+    raise TypeError(
+        "a TensorParallelMLP holds one rank's shards: save the flow with "
+        "save_flow, which joins them over the mesh's 'model' axis")
+
+
+register_element(
+    TensorParallelMLP,
+    _tp_spec,
+    lambda s, dev: _tp_spec(None),
     children=lambda el: list(el.weights) + list(el.biases),
 )
 
@@ -626,14 +646,70 @@ def adam_state_from_leaves(model, arrays):
     return AdamState(int(arrays[0]), moments[0], moments[1])
 
 
+# -- tensor-parallel chains -----------------------------------------------------------
+
+def _tp_nets(model) -> list:
+    return [m for m in model.modules() if isinstance(m, TensorParallelMLP)] \
+        if isinstance(model, torch.nn.Module) else []
+
+
+def _leaf_shard_dims(el) -> list:
+    """Per leaf of ``el`` (leaf order), ``(mesh, dim)`` for a leaf split over
+    a ``model`` axis, else None."""
+    if isinstance(el, TensorParallelMLP):
+        return [None if d is None else (el.mesh, d) for d in el.shard_dims()]
+    out = []
+    for child in _entry(el)[2](el):
+        out.extend([None] if isinstance(child, torch.Tensor)
+                   else _leaf_shard_dims(child))
+    return out
+
+
+def _gather_tp(model, opt_state):
+    """The replicated model and Adam state of a tensor-parallel one: every
+    ``TensorParallelMLP`` gathered into its ``MLP`` (a collective over the
+    ``model`` axis, in module order on every rank)."""
+    out = copy.deepcopy(model)
+
+    def swap(module):
+        for name, child in list(module.named_children()):
+            if isinstance(child, TensorParallelMLP):
+                setattr(module, name, child.gather())
+            else:
+                swap(child)
+
+    dims = [dm for t, dm in zip(element_leaves(model),
+                                _leaf_shard_dims(model)) if _is_trainable(t)]
+    swap(out)
+    if opt_state is not None and all(
+            hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        def join(moments):
+            return [m if dm is None else dm[0].all_gather_model(m, dm[1])
+                    for m, dm in zip(moments, dims)]
+
+        opt_state = type(opt_state)(opt_state.count, join(opt_state.mu),
+                                    join(opt_state.nu))
+    return out, opt_state
+
+
 # -- flow-level API -------------------------------------------------------------------
 
 def save_flow(directory: str, flow: Flow, opt_state=None, *,
               erase: bool = False) -> None:
     """Persist a complete flow: model + base + metadata + loss histories
-    (+ optionally the Adam state ``train`` returned)."""
+    (+ optionally the Adam state ``train`` returned).
+
+    A tensor-parallel chain (``parallel.mesh.shard_params_tp``) is saved as
+    the replicated chain: every rank of its ``model`` axis calls this, the
+    shards are gathered, and the axis's rank 0 writes."""
+    model = flow.model
+    nets = _tp_nets(model)
+    if nets:
+        model, opt_state = _gather_tp(model, opt_state)
+        if nets[0].mesh.model_rank != 0:
+            return
     _prepare_dir(directory, erase)
-    save_element(os.path.join(directory, "model"), flow.model, erase=erase)
+    save_element(os.path.join(directory, "model"), model, erase=erase)
     save_element(os.path.join(directory, "base"), flow.base, erase=erase)
     meta = {
         "format_version": _FORMAT_VERSION,
@@ -651,7 +727,7 @@ def save_flow(directory: str, flow: Flow, opt_state=None, *,
     with open(os.path.join(directory, "flow.json"), "w") as f:
         json.dump(meta, f, indent=1)
     if opt_state is not None:
-        arrays = adam_state_to_leaves(flow.model, opt_state)
+        arrays = adam_state_to_leaves(model, opt_state)
         np.savez(os.path.join(directory, "opt_state.npz"),
                  **{f"leaf_{i:05d}": a for i, a in enumerate(arrays)})
 

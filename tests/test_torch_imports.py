@@ -58,17 +58,19 @@ state = dt.train(tflow, data, epochs=1, batchsize=16, verbose=False,
 assert tflow.trained_path == "fused-step-mesh"
 assert step_kernels.run_fused_grads.launches == 0
 assert isinstance(native.native_available(), bool)
-# mesh= is ported for training only, and tensor parallelism not at all
-for call in (lambda: tflow.sample((2,), (0.5,), mesh=dt.make_mesh()),
-             lambda: tflow.log_prob(xs, ths, mesh=dt.make_mesh()),
-             lambda: port_mesh.shard_params_tp(dt.make_mesh(), chain),
-             lambda: port_mesh.mlp_tp_specs(2)):
-    try:
-        call()
-    except NotImplementedError as e:
-        assert "mesh" in str(e) or "tensor parallelism" in str(e), e
-    else:
-        raise AssertionError("an unported mesh surface did not raise")
+# mesh= on serving, tensor parallelism and the instruments (A9, A.4)
+from densityflows_tpu_torch.parallel import scaling as port_scaling
+from densityflows_tpu_torch.utils import profiling as port_profiling
+assert tflow.sample((2,), (0.5,), mesh=dt.make_mesh(),
+                    generator=g).shape == (2, 4)
+assert torch.equal(tflow.log_prob(xs, ths, mesh=dt.make_mesh()),
+                   tflow.log_prob(xs, ths))
+assert port_mesh.shard_params_tp(dt.make_mesh(), chain) is not chain
+assert port_mesh.mlp_tp_specs(2)[0] == [(None, "model"), ("model", None)]
+timer = port_profiling.StepTimer()
+with timer.step(tflow.log_prob(xs, ths)):
+    pass
+assert timer.p50_ms >= 0.0
 # the other bases, spline / MAF / IAF / embedded flows, the config builders
 # and the toy data sets
 from densityflows_tpu_torch.utils import datasets as port_datasets
@@ -326,3 +328,43 @@ def test_the_package_surface_is_the_jax_packages_but_clear_caches():
         os.path.splitext(f)[0] for f in os.listdir(os.path.join(ROOT,
                                                                 "examples"))
         if f.endswith(".py")}
+
+
+def _literal_all(path):
+    """The ``__all__`` list a module assigns, read from its source."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} assigns no __all__")
+
+
+def test_instrument_modules_export_the_jax_names():
+    for module in ("utils/profiling.py", "parallel/scaling.py"):
+        port = _literal_all(os.path.join(ROOT, "densityflows_tpu_torch",
+                                         module))
+        ref = _literal_all(os.path.join(ROOT, "densityflows_tpu", module))
+        assert port == ref, module
+
+
+def test_no_module_refuses_a9_or_tensor_parallelism():
+    """The mesh surfaces of A9 (``mesh=`` on serving and the inference
+    engine, tensor parallelism) are ported: no source of the port raises
+    ``NotImplementedError`` citing them."""
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Raise)
+                    and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", "")
+                    == "NotImplementedError"):
+                continue
+            text = " ".join(c.value for c in ast.walk(node.exc)
+                            if isinstance(c, ast.Constant)
+                            and isinstance(c.value, str)).lower()
+            for word in ("a9", "tensor parallel", "mesh"):
+                assert word not in text, (path, node.lineno, text)

@@ -76,26 +76,41 @@ def test_trivial_mesh_needs_no_process_group():
 
 
 def test_tensor_parallelism_raises_by_name():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        M.mlp_tp_specs(3)
-    with pytest.raises(NotImplementedError, match="shard_params_tp"):
-        M.shard_params_tp(dt.make_mesh(), None)
-    # a 'model' axis of size 2 on two ranks is tensor parallelism
+    """Tensor parallelism is ported (A9): the placement names exist and run;
+    what still raises by name is an axis the mesh does not have."""
+    assert M.mlp_tp_specs(3) == ([(None, "model"), ("model", None), ()],
+                                 [("model",), (), ()])
+    chain = dt.flow_chain(dt.coupling_layer(
+        2, [0], device="cpu", generator=torch.Generator().manual_seed(0)))
+    placed = M.shard_params_tp(dt.make_mesh(), chain)
+    assert placed is not chain and type(placed) is type(chain)
+    with pytest.raises(ValueError, match="'data' and 'model'"):
+        dt.make_mesh((1, 1), ("data", "pipeline"))
     two = dt.Mesh(None, 2, 0)
     assert two.shape == {"data": 2}
 
 
 def test_a_model_axis_is_refused_as_tensor_parallelism(monkeypatch):
-    """``make_mesh`` as a group of two ranks would see it."""
+    """``make_mesh`` as a group of two ranks would see it: a ``model`` axis
+    of size 2 is tensor parallelism over the group (A9, ported), laid out
+    row-major as ``jax.make_mesh`` orders devices; the data axis then has
+    one rank and no group."""
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
     monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
-    mesh = M.make_mesh(group=object())
+    group = object()
+    mesh = M.make_mesh(group=group)
     assert (mesh.size, mesh.rank) == (2, 1)
-    assert M.make_mesh((2, 1), ("data", "model"), group=object()).size == 2
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        M.make_mesh((1, 2), ("data", "model"), group=object())
+    dp = M.make_mesh((2, 1), ("data", "model"), group=group)
+    assert (dp.size, dp.rank, dp.model_size) == (2, 1, 1)
+    assert dp.shape == {"data": 2, "model": 1} and dp.group is group
+    tp = M.make_mesh((1, 2), ("data", "model"), group=group)
+    assert (tp.size, tp.rank, tp.group) == (1, 0, None)
+    assert (tp.model_size, tp.model_rank) == (2, 1)
+    assert tp.model_group is group and tp.world is group
+    assert tp.shape == {"data": 1, "model": 2}
+    assert dt.host_local_rows(tp, 10) == slice(0, 10)
     with pytest.raises(ValueError, match="does not match 2 process"):
-        M.make_mesh((3,), group=object())
+        M.make_mesh((3,), group=group)
 
 
 @pytest.mark.parametrize("n,size", [(64, 2), (10, 4), (3, 4), (7, 1)])

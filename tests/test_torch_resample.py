@@ -174,20 +174,31 @@ def test_generator_draws_u0_on_one_rank():
 
 
 def test_mesh_raises_on_the_particle_entry_points():
-    """``mesh=`` shards a particle axis in JAX; in the port it raises on the
-    four particle entry points, naming ROADMAP A9."""
-    chain = dt.flow_chain(dt.coupling_layer(
-        2, [0], device="cpu", generator=torch.Generator().manual_seed(0)))
-    flow = dt.Flow(chain, dt.MetaData("", 2, 0, np.zeros(0), np.zeros(0)),
-                   device="cpu")
-    mesh = dt.make_mesh()
+    """``mesh=`` splits a particle axis over the mesh's ``data`` axis (A9,
+    ported): on the trivial one-process mesh the four particle entry points
+    give the calls without a mesh, from the same generator state; an
+    argument that is not a ``Mesh`` raises ``TypeError`` by name."""
+    def flow():
+        chain = dt.flow_chain(dt.coupling_layer(
+            2, [0], device="cpu", generator=torch.Generator().manual_seed(0),
+            zero_init_final=False))
+        return dt.Flow(chain, dt.MetaData("", 2, 0, np.zeros(0),
+                                          np.zeros(0)), device="cpu")
+
     logp = lambda x: -(x * x).sum(-1)  # noqa: E731
-    for call in (
-        lambda: dt.sample_with_rejection(flow, 4, lambda x: x[..., 0] > 0,
-                                         mesh=mesh),
-        lambda: dt.fit_variational(flow, logp, steps=1, mesh=mesh),
-        lambda: dt.run_smc(logp, 2, 16, mesh=mesh, device="cpu"),
-        lambda: dt.flow_mcmc(flow, logp, n_steps=2, burn_in=0, mesh=mesh),
-    ):
-        with pytest.raises(NotImplementedError, match="A9"):
-            call()
+    calls = (
+        lambda f, **kw: dt.sample_with_rejection(
+            f, 4, lambda x: x[..., 0] > 0, **kw),
+        lambda f, **kw: dt.fit_variational(f, logp, steps=2, **kw) and
+        torch.cat([p.detach().reshape(-1) for p in f.model.parameters()]),
+        lambda f, **kw: dt.run_smc(logp, 2, 16, device="cpu", **kw)[0],
+        lambda f, **kw: dt.flow_mcmc(f, logp, n_steps=4, burn_in=0,
+                                     **kw)[0],
+    )
+    for call in calls:
+        want = call(flow(), generator=torch.Generator().manual_seed(3))
+        got = call(flow(), generator=torch.Generator().manual_seed(3),
+                   mesh=dt.make_mesh())
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        with pytest.raises(TypeError, match="Mesh"):
+            call(flow(), mesh=object())

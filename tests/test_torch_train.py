@@ -403,19 +403,20 @@ def test_forced_kernel_surface_errors(cond, tmp_path):
 
 
 @pytest.mark.parametrize("kw, names", [
-    pytest.param(dict(mesh=object()), "A9", id="kw0-A9"),
+    pytest.param(dict(mesh=object()), "Mesh", id="kw0-A9"),
     pytest.param(dict(remat=True), "remat", id="kw1-A13"),
     pytest.param(dict(mixed_precision=True), "mixed_precision",
                  id="kw2-A13")])
 def test_surfaces_not_ported_raise_by_name(cond, kw, names):
-    """A mesh that is not the data-parallel one raises by its ROADMAP item.
+    """A mesh that is not a ``parallel.mesh.Mesh`` raises ``TypeError`` by
+    name (A9, ported: the data and model axes of ``make_mesh`` train).
     remat / mixed_precision (ported with A13) are options of the plain
     program: the kernel path raises on them by name, the plain program
     runs them."""
     jd, td, x = cond
     ft = torch_flow(df.Flow(small_chain(jd, x), jd), td)
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match=names):
+        with pytest.raises(TypeError, match=names):
             dt.train(ft, td, epochs=1, verbose=False, **kw)
         return
     with pytest.raises(ValueError, match=names):

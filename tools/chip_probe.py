@@ -33,6 +33,12 @@ wrappers only, so that the same script runs on two trees of the port:
   device time of each kernel and of each launch from ``torch.profiler``,
   ``coupling_fwd``'s call and device time, and the time of six
   ``w.t().contiguous()`` copies of the nets' weights;
+- ``a6``: ``chip_smoke.py``'s ``chunked_fold_probe`` (``log_prob`` of two
+  chains the chain kernel declines, straight and over row slices: time and
+  peak memory) at 2^18 and 2^20 rows, the measurement behind ROADMAP A.6;
+- ``example_parts``: the ``uncertainty_and_mcmc`` example's ensemble,
+  ``flow_mcmc``, ``fit_posterior`` and ``sbc_ranks``, seconds each (with
+  ``--tree``, of two trees);
 - ``members``: ``train_run``'s member axis at the README / BASELINE run,
   one launch of K blocks for K in ``MEMBER_SWEEP``: ms, and from its
   ``DF_TRAIN_CLOCKS`` build every block's run time and start (its first and
@@ -879,7 +885,7 @@ def use_chain_library(lib):
     lib.df_chain_apply.argtypes = [p, p, p, p, p, i, p, p, ll, i, i, i, i, p]
     lib.df_chain_apply.restype = i
     lib.df_chain_sample.argtypes = [p, p, p, i, p, i, p, p, ll, i, i, i,
-                                    ctypes.c_uint, ctypes.c_uint, i, p]
+                                    ctypes.c_uint, ctypes.c_uint, ll, i, p]
     lib.df_chain_sample.restype = i
     lib.df_chain_clocks.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.df_chain_clocks.restype = i
@@ -1043,6 +1049,77 @@ def families(device):
     return out
 
 
+def example_parts(device):
+    """The ``uncertainty_and_mcmc`` example's four parts at its own budgets,
+    each timed by the host clock after a synchronisation: the 5-member
+    ensemble (40 epochs, the plain program), ``flow_mcmc`` (256 chains, 800
+    steps), ``fit_posterior`` (60 epochs) and ``sbc_ranks``, seconds each."""
+    import warnings
+
+    from densityflows_tpu_torch.examples.uncertainty_and_mcmc import (
+        make_target_data,
+        target_logp,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    x = make_target_data(rng, 4000)
+    data = dt.DataArrays.make(x, rng=0)
+
+    def factory(generator):
+        kw = dict(hidden_dim_s=64, hidden_dim_t=64, device=device,
+                  generator=generator)
+        return dt.flow_chain(
+            dt.coupling_layer(2, [0], **kw),
+            dt.invertible_linear_layer(
+                2, generator=torch.Generator().manual_seed(7), device=device),
+            dt.coupling_layer(2, [1], **kw),
+            dt.actnorm_layer(x, device=device))
+
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        ens, out["ensemble_s"] = timed(lambda: dt.train_ensemble(
+            factory, data, n_members=5, epochs=40,
+            generator=torch.Generator().manual_seed(1), verbose=False,
+            device=device))
+    member = ens.member(0)
+    _, out["flow_mcmc_s"] = timed(lambda: dt.flow_mcmc(
+        member, target_logp, n_chains=256, n_steps=800, burn_in=200,
+        generator=torch.Generator().manual_seed(2)))
+    theta = rng.normal(size=(400, 1)).astype(np.float32)
+    obs = (theta + 0.3 * rng.normal(size=(400, 1))).astype(np.float32)
+    post = dt.Flow(
+        dt.flow_chain(dt.coupling_layer(
+            1, [0], n=1, kind=dt.RQSCouplingLayer, n_bins=8,
+            generator=torch.Generator().manual_seed(3), device=device)),
+        dt.MetaData("", 1, 1, obs.min(0), obs.max(0)), device=device)
+    _, out["fit_posterior_s"] = timed(lambda: dt.fit_posterior(
+        post, theta, obs, epochs=60,
+        generator=torch.Generator().manual_seed(4)))
+    _, out["sbc_ranks_s"] = timed(lambda: dt.sbc_ranks(
+        post, theta, obs, n_draws=128,
+        generator=torch.Generator().manual_seed(5)))
+    return out
+
+
+def a6(device):
+    """``chip_smoke.py``'s ``chunked_fold_probe`` at 2^18 and 2^20 rows: the
+    measurement behind ROADMAP A.6 (the row-chunked folds)."""
+    import chip_smoke as cs
+    from densityflows_tpu_torch import _build
+
+    _build.load_libraries(["chain_kernels"])
+    return cs.chunked_fold_probe(device, card_line(),
+                                 sizes=(cs.ROWS, 1 << 20))
+
+
 def mixed_grads(device):
     """The spline + RealNVP chain of ``mixed_coupling_path``, 32 steps on
     the per-layer kernels' trajectory: at each step the largest gate ratio
@@ -1101,7 +1178,8 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated probes to run (chain_nan, "
                          "step_host, coupling, stream, chain, train, "
-                         "families, mixed_grads, members, variants)")
+                         "families, mixed_grads, members, a6, "
+                         "example_parts, variants)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
@@ -1161,7 +1239,8 @@ def main():
               ("coupling", coupling), ("stream", stream), ("chain", chain),
               ("train", lambda dev: train(dev, clocks=args.variants)),
               ("families", families), ("mixed_grads", mixed_grads),
-              ("members", members)]
+              ("members", members), ("a6", a6),
+              ("example_parts", example_parts)]
     if args.variants:
         probes.append(("train_variants", train_variants))
     if args.variants:
