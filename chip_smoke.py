@@ -88,7 +88,14 @@ the port's main paths through the entry points a user calls:
   replicated chain; the instruments (``StepTimer``, ``trace`` /
   ``annotate``, ``Throughput``), ``scaling_report`` at
   ``benchmarks/scaling.py``'s config, and the probe behind the decision on
-  the row-chunked folds at 2^18 rows (ROADMAP A.6).
+  the row-chunked folds at 2^18 rows (ROADMAP A.6);
+- sharded checkpoints (``utils/orbax_ckpt.py``): the two ranks' tensor-
+  parallel chain and Adam state through ``save_flow_orbax`` (each rank
+  file holding only its shards, read from the store's metadata), loaded in
+  one process and served at 2^18 rows on one ``chain_apply`` / one
+  ``chain_sample`` launch against the gathered chain, and loaded onto the
+  (1, 2) mesh for 4 more steps against the run that went on; and a round
+  trip of the trained README / BASELINE flow on the one-rank NCCL group.
 
 Every phase fails the run (non-zero exit) on its own failure; there is no
 CPU fallback. Without a CUDA device the script exits non-zero and prints no
@@ -1845,6 +1852,7 @@ def drive_mesh(device, tmp):
         steady_seconds = time.time() - t0
         if again.train_loss != flow.train_loss:
             fail("train(mesh=...): two runs from the same weights differ")
+        orbax = orbax_round_trip(flow, state, dat, mesh, device, tmp)
         # the plain data-parallel program on the same group
         dp = baseline_flow(data, dat, device, SEED)
         t0 = time.time()
@@ -1886,7 +1894,42 @@ def drive_mesh(device, tmp):
         plain_dp_program_ms_per_step=1e3 * dp_seconds / launches,
         history_err_vs_single_device_plain=errs,
         parameter_err_vs_single_device_plain=leaf_err,
-        valid_nll=flow.valid_loss)
+        valid_nll=flow.valid_loss, sharded_ckpt_round_trip=orbax)
+
+
+def orbax_round_trip(flow, state, dat, mesh, device, tmp):
+    """``save_flow_orbax`` / ``load_flow_orbax`` of the trained flow and its
+    Adam state on the one-rank NCCL group (CUDA tensors): ``log_prob`` of
+    the data set and the state bit for bit."""
+    from densityflows_tpu_torch.utils.orbax_ckpt import (
+        load_flow_orbax,
+        save_flow_orbax,
+    )
+
+    path = os.path.join(tmp, "orbax")
+    t0 = time.perf_counter()
+    save_flow_orbax(path, flow, state)
+    save_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, back_state = load_flow_orbax(path, dt.adam(1e-3), mesh=mesh,
+                                       device=device)
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    x = dat["x"].astype(np.float32)
+    theta = dat["theta"].astype(np.float32)
+    with torch.no_grad():
+        lp, lp_back = flow.log_prob(x, theta), back.log_prob(x, theta)
+    if not (bits_same(lp, lp_back) and bool(torch.isfinite(lp).all())):
+        fail("sharded checkpoint on the NCCL group: log_prob differs")
+    if back_state.count != state.count or not all(
+            bits_same(a, b) for a, b in zip(back_state.mu + back_state.nu,
+                                            state.mu + state.nu)):
+        fail("sharded checkpoint on the NCCL group: the Adam state differs")
+    return dict(backend="nccl", save_seconds=save_seconds,
+                load_seconds=load_seconds, rows=len(x),
+                log_prob_and_adam_state="bit for bit",
+                bytes=sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(path) for f in files))
 
 
 def step_tile_sweep(sp, flat, d, n, batches, device):
@@ -4593,6 +4636,9 @@ def drive_example_uncertainty(card):
 TP = {"steps": 8, "batch": 1024, "loss_rtol": 1e-5, "param_atol": 3e-4,
       "past_1e-4": 8}
 MESH_TWO_RANKS_TIMEOUT = 420
+# the sharded checkpoint: steps taken after the (1, 2) mesh's checkpoint,
+# once by the run that goes on and once by the run loaded from it
+CKPT_MORE_STEPS = 4
 # the inference phase on a one-rank mesh
 MESH_MCMC = dict(chains=4096, steps=60, burn_in=10)
 MESH_VI = dict(steps=10, particles=1024)
@@ -4931,10 +4977,21 @@ def drive_mesh_one_rank(device, card, tmp):
 def mesh_rank_main(rank, world, init_file, out_dir):
     """One rank of ``mesh_two_ranks``: a (2, 1) data mesh serving the
     flagship chain, then a (1, 2) model mesh training it tensor-parallel;
-    rank 0 also runs the one-process references. Writes
+    rank 0 also runs the one-process references. Then ``sharded_ckpt``:
+    the tensor-parallel chain and its Adam state through
+    ``save_flow_orbax`` (each rank writes its shards), a one-process load
+    on rank 0 served against the gathered chain, and a load onto the (1, 2)
+    mesh that trains on against the run that went on. Writes
     ``rank_<rank>.json``."""
     from densityflows_tpu_torch.parallel.mesh import shard_params_tp
-    from densityflows_tpu_torch.utils.checkpoint import _gather_tp
+    from densityflows_tpu_torch.utils.checkpoint import (
+        _gather_tp,
+        element_leaves,
+    )
+    from densityflows_tpu_torch.utils.orbax_ckpt import (
+        load_flow_orbax,
+        save_flow_orbax,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
@@ -4974,28 +5031,36 @@ def mesh_rank_main(rank, world, init_file, out_dir):
                                             N_COND)).astype(np.float32)
                           ).to(device)
     mask = torch.ones(TP["batch"], device=device)
+    # the rows of the steps after the checkpoint, drawn after the others
+    rows_more = CKPT_MORE_STEPS * TP["batch"]
+    xb = torch.cat([xb, torch.as_tensor((rng.normal(size=(rows_more, D))
+                                         * 0.5).astype(np.float32)
+                                        ).to(device)])
+    thb = torch.cat([thb, torch.as_tensor(rng.uniform(size=(
+        rows_more, N_COND)).astype(np.float32)).to(device)])
+    opt = dt.adam(1e-3)
 
-    def steps(model, mesh):
-        opt = dt.adam(1e-3)
+    def steps(model, mesh, state=None, first=0, count=TP["steps"]):
         step = dt.make_train_step(opt, mesh=mesh)
-        state = opt.init(ft.trainable_leaves(model))
+        if state is None:
+            state = opt.init(ft.trainable_leaves(model))
         losses = []
-        for i in range(TP["steps"]):
+        for i in range(first, first + count):
             rows = slice(i * TP["batch"], (i + 1) * TP["batch"])
             _, state, loss = step(model, state, dt.StandardNormal(D),
                                   xb[rows], thb[rows], mask)
             losses.append(float(loss))
-        return losses
+        return losses, state
 
     t0 = time.perf_counter()
-    out["tp_losses"] = steps(tp_flow.model, tp_mesh)
+    out["tp_losses"], tp_state = steps(tp_flow.model, tp_mesh)
     torch.cuda.synchronize()
     out["tp_seconds"] = time.perf_counter() - t0
     gathered = _gather_tp(tp_flow.model, None)[0]
     if rank == 0:
         rep = copy.deepcopy(chain)
         t0 = time.perf_counter()
-        out["rep_losses"] = steps(rep, None)
+        out["rep_losses"] = steps(rep, None)[0]
         torch.cuda.synchronize()
         out["rep_seconds"] = time.perf_counter() - t0
         diffs = [(a.detach() - b.detach()).abs() for a, b in zip(
@@ -5003,6 +5068,72 @@ def mesh_rank_main(rank, world, init_file, out_dir):
         out["param_max_abs_err"] = max(float(e.max()) for e in diffs)
         out["params_past_1e-4"] = sum(int((e > 1e-4).sum()) for e in diffs)
         out["params"] = sum(e.numel() for e in diffs)
+
+    # sharded_ckpt: save_flow_orbax of the shards and their Adam state
+    ckpt = os.path.join(out_dir, "sharded_ckpt")
+    saved = [t.detach().clone() for t in element_leaves(tp_flow.model)]
+    # twice: the first call also imports and sets DCP up; the second
+    # overwrites the first's checkpoint
+    out["orbax_save_seconds"] = []
+    for _ in range(2):
+        tp_mesh.barrier()
+        t0 = time.perf_counter()
+        save_flow_orbax(ckpt, tp_flow, tp_state)
+        out["orbax_save_seconds"].append(time.perf_counter() - t0)
+    tp_mesh.barrier()
+    t0 = time.perf_counter()
+    dt.save_flow(os.path.join(out_dir, "gathered_ckpt"), tp_flow, tp_state,
+                 erase=True)
+    out["save_flow_seconds"] = time.perf_counter() - t0
+    tp_mesh.barrier()
+    if rank == 0:
+        # one process: the replicated flow on the chain kernels, against
+        # the chain the shards gather into
+        t0 = time.perf_counter()
+        one = load_flow_orbax(ckpt, device=device)
+        torch.cuda.synchronize()
+        out["one_process_load_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dt.load_flow(os.path.join(out_dir, "gathered_ckpt"), device=device)
+        torch.cuda.synchronize()
+        out["load_flow_seconds"] = time.perf_counter() - t0
+        out["one_process_leaves_bit_equal"] = all(
+            bits_same(a, b) for a, b in zip(element_leaves(one.model),
+                                            element_leaves(gathered)))
+        ref = dt.Flow(gathered, meta, device=device)
+        with torch.no_grad():
+            (lp1, s1), counts = counted(lambda: (
+                one.log_prob(x, theta),
+                one.sample((ROWS,), theta_tuple, generator=gen())))
+            out["one_process_launches"] = counts
+            out["one_process_log_prob_bit_equal"] = bits_same(
+                lp1, ref.log_prob(x, theta))
+            out["one_process_sample_bit_equal"] = bits_same(
+                s1, ref.sample((ROWS,), theta_tuple, generator=gen()))
+            out["one_process_finite"] = bool(torch.isfinite(lp1).all()
+                                             and torch.isfinite(s1).all())
+        del one, ref, lp1, s1
+    tp_mesh.barrier()
+    # onto the (1, 2) mesh: this rank's chunks, then 4 more steps beside
+    # the run that goes on from memory
+    t0 = time.perf_counter()
+    loaded, loaded_state = load_flow_orbax(ckpt, opt, mesh=tp_mesh,
+                                           device=device)
+    torch.cuda.synchronize()
+    out["mesh_load_seconds"] = time.perf_counter() - t0
+    out["loaded_shards_bit_equal"] = all(
+        bits_same(a, b) for a, b in zip(element_leaves(loaded.model), saved))
+    out["loaded_state_bit_equal"] = loaded_state.count == tp_state.count \
+        and all(bits_same(a, b) for a, b in zip(
+            loaded_state.mu + loaded_state.nu, tp_state.mu + tp_state.nu))
+    more = dict(first=TP["steps"], count=CKPT_MORE_STEPS)
+    out["uninterrupted_losses"] = steps(tp_flow.model, tp_mesh, tp_state,
+                                        **more)[0]
+    out["resumed_losses"] = steps(loaded.model, tp_mesh, loaded_state,
+                                  **more)[0]
+    out["resumed_shards_bit_equal"] = all(
+        bits_same(a, b) for a, b in zip(element_leaves(loaded.model),
+                                        element_leaves(tp_flow.model)))
     tp_mesh.barrier()
     with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -5077,6 +5208,108 @@ def drive_mesh_two_ranks(card, tmp):
                        params_past_1e_4=TP["past_1e-4"]),
         seconds=time.time() - t0)
     say(phase="mesh_two_ranks", card=card, **report)
+    return report, sharded_ckpt_report(res, tmp, card)
+
+
+def written_shards(ckpt):
+    """The ``sharded_ckpt`` gate on the files: DCP's ``.metadata`` of the
+    (1, 2) checkpoint says that every sharded leaf and both its moments are
+    two chunks, model rank m's in ``__m_0.distcp`` (so no file holds a
+    whole sharded tensor), and every replicated one a single whole chunk.
+    Returns the count of sharded tensors and each store's file sizes."""
+    from densityflows_tpu_torch.parallel.mesh import Mesh, shard_params_tp
+    from densityflows_tpu_torch.utils.checkpoint import (
+        _leaf_key,
+        _leaf_shard_dims,
+        element_from_spec,
+        element_leaves,
+    )
+    from densityflows_tpu_torch.utils.orbax_ckpt import _stored_chunks
+
+    with open(os.path.join(ckpt, "flow.json")) as f:
+        model = element_from_spec(json.load(f)["model_spec"], "cpu")
+    one_rank = Mesh(None, 1, 0, model_size=2, model_rank=0,
+                    axis_names=("data", "model"))
+    dims = _leaf_shard_dims(shard_params_tp(one_rank, model))
+    sharded, sizes = 0, {}
+    for store, prefixes in (("model", ("",)), ("opt_state", ("mu/", "nu/"))):
+        path = os.path.join(ckpt, store)
+        chunks = _stored_chunks(path)
+        for prefix in prefixes:
+            for i, (t, dm) in enumerate(zip(element_leaves(model), dims)):
+                key, full = prefix + _leaf_key(i), tuple(t.shape)
+                got = sorted(chunks[key])
+                if dm is None:
+                    ok = len(got) == 1 and got[0][:2] == ((0,) * len(full),
+                                                          full)
+                else:
+                    want = []
+                    for m in range(2):
+                        off, size = [0] * len(full), list(full)
+                        step = full[dm[1]] // 2
+                        off[dm[1]], size[dm[1]] = m * step, step
+                        want.append((tuple(off), tuple(size),
+                                     f"__{m}_0.distcp"))
+                    ok = got == want
+                    sharded += 1
+                if not ok:
+                    fail(f"sharded_ckpt: {store} {key} stored as {got}")
+        sizes[store] = {f: os.path.getsize(os.path.join(path, f))
+                        for f in sorted(os.listdir(path))}
+    if not sharded:
+        fail("sharded_ckpt: no leaf was written sharded")
+    return sharded, sizes
+
+
+def sharded_ckpt_report(res, tmp, card):
+    """``sharded_ckpt``: the gates on what the ranks of ``mesh_two_ranks``
+    did with ``save_flow_orbax`` / ``load_flow_orbax`` (written shards, the
+    one-process load on the chain kernels against the gathered chain, 4
+    steps resumed on the (1, 2) mesh against the run that went on), and
+    the save and load times and bytes beside ``save_flow`` /
+    ``load_flow`` of the same chain and state (which gather)."""
+    r0, r1 = res
+    ckpt = os.path.join(tmp, "sharded_ckpt")
+    sharded, sizes = written_shards(ckpt)
+    if not (r0["one_process_leaves_bit_equal"]
+            and r0["one_process_log_prob_bit_equal"]
+            and r0["one_process_sample_bit_equal"]
+            and r0["one_process_finite"]):
+        fail("sharded_ckpt: the one-process load differs from the gathered "
+             "chain")
+    if not launches_are(r0["one_process_launches"], chain_apply=1,
+                        chain_sample=1):
+        fail(f"sharded_ckpt: one-process launches "
+             f"{r0['one_process_launches']}")
+    for r in res:
+        if not (r["loaded_shards_bit_equal"] and r["loaded_state_bit_equal"]
+                and r["resumed_shards_bit_equal"]
+                and r["resumed_losses"] == r["uninterrupted_losses"]):
+            fail(f"sharded_ckpt: rank {r['rank']} resumed off the run that "
+                 "went on")
+    if r0["resumed_losses"] != r1["resumed_losses"]:
+        fail("sharded_ckpt: the ranks' resumed losses differ")
+    gathered = os.path.join(tmp, "gathered_ckpt")
+    npz_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(gathered) for f in files)
+    report = dict(
+        config=f"d {D}, n {N_COND}, {N_BLOCKS} blocks hidden {HIDDEN}",
+        mesh="(1, 2) data x model, two gloo ranks",
+        saved_after_steps=TP["steps"], resumed_steps=CKPT_MORE_STEPS,
+        sharded_tensors=sharded, written_shards="each rank only its own",
+        bytes_by_store_and_file=sizes,
+        orbax_save_seconds_first_then_second_per_rank=[
+            r["orbax_save_seconds"] for r in res],
+        save_flow_seconds_per_rank=[r["save_flow_seconds"] for r in res],
+        save_flow_bytes_rank_0=npz_bytes,
+        one_process_load_seconds=r0["one_process_load_seconds"],
+        load_flow_seconds=r0["load_flow_seconds"],
+        mesh_load_seconds_per_rank=[r["mesh_load_seconds"] for r in res],
+        one_process_launches=r0["one_process_launches"], rows=ROWS,
+        one_process_log_prob_and_sample_vs_gathered="bit for bit",
+        resumed_losses=r0["resumed_losses"],
+        resumed_vs_uninterrupted="bit for bit (losses, shards)")
+    say(phase="sharded_ckpt", card=card, **report)
     return report
 
 
@@ -5372,7 +5605,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         (serve_launches, _), (infer_launches, _), (scaling_launches, _) = \
             drive_mesh_one_rank(device, card, tmp)
-        summary["mesh_two_ranks"] = drive_mesh_two_ranks(card, tmp)
+        summary["mesh_two_ranks"], summary["sharded_ckpt"] = \
+            drive_mesh_two_ranks(card, tmp)
         summary["instruments"] = drive_instruments(device, card, tmp)
     chunked_fold_probe(device, card)
     summary["a9_a4_seconds"] = time.time() - t_new
@@ -5436,13 +5670,17 @@ def main():
                 flow_mcmc_mesh=infer_launches["flow_mcmc"]["chain_apply"],
                 sample_with_rejection_mesh=infer_launches[
                     "sample_with_rejection"]["chain_apply"],
-                mesh_two_ranks_per_rank=1),
+                mesh_two_ranks_per_rank=1,
+                sharded_ckpt_one_process_load=summary["sharded_ckpt"][
+                    "one_process_launches"]["chain_apply"]),
             "chain_sample": dict(
                 sample_mesh=serve_launches["sample"]["chain_sample"],
                 sample_sweep_mesh=serve_launches["sample_sweep"][
                     "chain_sample"],
                 row_offset_split=4, mesh_two_ranks_per_rank=1,
-                scaling_report=scaling_launches["chain_sample"]),
+                scaling_report=scaling_launches["chain_sample"],
+                sharded_ckpt_one_process_load=summary["sharded_ckpt"][
+                    "one_process_launches"]["chain_sample"]),
             "step_grads": dict(
                 scaling_report=scaling_launches["step_grads"]),
         }

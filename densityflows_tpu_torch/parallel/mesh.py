@@ -95,6 +95,7 @@ class Mesh:
         self.world = world if world is not None else (
             group if self.model_size == 1 else None)
         self.axis_names = tuple(axis_names)
+        self._device_mesh = None
 
     @property
     def shape(self) -> dict:
@@ -271,6 +272,28 @@ def make_mesh(shape: tuple | None = None,
     return Mesh(data_group, n_data, d_idx, model_group=model_group,
                 model_size=n_model, model_rank=m_idx, world=group,
                 axis_names=axis_names)
+
+
+def _device_mesh(mesh: Mesh):
+    """The ``torch.distributed.device_mesh.DeviceMesh`` of ``mesh``'s ranks,
+    with axes ("data", "model") laid out row-major as :func:`make_mesh` lays
+    them: the placements of the sharded checkpoints' DTensors
+    (``utils/orbax_ckpt.py``). Its device type is "cuda" where the mesh's
+    group takes CUDA tensors (NCCL) and "cpu" on gloo, whose ranks hand the
+    checkpoint host copies. Built once per mesh (every rank of the default
+    group builds it, in the same order, as a 2-D :func:`make_mesh`)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh._device_mesh is None:
+        if mesh.world is None:
+            raise ValueError(f"{mesh} has no process group to place "
+                             "tensors on")
+        ranks = dist.get_process_group_ranks(mesh.world)
+        mesh._device_mesh = DeviceMesh(
+            "cuda" if _carries_cuda(mesh.world) else "cpu",
+            torch.tensor(ranks).reshape(mesh.size, mesh.model_size),
+            mesh_dim_names=_AXES)
+    return mesh._device_mesh
 
 
 def check_mesh(mesh) -> None:

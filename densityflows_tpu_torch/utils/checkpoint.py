@@ -43,7 +43,9 @@ Tensor parallelism: ``save_flow`` of a chain placed by
 ``parallel.mesh.shard_params_tp`` joins every ``TensorParallelMLP``'s shards
 (and the Adam moments' shards) over the mesh's ``model`` axis, so the files
 hold the same bytes as the replicated chain's. Every rank of the axis calls
-it; its rank 0 writes.
+it; its rank 0 writes. A ``TensorParallelMLP``'s spec is the one of the MLP
+it places. ``utils.orbax_ckpt`` saves such a chain without the gather (each
+rank writes its shards) beside the same specs.
 """
 
 from __future__ import annotations
@@ -198,6 +200,12 @@ def _array_tensor(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a))
 
 
+def _leaf_key(i: int) -> str:
+    """The name of leaf ``i`` (leaf order) in every array store: the npz
+    files and the sharded format of ``utils.orbax_ckpt``."""
+    return f"leaf_{i:05d}"
+
+
 def _leaf_array(t: torch.Tensor) -> np.ndarray:
     """A leaf as the numpy array the JAX package writes: float32 as it is,
     bfloat16 as its 2-byte raw values (``|V2``), the bytes JAX stores."""
@@ -260,16 +268,27 @@ register_element(
     children=lambda el: list(el.weights) + list(el.biases),
 )
 
-def _tp_spec(el):
-    raise TypeError(
-        "a TensorParallelMLP holds one rank's shards: save the flow with "
-        "save_flow, which joins them over the mesh's 'model' axis")
+def _tp_full_shape(t, spec, model_size) -> list:
+    shape = list(t.shape)
+    if "model" in spec:
+        shape[spec.index("model")] *= model_size
+    return shape
 
 
+# a TensorParallelMLP's spec is the one of the MLP it places (the shapes
+# joined over the ``model`` axis), so it loads as that MLP
 register_element(
     TensorParallelMLP,
-    _tp_spec,
-    lambda s, dev: _tp_spec(None),
+    lambda el: {
+        "weight_shapes": [_tp_full_shape(w, s, el.mesh.model_size)
+                          for w, s in zip(el.weights, el.weight_specs)],
+        "bias_shapes": [_tp_full_shape(b, s, el.mesh.model_size)
+                        for b, s in zip(el.biases, el.bias_specs)],
+        "dtype": _dtype_name(el.weights[0]),
+        "activation": el.activation,
+    },
+    _mlp_from_spec,
+    name="MLP",
     children=lambda el: list(el.weights) + list(el.biases),
 )
 
@@ -559,11 +578,17 @@ def _prepare_dir(directory: str, erase: bool) -> None:
 
 def save_element(directory: str, el, *, erase: bool = False) -> None:
     """Persist one flow element."""
+    if _tp_nets(el):
+        raise TypeError(
+            "a TensorParallelMLP holds one rank's shards: save the flow with "
+            "save_flow, which joins them over the mesh's 'model' axis, or "
+            "with utils.orbax_ckpt.save_flow_orbax, which writes each rank's "
+            "shards")
     _prepare_dir(directory, erase)
     with open(os.path.join(directory, "spec.json"), "w") as f:
         json.dump({"format_version": _FORMAT_VERSION,
                    "spec": element_spec(el)}, f, indent=1)
-    arrays = {f"leaf_{i:05d}": _leaf_array(leaf)
+    arrays = {_leaf_key(i): _leaf_array(leaf)
               for i, leaf in enumerate(element_leaves(el))}
     np.savez(os.path.join(directory, "arrays.npz"), **arrays)
 
@@ -576,7 +601,7 @@ def load_element(directory: str, *, device=None):
     el = element_from_spec(payload["spec"], device)
     with np.load(os.path.join(directory, "arrays.npz")) as npz:
         n = len(element_leaves(el))
-        set_element_leaves(el, [npz[f"leaf_{i:05d}"] for i in range(n)])
+        set_element_leaves(el, [npz[_leaf_key(i)] for i in range(n)])
     return el
 
 
@@ -586,14 +611,18 @@ def _is_trainable(t) -> bool:
     return isinstance(t, torch.nn.Parameter)
 
 
-def adam_state_to_leaves(model, opt_state) -> list[np.ndarray]:
-    """An :class:`~densityflows_tpu_torch.train.AdamState` as numpy arrays in
-    the leaf order of the JAX package's ``optax.adam`` state for the same
-    model: count, a first moment per model leaf, a second moment per model
-    leaf (zeros for the leaves this package holds as buffers)."""
+def _is_adam_state(opt_state) -> bool:
+    return all(hasattr(opt_state, f) for f in ("count", "mu", "nu"))
+
+
+def _adam_moments(model, opt_state) -> tuple[list, list]:
+    """The first and the second moments of an Adam state, one per leaf of
+    ``model`` in leaf order: the state's for a trainable leaf, zeros for a
+    leaf this package holds as a buffer (the layout of ``optax.adam``'s
+    state)."""
     leaves = element_leaves(model)
     n_train = sum(_is_trainable(t) for t in leaves)
-    if not all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+    if not _is_adam_state(opt_state):
         raise TypeError(
             "only an Adam state (count, mu, nu) can be written to a "
             f"checkpoint, got {type(opt_state).__name__}")
@@ -601,17 +630,29 @@ def adam_state_to_leaves(model, opt_state) -> list[np.ndarray]:
         raise ValueError(
             f"the model has {n_train} trainable leaves, the optimizer state "
             f"{len(opt_state.mu)} / {len(opt_state.nu)} moments")
-    out = [np.asarray(int(opt_state.count), np.int32)]
+    out = []
     for moments in (opt_state.mu, opt_state.nu):
         it = iter(moments)
+        per_leaf = []
         for t in leaves:
             m = next(it) if _is_trainable(t) else torch.zeros_like(t)
             if tuple(m.shape) != tuple(t.shape):
                 raise ValueError(
                     f"moment shape {tuple(m.shape)} != leaf shape "
                     f"{tuple(t.shape)}")
-            out.append(m.detach().cpu().numpy())
-    return out
+            per_leaf.append(m.detach())
+        out.append(per_leaf)
+    return out[0], out[1]
+
+
+def adam_state_to_leaves(model, opt_state) -> list[np.ndarray]:
+    """An :class:`~densityflows_tpu_torch.train.AdamState` as numpy arrays in
+    the leaf order of the JAX package's ``optax.adam`` state for the same
+    model: count, a first moment per model leaf, a second moment per model
+    leaf (zeros for the leaves this package holds as buffers)."""
+    mu, nu = _adam_moments(model, opt_state)
+    return [np.asarray(int(opt_state.count), np.int32)] + [
+        m.cpu().numpy() for m in mu + nu]
 
 
 def adam_state_from_leaves(model, arrays):
@@ -681,8 +722,7 @@ def _gather_tp(model, opt_state):
     dims = [dm for t, dm in zip(element_leaves(model),
                                 _leaf_shard_dims(model)) if _is_trainable(t)]
     swap(out)
-    if opt_state is not None and all(
-            hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+    if opt_state is not None and _is_adam_state(opt_state):
         def join(moments):
             return [m if dm is None else dm[0].all_gather_model(m, dm[1])
                     for m, dm in zip(moments, dims)]
@@ -711,31 +751,28 @@ def save_flow(directory: str, flow: Flow, opt_state=None, *,
     _prepare_dir(directory, erase)
     save_element(os.path.join(directory, "model"), model, erase=erase)
     save_element(os.path.join(directory, "base"), flow.base, erase=erase)
-    meta = {
-        "format_version": _FORMAT_VERSION,
-        "metadata": {
-            "hash": flow.metadata.hash,
-            "d": flow.metadata.d,
-            "n": flow.metadata.n,
-            "theta_min": np.asarray(flow.metadata.theta_min).tolist(),
-            "theta_max": np.asarray(flow.metadata.theta_max).tolist(),
-        },
-        "train_loss": [float(v) for v in flow.train_loss],
-        "valid_loss": [float(v) for v in flow.valid_loss],
-        "has_opt_state": opt_state is not None,
-    }
     with open(os.path.join(directory, "flow.json"), "w") as f:
-        json.dump(meta, f, indent=1)
+        json.dump({"format_version": _FORMAT_VERSION,
+                   **_flow_record(flow, opt_state)}, f, indent=1)
     if opt_state is not None:
         arrays = adam_state_to_leaves(model, opt_state)
         np.savez(os.path.join(directory, "opt_state.npz"),
-                 **{f"leaf_{i:05d}": a for i, a in enumerate(arrays)})
+                 **{_leaf_key(i): a for i, a in enumerate(arrays)})
 
 
 def _metadata_dict(md) -> dict:
     return {"hash": md.hash, "d": md.d, "n": md.n,
             "theta_min": np.asarray(md.theta_min).tolist(),
             "theta_max": np.asarray(md.theta_max).tolist()}
+
+
+def _flow_record(flow, opt_state) -> dict:
+    """The keys of ``flow.json`` that every flow format writes: metadata,
+    loss histories and whether optimizer state was saved."""
+    return {"metadata": _metadata_dict(flow.metadata),
+            "train_loss": [float(v) for v in flow.train_loss],
+            "valid_loss": [float(v) for v in flow.valid_loss],
+            "has_opt_state": opt_state is not None}
 
 
 def _metadata_from(md) -> MetaData:
@@ -746,7 +783,7 @@ def _metadata_from(md) -> MetaData:
 
 def _npz_leaves(path, n) -> list:
     with np.load(path) as npz:
-        return [npz[f"leaf_{i:05d}"] for i in range(n)]
+        return [npz[_leaf_key(i)] for i in range(n)]
 
 
 def save_ensemble(directory: str, ens, *, erase: bool = False) -> None:
@@ -765,10 +802,10 @@ def save_ensemble(directory: str, ens, *, erase: bool = False) -> None:
             "valid_loss": [list(map(float, row)) for row in ens.valid_loss],
         }, f, indent=1)
     np.savez(os.path.join(directory, "stacked.npz"),
-             **{f"leaf_{i:05d}": _leaf_array(leaf)
+             **{_leaf_key(i): _leaf_array(leaf)
                 for i, leaf in enumerate(ens.model.leaves())})
     np.savez(os.path.join(directory, "base.npz"),
-             **{f"leaf_{i:05d}": _leaf_array(leaf)
+             **{_leaf_key(i): _leaf_array(leaf)
                 for i, leaf in enumerate(element_leaves(ens.base))})
 
 
@@ -807,16 +844,10 @@ def load_flow(directory: str, optimizer=None, *, device=None):
         meta = json.load(f)
     model = load_element(os.path.join(directory, "model"), device=device)
     base = load_element(os.path.join(directory, "base"), device=device)
-    md = meta["metadata"]
-    metadata = MetaData(
-        md["hash"], md["d"], md["n"],
-        np.asarray(md["theta_min"], np.float32),
-        np.asarray(md["theta_max"], np.float32),
-    )
-    flow = Flow(model, metadata, base, meta["train_loss"],
-                meta["valid_loss"], device=device)
+    flow = Flow(model, _metadata_from(meta["metadata"]), base,
+                meta["train_loss"], meta["valid_loss"], device=device)
     if optimizer is not None and meta.get("has_opt_state"):
         with np.load(os.path.join(directory, "opt_state.npz")) as npz:
-            arrays = [npz[f"leaf_{i:05d}"] for i in range(len(npz.files))]
+            arrays = [npz[_leaf_key(i)] for i in range(len(npz.files))]
         return flow, adam_state_from_leaves(flow.model, arrays)
     return flow

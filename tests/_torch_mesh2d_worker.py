@@ -1,10 +1,11 @@
-"""Worker process of the port's two-rank mesh tests (gloo, CPU): tensor
-parallelism on a 2-D mesh, ``mesh=`` on serving and on the inference engine,
-and the scaling harness.
+"""Worker process of the port's two- and four-rank mesh tests (gloo, CPU):
+tensor parallelism on a 2-D mesh, ``mesh=`` on serving and on the inference
+engine, the scaling harness, and sharded checkpoints.
 
 Launched by ``tests/test_torch_tensor_parallel.py``,
-``tests/test_torch_mesh_serving.py`` and ``tests/test_torch_instruments.py``
-(through :func:`run_ranks`): each of ``world`` processes joins a
+``tests/test_torch_mesh_serving.py``, ``tests/test_torch_instruments.py``
+and ``tests/test_torch_orbax_ckpt.py`` (through :func:`run_ranks`): each of
+``world`` processes joins a
 ``torch.distributed`` group through a FILE rendezvous, loads the flows and
 arrays the parent wrote into ``<dir>``, runs the mode's entry points with a
 mesh, and writes ``<mode>_<rank>.npz``. The parent holds them against the
@@ -31,9 +32,19 @@ from densityflows_tpu_torch.models.fused_train import (
     trainable_leaves,
 )
 from densityflows_tpu_torch.parallel.mesh import shard_params_tp
-from densityflows_tpu_torch.utils.checkpoint import _gather_tp
+from densityflows_tpu_torch.utils.checkpoint import (
+    _gather_tp,
+    adam_state_to_leaves,
+    element_leaves,
+)
+from densityflows_tpu_torch.utils.orbax_ckpt import (
+    load_flow_orbax,
+    save_flow_orbax,
+)
 
 TP_EPOCHS, TP_BATCH = 2, 32
+# sharded checkpoints: steps before the save, steps after it, batch rows
+CK_STEPS, CK_MORE, CK_BATCH = 2, 2, 32
 
 
 def gen(seed):
@@ -262,8 +273,116 @@ def scaling(folder):
         [list(vars(p).values()) for p in pts]))}
 
 
+def leaf_arrays(prefix, tensors):
+    """Copies of ``tensors`` (a step updates leaves in place)."""
+    return {f"{prefix}_{i}": t.detach().numpy().copy()
+            for i, t in enumerate(tensors)}
+
+
+def checkpoints(folder):
+    """save_flow_orbax of a chain trained tensor-parallel on a (1, 2) mesh
+    (with its Adam state), then load_flow_orbax of it onto the same mesh
+    (2 more steps, against the run that went on without the checkpoint)
+    and onto a (2, 1) mesh, and of a one-process checkpoint onto the (1, 2)
+    mesh."""
+    b = np.load(os.path.join(folder, "ckpt_batch.npz"))
+    x, th = torch.as_tensor(b["x"]), torch.as_tensor(b["th"])
+    mask = torch.ones(CK_BATCH)
+    mesh = dt.make_mesh((1, 2), ("data", "model"))
+    opt = dt.adam(1e-3)
+    step = dt.make_train_step(opt, mesh=mesh)
+    saved = os.path.join(folder, "tp_ckpt")
+
+    def run(flow, state, steps):
+        losses = []
+        for i in steps:
+            rows = slice(i * CK_BATCH, (i + 1) * CK_BATCH)
+            _, state, loss = step(flow.model, state, flow.base, x[rows],
+                                  th[rows], mask)
+            losses.append(float(loss))
+        return state, losses
+
+    flow = dt.load_flow(os.path.join(folder, "flow"), device="cpu")
+    flow.model = shard_params_tp(mesh, flow.model)
+    state, first = run(flow, opt.init(trainable_leaves(flow.model)),
+                       range(CK_STEPS))
+    flow.train_loss = first
+    save_flow_orbax(saved, flow, state)
+    out = dict(leaf_arrays("saved", element_leaves(flow.model)),
+               **leaf_arrays("saved_mu", state.mu),
+               **leaf_arrays("saved_nu", state.nu))
+    gathered, gstate = _gather_tp(flow.model, state)
+    out.update(leaf_arrays("gathered", element_leaves(gathered)))
+    out.update({f"gathered_adam_{i}": a for i, a in
+                enumerate(adam_state_to_leaves(gathered, gstate))})
+    _, rest = run(flow, state, range(CK_STEPS, CK_STEPS + CK_MORE))
+    out["uninterrupted_losses"] = np.asarray(first + rest)
+    out.update(leaf_arrays("uninterrupted", element_leaves(flow.model)))
+
+    loaded, lstate = load_flow_orbax(saved, opt, mesh=mesh, device="cpu")
+    out.update(leaf_arrays("loaded", element_leaves(loaded.model)))
+    out.update(leaf_arrays("loaded_mu", lstate.mu))
+    out.update(leaf_arrays("loaded_nu", lstate.nu))
+    out["loaded_count"] = np.asarray(lstate.count)
+    out["loaded_train_loss"] = np.asarray(loaded.train_loss)
+    specs = lambda m: [[list(map(list, n.weight_specs)),  # noqa: E731
+                        list(map(list, n.bias_specs))]
+                       for n in m.modules() if hasattr(n, "weight_specs")]
+    out["specs"] = np.asarray(json.dumps([specs(flow.model),
+                                          specs(loaded.model)]))
+    _, resumed = run(loaded, lstate, range(CK_STEPS, CK_STEPS + CK_MORE))
+    out["resumed_losses"] = np.asarray(first + resumed)
+    out.update(leaf_arrays("resumed", element_leaves(loaded.model)))
+
+    mesh21 = dt.make_mesh((2, 1), ("data", "model"))
+    flow21 = load_flow_orbax(saved, mesh=mesh21, device="cpu")
+    out.update(leaf_arrays("leaves_2x1", element_leaves(flow21.model)))
+    with torch.no_grad():
+        out["lp_2x1"] = flow21.log_prob(b["xe"], b["the"],
+                                        mesh=mesh21).numpy()
+
+    onto = load_flow_orbax(os.path.join(folder, "rep_ckpt"), mesh=mesh,
+                           device="cpu")
+    placed = shard_params_tp(
+        mesh, dt.load_flow(os.path.join(folder, "flow"), device="cpu").model)
+    out.update(leaf_arrays("onto", element_leaves(onto.model)))
+    out.update(leaf_arrays("placed", element_leaves(placed)))
+    out["onto_specs"] = np.asarray(json.dumps([specs(onto.model),
+                                               specs(placed)]))
+    return out
+
+
+def checkpoints_2x2(folder):
+    """On four ranks: one data-parallel, tensor-parallel step on a (2, 2)
+    mesh, save_flow_orbax (each shard held by both data rows), and
+    load_flow_orbax onto the same mesh."""
+    b = np.load(os.path.join(folder, "ckpt_batch.npz"))
+    mesh = dt.make_mesh((2, 2), ("data", "model"))
+    opt = dt.adam(1e-3)
+    flow = dt.load_flow(os.path.join(folder, "flow"), device="cpu")
+    flow.model = shard_params_tp(mesh, flow.model)
+    rows = slice(mesh.rank * CK_BATCH // 2, (mesh.rank + 1) * CK_BATCH // 2)
+    _, state, _ = dt.make_train_step(opt, mesh=mesh)(
+        flow.model, opt.init(trainable_leaves(flow.model)), flow.base,
+        torch.as_tensor(b["x"][rows]), torch.as_tensor(b["th"][rows]),
+        torch.ones(CK_BATCH // 2), denom=torch.tensor(float(CK_BATCH)))
+    save_flow_orbax(os.path.join(folder, "ckpt_2x2"), flow, state)
+    loaded, lstate = load_flow_orbax(os.path.join(folder, "ckpt_2x2"), opt,
+                                     mesh=mesh, device="cpu")
+    out = dict(leaf_arrays("saved", element_leaves(flow.model)),
+               **leaf_arrays("loaded", element_leaves(loaded.model)),
+               **leaf_arrays("saved_mu", state.mu + state.nu),
+               **leaf_arrays("loaded_mu", lstate.mu + lstate.nu))
+    gathered, gstate = _gather_tp(flow.model, state)
+    out.update(leaf_arrays("gathered", element_leaves(gathered)))
+    out.update({f"gathered_adam_{i}": a for i, a in
+                enumerate(adam_state_to_leaves(gathered, gstate))})
+    out["place"] = np.asarray([mesh.rank, mesh.model_rank])
+    return out
+
+
 MODES = dict(tp=tensor_parallel, serving=serving, inference=inference,
-             scaling=scaling)
+             scaling=scaling, ckpt=checkpoints, ckpt22=checkpoints_2x2)
 
 
 def run_ranks(mode, folder, world=2, timeout=180):

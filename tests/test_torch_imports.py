@@ -106,6 +106,15 @@ particles, log_w, _ = dt.run_smc(lambda x: -(x * x).sum(-1), 2, 64,
                                  n_steps=2, generator=g, device="cpu")
 assert dt.systematic_resample_sharded(log_w, particles, g,
                                       dt.make_mesh()).shape == (64, 2)
+# sharded checkpoints (torch.distributed.checkpoint) in one process
+import tempfile
+from densityflows_tpu_torch.utils import orbax_ckpt
+with tempfile.TemporaryDirectory() as tmp:
+    orbax_ckpt.save_flow_orbax(tmp, tflow, state)
+    back, back_state = orbax_ckpt.load_flow_orbax(tmp, dt.adam(),
+                                                  device="cpu")
+assert torch.equal(back.log_prob(xs, ths), tflow.log_prob(xs, ths))
+assert back_state.count == state.count
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "optax", "densityflows_tpu",
                               "flax", "orbax")]
@@ -119,6 +128,7 @@ if not torch.cuda.is_available():
         lambda: dt.init_mlp(g, 2, 2),
         lambda: dt.normalization_layer(np.eye(3, dtype=np.float32) , 0., 1.),
         lambda: dt.load_flow("/nonexistent"),
+        lambda: orbax_ckpt.load_flow_orbax("/nonexistent"),
         lambda: dt.resolve_device(None),
     ):
         try:
@@ -162,7 +172,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                    "utils/datasets.py", "utils/config.py",
                    "inference.py", "parallel/resample.py", "ensemble.py",
                    "examples/__init__.py",
-                   "examples/uncertainty_and_mcmc.py"):
+                   "examples/uncertainty_and_mcmc.py",
+                   "utils/orbax_ckpt.py"):
         assert os.path.join("densityflows_tpu_torch", module) in names
     for path in sources:
         with open(path) as f:
@@ -348,6 +359,16 @@ def test_instrument_modules_export_the_jax_names():
                                          module))
         ref = _literal_all(os.path.join(ROOT, "densityflows_tpu", module))
         assert port == ref, module
+
+
+def test_sharded_checkpoint_module_exports_the_jax_names():
+    """``utils/orbax_ckpt.py``, the last module of the JAX package the port
+    lacked, keeps its module and function names."""
+    port = _literal_all(os.path.join(ROOT, "densityflows_tpu_torch", "utils",
+                                     "orbax_ckpt.py"))
+    ref = _literal_all(os.path.join(ROOT, "densityflows_tpu", "utils",
+                                    "orbax_ckpt.py"))
+    assert port == ref == ["save_flow_orbax", "load_flow_orbax"]
 
 
 def test_no_module_refuses_a9_or_tensor_parallelism():

@@ -39,6 +39,16 @@ wrappers only, so that the same script runs on two trees of the port:
 - ``example_parts``: the ``uncertainty_and_mcmc`` example's ensemble,
   ``flow_mcmc``, ``fit_posterior`` and ``sbc_ranks``, seconds each (with
   ``--tree``, of two trees);
+- ``ckpt``: the sharded checkpoints at ``chip_smoke.py``'s flagship width
+  (d 32, n 8, 8 couplings of hidden 256, with a zero Adam state), each in
+  fresh processes: two gloo ranks on a (1, 2) mesh, then one process
+  without ``torch.distributed``. Per process the seconds of importing
+  ``torch.distributed.checkpoint`` and ``torch.distributed.tensor``
+  (and which of ``torch._dynamo`` / ``torch._inductor`` each step
+  brought in), of building the DTensor device mesh and a first DTensor,
+  of 3 calls of
+  ``save_flow_orbax`` and 2 of ``load_flow_orbax``, beside 2 calls each of
+  ``save_flow`` / ``load_flow`` of the same state;
 - ``members``: ``train_run``'s member axis at the README / BASELINE run,
   one launch of K blocks for K in ``MEMBER_SWEEP``: ms, and from its
   ``DF_TRAIN_CLOCKS`` build every block's run time and start (its first and
@@ -72,6 +82,7 @@ non-zero without a CUDA device.
 import argparse
 import contextlib
 import hashlib
+import importlib
 import inspect
 import json
 import os
@@ -1168,6 +1179,116 @@ def mixed_grads(device):
                 pullback_max=max(r["pullback"] for r in rows))
 
 
+def ckpt_process(rank, world, init_file, out_dir):
+    """One fresh process of the ``ckpt`` probe: rank ``rank`` of ``world``
+    gloo ranks on a (1, 2) mesh, or (``world`` 1) a process without
+    ``torch.distributed``. Writes ``ckpt_<world>_<rank>.json``."""
+    import chip_smoke as cs
+
+    device = torch.device("cuda")
+    watched = ("torch._dynamo", "torch._inductor",
+               "torch.distributed.tensor", "torch.distributed.checkpoint")
+
+    def loaded():
+        return [m for m in watched if m in sys.modules]
+
+    out = {"rank": rank, "world": world, "loaded_at_start": loaded()}
+    for name in ("checkpoint", "tensor"):
+        t0 = time.perf_counter()
+        importlib.import_module(f"torch.distributed.{name}")
+        out[f"import_{name}_s"] = time.perf_counter() - t0
+        out[f"loaded_after_{name}"] = loaded()
+    from densityflows_tpu_torch.parallel.mesh import (
+        _device_mesh,
+        shard_params_tp,
+    )
+    from densityflows_tpu_torch.utils.orbax_ckpt import (
+        load_flow_orbax,
+        save_flow_orbax,
+    )
+
+    rng = np.random.default_rng(SEED)
+    meta = cs.flagship_inputs(rng, cs.N_COND, 16, device, "ckpt")[0]
+    flow = dt.Flow(cs.wide_chain(False, rng, device), meta, device=device)
+    mesh = None
+    if world > 1:
+        dt.distributed_init(f"file://{init_file}", world, rank,
+                            backend="gloo")
+        mesh = dt.make_mesh((1, world), ("data", "model"))
+        flow.model = shard_params_tp(mesh, flow.model)
+        t0 = time.perf_counter()
+        _device_mesh(mesh)
+        out["device_mesh_s"] = time.perf_counter() - t0
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        t0 = time.perf_counter()
+        DTensor.from_local(torch.zeros(2, 2), _device_mesh(mesh),
+                           [Replicate(), Shard(1)], shape=(2, 4),
+                           stride=(4, 1))
+        out["first_dtensor_s"] = time.perf_counter() - t0
+        out["loaded_after_first_dtensor"] = loaded()
+    opt = dt.adam(1e-3)
+    state = opt.init(ft.trainable_leaves(flow.model))
+    sync = mesh.barrier if mesh is not None else (lambda: None)
+
+    def timed(fn, calls, sync=sync):
+        times = []
+        for _ in range(calls):
+            sync()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    sharded = os.path.join(out_dir, f"ckpt_{world}")
+    gathered = os.path.join(out_dir, f"npz_{world}")
+    out["save_flow_orbax_s"] = timed(
+        lambda: save_flow_orbax(sharded, flow, state), 3)
+    out["loaded_after_saves"] = loaded()
+    out["load_flow_orbax_s"] = timed(
+        lambda: load_flow_orbax(sharded, opt, mesh=mesh, device=device), 2)
+    out["save_flow_s"] = timed(
+        lambda: dt.save_flow(gathered, flow, state, erase=True), 2)
+    if rank == 0:
+        out["load_flow_s"] = timed(
+            lambda: dt.load_flow(gathered, opt, device=device), 2,
+            sync=lambda: None)
+    sync()
+    with open(os.path.join(out_dir, f"ckpt_{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def ckpt(device):
+    """The sharded checkpoints' times in fresh processes: two gloo ranks,
+    then one process alone (see ``ckpt_process``)."""
+    import tempfile
+
+    result = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (2, 1):
+            init = os.path.join(tmp, f"rendezvous_{world}")
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ckpt-rank",
+                 str(r), str(world), init, tmp, "--tree", TREE],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(world)]
+            for r, p in enumerate(procs):
+                o, e = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise SystemExit(f"ckpt probe: process {r} of {world} "
+                                     f"failed:\n{o[-2000:]}{e[-3000:]}")
+            result[f"world_{world}"] = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"ckpt_{world}_{r}.json")) as f:
+                    result[f"world_{world}"].append(json.load(f))
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/probe.json")
@@ -1179,7 +1300,7 @@ def main():
                     help="comma-separated probes to run (chain_nan, "
                          "step_host, coupling, stream, chain, train, "
                          "families, mixed_grads, members, a6, "
-                         "example_parts, variants)")
+                         "example_parts, ckpt, variants)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device", file=sys.stderr)
@@ -1240,7 +1361,7 @@ def main():
               ("train", lambda dev: train(dev, clocks=args.variants)),
               ("families", families), ("mixed_grads", mixed_grads),
               ("members", members), ("a6", a6),
-              ("example_parts", example_parts)]
+              ("example_parts", example_parts), ("ckpt", ckpt)]
     if args.variants:
         probes.append(("train_variants", train_variants))
     if args.variants:
@@ -1266,4 +1387,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-rank"]:
+        sys.exit(ckpt_process(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5]))
     sys.exit(main())
