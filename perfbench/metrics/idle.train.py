@@ -1,0 +1,9 @@
+"""idle.train: the share of the traced slice of a training cell in which no device operation runs (device)."""
+
+from ._common import idle
+
+UNIT = "%"
+
+
+def read(sl):
+    return idle(sl, ("train",))
