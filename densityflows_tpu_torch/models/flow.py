@@ -30,6 +30,11 @@ generator state: ``chain_sample`` counts its in-kernel generator by the
 global row (``row_offset``); the plain path and the CPU draw the whole base
 sample on every rank and fold their rows of it.
 
+While a ``torch.profiler`` session records, ``log_prob`` (array form),
+``sample`` and ``sample_sweep`` record their stages (``df.theta``,
+``df.plan``, ``df.enqueue``, ``df.density``) as spans of
+``utils/spans.py``.
+
 Not ported: the row-chunked folds of the JAX package (ROADMAP A.6).
 """
 
@@ -42,6 +47,7 @@ from torch import nn
 from .._device import as_float32, resolve_device
 from ..data import DataArrays, MetaData, normalize_input
 from ..parallel.mesh import Mesh, check_mesh, host_local_rows
+from ..utils.spans import span, unrecorded
 from .chains import FlowChain
 from .distributions import StandardNormal
 
@@ -54,16 +60,29 @@ def nll_loss(model, base, x, theta):
     return -(base.log_prob(z) + ldj).mean()
 
 
-def _chain_eval(model, y, theta, dirn):
+def _chain_eval(model, y, theta, dirn, staged=False):
     """Inverse/forward fold with ldj, routed through the whole-chain kernel
-    where the policy says so (models/fused_chain.py; grad-safe)."""
-    if isinstance(model, FlowChain):
-        from .fused_chain import maybe_apply_fused
+    where the policy says so (models/fused_chain.py; grad-safe). ``staged``
+    (one entry-point call, no loop): the routing and the plan lookup in a
+    ``df.plan`` span (``hit``: the folded parameters reused), the launch, or
+    the per-layer path, in a ``df.enqueue`` span."""
+    stage = span if staged else unrecorded
+    found = None
+    with stage("df.plan") as s:
+        if isinstance(model, FlowChain) and y.dim() >= 2:
+            from .fused_chain import fused_plan
 
-        res = maybe_apply_fused(model, y, theta, dirn, True)
-        if res is not None:
-            return res
-    return model.forward(y, theta) if dirn == "fwd" else model.inverse(y, theta)
+            n = theta.shape[-1] if theta is not None else 0
+            found = fused_plan(model, y.shape[-1], n, dirn, y.device)
+            if found is not None and s.recording:
+                s.counts["hit"] = found[1]
+    with stage("df.enqueue"):
+        if found is not None:
+            from .fused_chain import apply_fused
+
+            return apply_fused(model, y, theta, dirn, True, found[0])
+        return (model.forward(y, theta) if dirn == "fwd"
+                else model.inverse(y, theta))
 
 
 class Flow:
@@ -200,14 +219,17 @@ class Flow:
             dims = (dims,)
         dims = tuple(int(s) for s in dims)
         rows = int(np.prod(dims)) if dims else 1
-        # a scalar/tuple θ stays one row: the kernel broadcasts it
-        if theta is None or isinstance(theta, (int, float, tuple, list)):
-            theta_n = self.prepare_theta(theta, (1,))
-        else:
-            theta_n = self.prepare_theta(theta, dims).reshape(
-                rows, self.metadata.n)
-        return self._sample_rows(dims, theta_n, generator,
-                                 mesh).reshape(dims + (self.metadata.d,))
+        with span("df.sample"):
+            with span("df.theta"):
+                # a scalar/tuple θ stays one row: the kernel broadcasts it
+                if theta is None or isinstance(theta,
+                                               (int, float, tuple, list)):
+                    theta_n = self.prepare_theta(theta, (1,))
+                else:
+                    theta_n = self.prepare_theta(theta, dims).reshape(
+                        rows, self.metadata.n)
+            return self._sample_rows(dims, theta_n, generator,
+                                     mesh).reshape(dims + (self.metadata.d,))
 
     def sample_sweep(self, thetas, n_per_theta: int, *, generator=None,
                      mesh=None):
@@ -220,20 +242,23 @@ class Flow:
         """
         check_mesh(mesh)
         n, d = self.metadata.n, self.metadata.d
-        if isinstance(thetas, torch.Tensor):
-            thetas = thetas.to(self.device, torch.float32)
-        else:
-            thetas = torch.as_tensor(
-                np.asarray(thetas, np.float32)).to(self.device)
-        if thetas.dim() != 2 or thetas.shape[-1] != n:
-            raise ValueError(f"thetas must have shape (G, {n})")
-        g = thetas.shape[0]
-        total = g * n_per_theta
-        theta_full = thetas.repeat_interleave(n_per_theta, dim=0)
-        theta_n = normalize_input(theta_full, self._theta_min,
-                                  self._theta_max) if n else theta_full
-        return self._sample_rows((total,), theta_n, generator,
-                                 mesh).reshape(g, n_per_theta, d)
+        with span("df.sample_sweep"):
+            with span("df.theta"):
+                if isinstance(thetas, torch.Tensor):
+                    thetas = thetas.to(self.device, torch.float32)
+                else:
+                    thetas = torch.as_tensor(
+                        np.asarray(thetas, np.float32)).to(self.device)
+                if thetas.dim() != 2 or thetas.shape[-1] != n:
+                    raise ValueError(f"thetas must have shape (G, {n})")
+                g = thetas.shape[0]
+                total = g * n_per_theta
+                theta_full = thetas.repeat_interleave(n_per_theta, dim=0)
+                theta_n = normalize_input(theta_full, self._theta_min,
+                                          self._theta_max) if n \
+                    else theta_full
+            return self._sample_rows((total,), theta_n, generator,
+                                     mesh).reshape(g, n_per_theta, d)
 
     def _sample_rows(self, dims, theta_n, generator, mesh):
         """The draw of ``dims`` flattened to ``(rows, d)``. ``theta_n``: the
@@ -246,18 +271,27 @@ class Flow:
         sl = host_local_rows(mesh, rows)
         lo, hi = sl.start, sl.stop
         th = theta_n if theta_n.shape[0] == 1 else theta_n[lo:hi]
-        out = None
-        if self._fused_sampler_applies():
-            from .fused_chain import maybe_sample_fused
+        found = None
+        with span("df.plan") as s:
+            if self._fused_sampler_applies():
+                from .fused_chain import fused_plan
 
-            out = maybe_sample_fused(self.model, generator, hi - lo, d, th,
-                                     row_offset=lo, total_rows=rows)
-        if out is None:
-            # every rank draws the whole base sample from its equally
-            # seeded generator (the one-process stream) and folds its rows
-            r = self.base.sample(generator, dims, self.device)
-            r = r.reshape(rows, d)[lo:hi]
-            out = self.model.forward_(r, th.expand(hi - lo, n))
+                found = fused_plan(self.model, d, n, "fwd")
+                if found is not None and s.recording:
+                    s.counts["hit"] = found[1]
+        with span("df.enqueue"):
+            if found is not None:
+                from .fused_chain import sample_fused
+
+                out = sample_fused(found[0], generator, hi - lo, d, th,
+                                   row_offset=lo, total_rows=rows)
+            else:
+                # every rank draws the whole base sample from its equally
+                # seeded generator (the one-process stream) and folds its
+                # rows
+                r = self.base.sample(generator, dims, self.device)
+                r = r.reshape(rows, d)[lo:hi]
+                out = self.model.forward_(r, th.expand(hi - lo, n))
         return mesh.all_gather_rows(out, rows)
 
     # -- densities --------------------------------------------------------
@@ -280,18 +314,22 @@ class Flow:
                 raise ValueError("mesh sharding applies to the array form "
                                  "of log_prob, not the grid form")
             return self._log_prob_grid(tuple(x), theta, grid_chunk)
-        check_mesh(mesh)
-        mesh = mesh if mesh is not None else Mesh()
-        x = as_float32(x, self.device, "x")
-        theta_n = self.prepare_theta(theta, x.shape[:-1])
-        batch_shape = x.shape[:-1]
-        rows = int(np.prod(batch_shape)) if batch_shape else 1
-        sl = host_local_rows(mesh, rows)
-        z, ldj = _chain_eval(self.model, x.reshape(rows, x.shape[-1])[sl],
-                             theta_n.reshape(rows, theta_n.shape[-1])[sl],
-                             "inv")
-        lp = mesh.all_gather_rows(self.base.log_prob(z) + ldj, rows)
-        return lp.reshape(batch_shape)
+        with span("df.log_prob"):
+            check_mesh(mesh)
+            mesh = mesh if mesh is not None else Mesh()
+            with span("df.theta"):
+                x = as_float32(x, self.device, "x")
+                theta_n = self.prepare_theta(theta, x.shape[:-1])
+                batch_shape = x.shape[:-1]
+                rows = int(np.prod(batch_shape)) if batch_shape else 1
+                sl = host_local_rows(mesh, rows)
+                x_rows = x.reshape(rows, x.shape[-1])[sl]
+                theta_rows = theta_n.reshape(rows, theta_n.shape[-1])[sl]
+            z, ldj = _chain_eval(self.model, x_rows, theta_rows, "inv",
+                                 staged=True)
+            with span("df.density"):
+                lp = mesh.all_gather_rows(self.base.log_prob(z) + ldj, rows)
+                return lp.reshape(batch_shape)
 
     def _log_prob_grid(self, axes_vectors: tuple, theta, grid_chunk: int):
         d = self.metadata.d

@@ -49,7 +49,7 @@ from .layers import (
 from .normalization import LogitLayer, NormalizationLayer, PermutationLayer
 
 __all__ = ["maybe_apply_fused", "maybe_sample_fused", "chain_is_fusable",
-           "fold_layers"]
+           "fold_layers", "fused_plan", "apply_fused", "sample_fused"]
 
 _COUPLINGS = (RNVPCouplingLayer, NICECouplingLayer, JointRNVPCouplingLayer)
 # every element type the kernels' plan covers
@@ -351,20 +351,21 @@ def _state_key(chain):
 
 
 def _cached_plan(chain, dirn, d, n):
-    """(plan, params, packed) for the chain's current weights. The folded
-    parameters (and, on CUDA, their packed form) are rebuilt only when a
-    parameter or buffer of the chain changed."""
+    """``(plan, params, packed), hit`` for the chain's current weights. The
+    folded parameters (and, on CUDA, their packed form) are rebuilt only
+    when a parameter or buffer of the chain changed; ``hit`` is 1 where
+    they were not, else 0."""
     cache = chain.__dict__.setdefault("_fused_plan_cache", {})
     key = _state_key(chain)
-    hit = cache.get(dirn)
-    if hit is not None and hit[0] == key:
-        return hit[1:]
+    entry = cache.get(dirn)
+    if entry is not None and entry[0] == key:
+        return entry[1:], 1
     with torch.no_grad():
         plan, params = _plan_params(chain, dirn)
         packed = (pack_plan(plan, params, d, n)
                   if params[0].device.type == "cuda" else None)
     cache[dirn] = (key, plan, params, packed)
-    return plan, params, packed
+    return (plan, params, packed), 0
 
 
 # -- the plain per-layer fold (reference and backward path) -------------------
@@ -408,9 +409,8 @@ class _ChainFused(torch.autograd.Function):
     per-layer path (the kernel has no backward kernel, as on the TPU)."""
 
     @staticmethod
-    def forward(ctx, chain, dirn, with_ldj, x2, th2, *chain_params):
-        d, n = x2.shape[-1], th2.shape[-1]
-        plan, params, packed = _cached_plan(chain, dirn, d, n)
+    def forward(ctx, chain, dirn, with_ldj, cached, x2, th2, *chain_params):
+        plan, params, packed = cached
         out = run_chain(plan, params, x2, th2, with_ldj=with_ldj,
                         packed=packed)
         ctx.chain, ctx.dirn, ctx.with_ldj = chain, dirn, with_ldj
@@ -436,46 +436,82 @@ class _ChainFused(torch.autograd.Function):
         it = iter(got[2:])
         g_params = [next(it) if p.requires_grad else None
                     for p in chain_params]
-        g_x = got[0] if ctx.needs_input_grad[3] else None
-        g_t = got[1] if ctx.needs_input_grad[4] else None
-        return (None, None, None, g_x, g_t, *g_params)
+        g_x = got[0] if ctx.needs_input_grad[4] else None
+        g_t = got[1] if ctx.needs_input_grad[5] else None
+        return (None, None, None, None, g_x, g_t, *g_params)
 
 
-def _chain_fused(chain, x2, th2, dirn, with_ldj):
+def _chain_fused(chain, x2, th2, dirn, with_ldj, cached):
     if torch.is_grad_enabled():
-        return _ChainFused.apply(chain, dirn, with_ldj, x2, th2,
+        return _ChainFused.apply(chain, dirn, with_ldj, cached, x2, th2,
                                  *chain.parameters())
-    plan, params, packed = _cached_plan(chain, dirn, x2.shape[-1],
-                                        th2.shape[-1])
+    plan, params, packed = cached
     return run_chain(plan, params, x2, th2, with_ldj=with_ldj, packed=packed)
 
 
-def maybe_sample_fused(chain, generator, rows, d, theta_n, *,
-                       return_noise=False, row_offset=0, total_rows=None):
+def fused_plan(chain, d, n, dirn, device=None):
+    """The routing decision and the plan lookup: ``(plan, params, packed),
+    hit`` for the chain's current weights (``_cached_plan``) where the
+    routing policy and the chain send rows of width ``d`` with ``n``
+    conditions on ``device`` (default: the chain's) through the kernels in
+    direction ``dirn``; None to keep the per-layer path."""
+    device = _chain_device(chain) if device is None else device
+    if not use_fused_chain(device) or not chain_is_fusable(chain, d, n):
+        return None
+    _require_kernel_limits(chain, d, n, device)
+    return _cached_plan(chain, dirn, d, n)
+
+
+def sample_fused(cached, generator, rows, d, theta_n, *, return_noise=False,
+                 row_offset=0, total_rows=None):
     """One output-only kernel: in-kernel N(0, I) draw + the full forward
-    sweep. ``theta_n`` may be (1, n) — one θ broadcast to every draw without
-    being materialised as (rows, n). Returns (rows, d), or None when the
-    routing policy or the chain says per-layer. ``row_offset`` /
+    sweep of ``cached``, the plan of :func:`fused_plan` for "fwd". ``theta_n``
+    may be (1, n) — one θ broadcast to every draw without being
+    materialised as (rows, n). Returns (rows, d). ``row_offset`` /
     ``total_rows``: rows ``[row_offset, row_offset + rows)`` of the draw of
     ``total_rows`` (``ops.chain_kernels.run_chain_sample``).
 
     On CUDA the draws are deterministic in the generator's state but are a
     different stream from ``torch.randn``.
     """
-    n = theta_n.shape[-1] if theta_n is not None else 0
-    device = _chain_device(chain)
-    if not use_fused_chain(device):
-        return None
-    if not chain_is_fusable(chain, d, n):
-        return None
-    _require_kernel_limits(chain, d, n, device)
-    plan, params, packed = _cached_plan(chain, "fwd", d, n)
-    if theta_n is not None and n:
+    plan, params, packed = cached
+    if theta_n is not None and theta_n.shape[-1]:
         theta_n = theta_n.contiguous()
     return run_chain_sample(plan, params, rows, d, theta_n,
                             generator=generator, packed=packed,
                             return_noise=return_noise, row_offset=row_offset,
                             total_rows=total_rows)
+
+
+def maybe_sample_fused(chain, generator, rows, d, theta_n, *,
+                       return_noise=False, row_offset=0, total_rows=None):
+    """:func:`sample_fused` where the routing policy and the chain allow
+    it; None to keep the per-layer path."""
+    n = theta_n.shape[-1] if theta_n is not None else 0
+    found = fused_plan(chain, d, n, "fwd")
+    if found is None:
+        return None
+    return sample_fused(found[0], generator, rows, d, theta_n,
+                        return_noise=return_noise, row_offset=row_offset,
+                        total_rows=total_rows)
+
+
+def apply_fused(chain, y, theta, dirn, with_ldj, cached):
+    """The whole chain as one kernel launch on ``y`` (batch..., d) with
+    ``cached``, the plan of :func:`fused_plan`; ``(y, ldj)`` or ``y``
+    alone."""
+    batch_shape = y.shape[:-1]
+    rows = int(np.prod(batch_shape))
+    d = y.shape[-1]
+    n = theta.shape[-1] if theta is not None else 0
+    x2 = y.reshape(rows, d).contiguous()
+    th2 = (theta.reshape(rows, n).contiguous() if theta is not None
+           else y.new_zeros(rows, 0))
+    out = _chain_fused(chain, x2, th2, dirn, with_ldj, cached)
+    if with_ldj:
+        yy, ldj = out
+        return yy.reshape(y.shape), ldj.reshape(batch_shape)
+    return out.reshape(y.shape)
 
 
 def maybe_apply_fused(chain, y, theta, dirn, with_ldj):
@@ -484,20 +520,8 @@ def maybe_apply_fused(chain, y, theta, dirn, with_ldj):
     ``dirn``: "fwd" | "inv"."""
     if y.dim() < 2:
         return None
-    if not use_fused_chain(y.device):
-        return None
-    batch_shape = y.shape[:-1]
-    rows = int(np.prod(batch_shape))
-    d = y.shape[-1]
     n = theta.shape[-1] if theta is not None else 0
-    if not chain_is_fusable(chain, d, n):
+    found = fused_plan(chain, y.shape[-1], n, dirn, y.device)
+    if found is None:
         return None
-    _require_kernel_limits(chain, d, n, y.device)
-    x2 = y.reshape(rows, d).contiguous()
-    th2 = (theta.reshape(rows, n).contiguous() if theta is not None
-           else y.new_zeros(rows, 0))
-    out = _chain_fused(chain, x2, th2, dirn, with_ldj)
-    if with_ldj:
-        yy, ldj = out
-        return yy.reshape(y.shape), ldj.reshape(batch_shape)
-    return out.reshape(y.shape)
+    return apply_fused(chain, y, theta, dirn, with_ldj, found[0])

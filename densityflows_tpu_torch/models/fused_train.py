@@ -62,6 +62,7 @@ from ..ops.train_kernels import (
     pack_train_plan,
     run_fused_train,
 )
+from ..utils.spans import span
 from .blocks import CouplingBlock
 from .chains import FlowChain
 from .distributions import StandardNormal
@@ -581,6 +582,11 @@ def fused_step_mesh_reason(flow, batchsize, mesh):
     return None
 
 
+def _nbytes(*arrays) -> int:
+    """Bytes of the arrays (or tensors) that are not None."""
+    return sum(int(a.nbytes) for a in arrays if a is not None)
+
+
 def load_leaves_(model, values) -> None:
     """Copy ``values`` (aligned with :func:`trainable_leaves`) into the
     model's parameters, in place."""
@@ -633,78 +639,89 @@ def train_fused(
     if not isinstance(flow.base, StandardNormal):
         raise UnsupportedFusedTrain("fused train supports the "
                                     "StandardNormal base only")
-    (plan, tcounts, tparams, masks, mask_slots, cparams, fold_state,
-     unfold) = chain_train_fold(flow.model)
+    with span("df.fold"):
+        (plan, tcounts, tparams, masks, mask_slots, cparams, fold_state,
+         unfold) = chain_train_fold(flow.model)
 
-    x_train, th_train = data.normalized_training_data(flow.metadata)
-    x_valid, th_valid = data.normalized_validation_data(flow.metadata)
-    n, nv = x_train.shape[0], x_valid.shape[0]
-    if n == 0 or nv == 0:
-        raise UnsupportedFusedTrain("empty training/validation split")
-    d = x_train.shape[-1]
-    n_cond = th_train.shape[-1]
+    with span("df.gather"):
+        x_train, th_train = data.normalized_training_data(flow.metadata)
+        x_valid, th_valid = data.normalized_validation_data(flow.metadata)
+        n, nv = x_train.shape[0], x_valid.shape[0]
+        if n == 0 or nv == 0:
+            raise UnsupportedFusedTrain("empty training/validation split")
+        d = x_train.shape[-1]
+        n_cond = th_train.shape[-1]
 
-    w_train = w_valid = None
-    if weights is not None:
-        wf = np.asarray(weights, np.float32).reshape(-1)
-        if wf.shape[0] != data.x.shape[0]:
-            raise ValueError(
-                f"weights must have one entry per data row "
-                f"({data.x.shape[0]}), got {wf.shape[0]}")
-        w_train = wf[np.asarray(data.partition.training)]
-        w_valid = wf[np.asarray(data.partition.validation)]
+        w_train = w_valid = None
+        if weights is not None:
+            wf = np.asarray(weights, np.float32).reshape(-1)
+            if wf.shape[0] != data.x.shape[0]:
+                raise ValueError(
+                    f"weights must have one entry per data row "
+                    f"({data.x.shape[0]}), got {wf.shape[0]}")
+            w_train = wf[np.asarray(data.partition.training)]
+            w_valid = wf[np.asarray(data.partition.validation)]
 
-    packed = pack_train_plan(plan, tparams, masks, mask_slots, cparams, d,
-                             n_cond, batchsize)
-    step_plan = None
-    try:
-        _check_budget(packed)
-    except UnsupportedFusedTrain as resident:
-        # past the resident envelope: the streaming kernel, or both reasons
-        from ..ops.step_kernels import StepPlan
-        from ..ops.stream_kernels import stream_reason
+    with span("df.fold"):
+        packed = pack_train_plan(plan, tparams, masks, mask_slots, cparams,
+                                 d, n_cond, batchsize)
+        step_plan = None
+        try:
+            _check_budget(packed)
+        except UnsupportedFusedTrain as resident:
+            # past the resident envelope: the streaming kernel, or both
+            # reasons
+            from ..ops.step_kernels import StepPlan
+            from ..ops.stream_kernels import stream_reason
 
-        step_plan = StepPlan(plan, tparams, masks, mask_slots, cparams, d,
-                             n_cond, tcounts)
-        reason = stream_reason(step_plan)
-        if reason is not None:
-            raise UnsupportedFusedTrain(f"{resident}; {reason}") from None
+            step_plan = StepPlan(plan, tparams, masks, mask_slots, cparams,
+                                 d, n_cond, tcounts)
+            reason = stream_reason(step_plan)
+            if reason is not None:
+                raise UnsupportedFusedTrain(
+                    f"{resident}; {reason}") from None
 
-    count0 = 0
-    if opt_state is not None:
-        if not isinstance(opt_state, AdamState):
-            raise UnsupportedFusedTrain(
-                "opt_state is not an Adam state (need count, mu, nu)")
-        count0 = int(opt_state.count)
-        mu = fold_state(opt_state.mu)
-        nu = fold_state(opt_state.nu)
-    else:
-        mu = [torch.zeros_like(p) for p in tparams]
-        nu = [torch.zeros_like(p) for p in tparams]
+        count0 = 0
+        if opt_state is not None:
+            if not isinstance(opt_state, AdamState):
+                raise UnsupportedFusedTrain(
+                    "opt_state is not an Adam state (need count, mu, nu)")
+            count0 = int(opt_state.count)
+            mu = fold_state(opt_state.mu)
+            nu = fold_state(opt_state.nu)
+        else:
+            mu = [torch.zeros_like(p) for p in tparams]
+            nu = [torch.zeros_like(p) for p in tparams]
 
-    perms = (draw_epoch_perms(generator, epochs, n, shuffle)
-             if _epoch_perms is None else np.asarray(_epoch_perms))
+    with span("df.gather"):
+        perms = (draw_epoch_perms(generator, epochs, n, shuffle)
+                 if _epoch_perms is None else np.asarray(_epoch_perms))
 
     device = flow.device
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
-    arrays = (put(x_train), put(th_train) if n_cond else None,
-              put(x_valid), put(th_valid) if n_cond else None)
-    w_dev = (put(w_train), put(w_valid)) if weights is not None else (None,
-                                                                      None)
+    with span("df.upload") as upload:
+        arrays = (put(x_train), put(th_train) if n_cond else None,
+                  put(x_valid), put(th_valid) if n_cond else None)
+        w_dev = ((put(w_train), put(w_valid)) if weights is not None
+                 else (None, None))
+        if upload.recording:
+            upload.counts["bytes"] = _nbytes(*arrays, *w_dev)
     hp = dict(lr=lr, b1=b1, b2=b2, eps=eps)
     t0 = time.perf_counter()
     if step_plan is None:
-        p_new, mu_new, nu_new, tls, vls, best, skips = run_fused_train(
-            plan, tparams, masks, mask_slots, cparams, mu, nu, *arrays, perms,
-            batchsize=batchsize, count0=count0, track_best=track_best,
-            w=w_dev[0], w_valid=w_dev[1], guard_nonfinite=skip_nonfinite,
-            packed=packed, **hp)
-        tls = tls.cpu().numpy()  # the host fetch waits for the kernel
-        vls = vls.cpu().numpy()
-        skips = skips.cpu().numpy() if skip_nonfinite else None
+        with span("df.enqueue"):
+            p_new, mu_new, nu_new, tls, vls, best, skips = run_fused_train(
+                plan, tparams, masks, mask_slots, cparams, mu, nu, *arrays,
+                perms, batchsize=batchsize, count0=count0,
+                track_best=track_best, w=w_dev[0], w_valid=w_dev[1],
+                guard_nonfinite=skip_nonfinite, packed=packed, **hp)
+        with span("df.wait"):
+            tls = tls.cpu().numpy()  # the host fetch waits for the kernel
+            vls = vls.cpu().numpy()
+            skips = skips.cpu().numpy() if skip_nonfinite else None
         flow.fused_kernel_mode = "resident"
     else:
         p_new, mu_new, nu_new, tls, vls, best, skips = _train_stream_chunks(
@@ -714,19 +731,20 @@ def train_fused(
         flow.fused_kernel_mode = "stream"
     elapsed = time.perf_counter() - t0
 
-    load_leaves_(flow.model, unfold(p_new))
-    flow.train_loss.extend(float(v) for v in tls)
-    flow.valid_loss.extend(float(v) for v in vls)
-    n_skipped = 0
-    if skip_nonfinite:
-        n_skipped = int(skips.sum())
-        flow.skipped_updates.extend(int(v) for v in skips)
+    with span("df.unfold"):
+        load_leaves_(flow.model, unfold(p_new))
+        flow.train_loss.extend(float(v) for v in tls)
+        flow.valid_loss.extend(float(v) for v in vls)
+        n_skipped = 0
+        if skip_nonfinite:
+            n_skipped = int(skips.sum())
+            flow.skipped_updates.extend(int(v) for v in skips)
 
-    n_batches = -(-n // batchsize)
-    # skipped steps keep the old state, so the Adam count only advances on
-    # applied updates
-    out_state = AdamState(count0 + epochs * n_batches - n_skipped,
-                          unfold(mu_new), unfold(nu_new))
+        n_batches = -(-n // batchsize)
+        # skipped steps keep the old state, so the Adam count only advances
+        # on applied updates
+        out_state = AdamState(count0 + epochs * n_batches - n_skipped,
+                              unfold(mu_new), unfold(nu_new))
 
     if verbose and n_skipped:
         print(f"[skipped {n_skipped} non-finite updates]")
@@ -781,20 +799,25 @@ def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
     tls, vls, skips = [], [], []
     best, best_vl = None, np.inf
     for done in range(0, epochs, chunk):
-        params, mu, nu, snaps, sk = run_fused_train_stream(
-            sp.plan, params, sp.masks, sp.mask_slots, sp.cparams, mu, nu, x,
-            th, perms[done:done + chunk], batchsize=batchsize, count0=count,
-            w=w_dev[0], guard_nonfinite=guard, step_plan=sp, **hp)
-        tl = eval_snapshots(snaps, sp.cparams, x, th, w_dev[0], plan=sp.plan,
-                            row_chunk=_EVAL_ROW_CHUNK).cpu().numpy()
-        vl = eval_snapshots(snaps, sp.cparams, xv, thv, w_dev[1],
-                            plan=sp.plan,
-                            row_chunk=_EVAL_ROW_CHUNK).cpu().numpy()
+        with span("df.enqueue"):
+            params, mu, nu, snaps, sk = run_fused_train_stream(
+                sp.plan, params, sp.masks, sp.mask_slots, sp.cparams, mu, nu,
+                x, th, perms[done:done + chunk], batchsize=batchsize,
+                count0=count, w=w_dev[0], guard_nonfinite=guard,
+                step_plan=sp, **hp)
+        with span("df.eval"):
+            tl = eval_snapshots(snaps, sp.cparams, x, th, w_dev[0],
+                                plan=sp.plan, row_chunk=_EVAL_ROW_CHUNK)
+            vl = eval_snapshots(snaps, sp.cparams, xv, thv, w_dev[1],
+                                plan=sp.plan, row_chunk=_EVAL_ROW_CHUNK)
+        with span("df.wait"):
+            tl, vl = tl.cpu().numpy(), vl.cpu().numpy()
+            if guard:
+                skips.append(sk.cpu().numpy())
         tls.append(tl)
         vls.append(vl)
         c_skips = 0
         if guard:
-            skips.append(sk.cpu().numpy())
             c_skips = int(skips[-1].sum())
         count += len(tl) * n_batches - c_skips
         if track_best:

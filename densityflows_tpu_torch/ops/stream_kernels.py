@@ -44,6 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .chain_kernels import MAX_SHARED_BYTES
 from .step_kernels import (
     STEP_MAX_THREADS,
@@ -348,7 +349,10 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     # the kernel updates these three in place: fresh buffers
     state = [_device_f32(sp.flatten(ts), name, (sp.n_params,), device).clone()
              for name, ts in (("params", tparams), ("mu", mu), ("nu", nu))]
-    perm = torch.as_tensor(idx, device=device)
+    with span("df.upload") as up:
+        if up.recording:
+            up.counts["bytes"] = idx.nbytes
+        perm = torch.as_tensor(idx, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     n_p = sp.n_params
     partial = torch.empty(n_blocks * (n_p + 1), **f32)

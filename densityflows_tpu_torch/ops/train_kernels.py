@@ -54,6 +54,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .chain_kernels import (
     ACT_CODES,
     MAX_SHARED_BYTES,
@@ -1527,7 +1528,11 @@ def _train_run_members(launch, plan, tparams, masks, mask_slots, cparams, mu,
     if packed.prog.device != device:
         raise ValueError(
             f"plan parameters are on {packed.prog.device}, data on {device}")
-    perm = torch.as_tensor(np.stack(idx), device=device)
+    order = np.stack(idx)
+    with span("df.upload") as up:
+        if up.recording:
+            up.counts["bytes"] = order.nbytes
+        perm = torch.as_tensor(order, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     out = {name: torch.empty(members, packed.n_params, **f32)
            for name in ("params", "mu", "nu")}

@@ -55,12 +55,19 @@ conditioner networks to bfloat16 inside the loss
 optimizer state and the epoch histories stay float32. The kernels implement
 neither: under ``"auto"`` such a run takes the plain program with the
 decline recorded, and ``fused_kernel=True`` with either raises.
+
+While a ``torch.profiler`` session records, a call records its stages as
+spans of ``utils/spans.py`` under its ``df.train`` root: ``df.gather``,
+``df.fold``, ``df.upload`` (``bytes``), ``df.enqueue``, ``df.eval``,
+``df.wait``, ``df.unfold`` on the kernel path, ``df.gather`` and
+``df.upload`` in the plain program.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
 import time
 import warnings
@@ -74,6 +81,7 @@ from .data import DataArrays, normalize_input
 from .models.flow import Flow, _chain_eval
 from .models.fused_train import (
     UnsupportedFusedTrain,
+    _nbytes,
     draw_epoch_perms,
     fold_for_step_mesh,
     load_leaves_,
@@ -82,6 +90,7 @@ from .models.fused_train import (
 )
 from .ops.step_kernels import folded_nll
 from .parallel.mesh import check_mesh
+from .utils.spans import span
 
 __all__ = [
     "train", "evaluate", "make_train_step", "make_train_program",
@@ -867,10 +876,23 @@ def _put(a, device):
     return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
 
+def _in_train_span(fn):
+    """``train`` inside its ``df.train`` span, the root of the call's stage
+    spans (``utils/spans.py``)."""
+
+    @functools.wraps(fn)
+    def train(*args, **kwargs):
+        with span("df.train"):
+            return fn(*args, **kwargs)
+
+    return train
+
+
 _DEBUG_CHUNK = 10
 _PLAIN = "torch"   # flow.trained_path of the plain program
 
 
+@_in_train_span
 def train(
     flow: Flow,
     data: DataArrays,
@@ -1102,23 +1124,29 @@ def train(
             done += chunk
         return opt_state
 
-    x_train, th_train = data.normalized_training_data(flow.metadata)
-    x_valid, th_valid = data.normalized_validation_data(flow.metadata)
-    n_train = x_train.shape[0]
-
-    w_train = w_valid = None
-    if weights is not None:
-        w = np.asarray(weights, np.float32).reshape(-1)
-        if w.shape[0] != data.x.shape[0]:
-            raise ValueError(
-                f"weights must have one entry per data row "
-                f"({data.x.shape[0]}), got {w.shape[0]}")
-        w_train = _put(w[np.asarray(data.partition.training)], flow.device)
-        w_valid = _put(w[np.asarray(data.partition.validation)], flow.device)
+    with span("df.gather"):
+        x_train, th_train = data.normalized_training_data(flow.metadata)
+        x_valid, th_valid = data.normalized_validation_data(flow.metadata)
+        n_train = x_train.shape[0]
+        w_train = w_valid = None
+        if weights is not None:
+            w = np.asarray(weights, np.float32).reshape(-1)
+            if w.shape[0] != data.x.shape[0]:
+                raise ValueError(
+                    f"weights must have one entry per data row "
+                    f"({data.x.shape[0]}), got {w.shape[0]}")
+            w_train = w[np.asarray(data.partition.training)]
+            w_valid = w[np.asarray(data.partition.validation)]
 
     dev = flow.device
-    xt, tht = _put(x_train, dev), _put(th_train, dev)
-    xv, thv = _put(x_valid, dev), _put(th_valid, dev)
+    with span("df.upload") as upload:
+        xt, tht = _put(x_train, dev), _put(th_train, dev)
+        xv, thv = _put(x_valid, dev), _put(th_valid, dev)
+        if weights is not None:
+            w_train, w_valid = _put(w_train, dev), _put(w_valid, dev)
+        if upload.recording:
+            upload.counts["bytes"] = _nbytes(xt, tht, xv, thv, w_train,
+                                             w_valid)
     model = flow.model
 
     if mesh is not None:

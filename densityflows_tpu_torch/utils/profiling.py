@@ -4,7 +4,7 @@ PyTorch counterpart of ``densityflows_tpu/utils/profiling.py``: wall-clock
 step timers that wait for the device before they read the clock,
 samples/s/chip counters normalized by the local device count, and a thin
 wrapper over ``torch.profiler`` for traces viewable in Perfetto or
-``chrome://tracing``.
+``chrome://tracing``. ``annotate`` is :func:`.spans.span`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .spans import span
 
 __all__ = ["StepTimer", "Throughput", "trace", "annotate", "device_count"]
 
@@ -138,6 +140,6 @@ def trace(logdir: str):
             os.path.join(logdir, f"trace_{os.getpid()}_{n}.json"))
 
 
-def annotate(name: str):
-    """Named region that shows up on the profiler timeline."""
-    return torch.profiler.record_function(name)
+# a named region on the profiler's timeline: the port's stage span, which
+# records (and opens a ``record_function``) only while a session records
+annotate = span
