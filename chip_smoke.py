@@ -1101,21 +1101,46 @@ def drive_training(device, tmp):
                               perms)
 
 
+# train()'s stream mode at the shape of the benchmark's emulator32.train cell
+# (perfbench/configs/emulator32.json): 8 RealNVP couplings in 4 blocks, split
+# s / t nets 24-256-256-(16) with ReLU, batch 8192. A step's products: the
+# forward and two backward products of 1,212,416 multiply-adds a row, three
+# TF32 products each (3xTF32).
+CELL = dict(rows=4 * 8192, batch=8192, epochs=2, macs_per_row=1_212_416)
+
+
+def cell_chain(rng, device):
+    """perfbench's emulator32 chain (realnvp_flow with blocks) on random
+    weights."""
+    kw = dict(n=N_COND, hidden_dim_s=HIDDEN, hidden_dim_t=HIDDEN,
+              n_sublayers_s=2, n_sublayers_t=2, activation_s="relu",
+              activation_t="relu", device=device)
+    x_ref = rng.normal(size=(512, D)).astype(np.float32)
+    chain = dt.flow_chain(
+        *[dt.coupling_block(D, list(range(D // 2, D)), **kw)
+          for _ in range(N_BLOCKS)],
+        dt.normalization_layer(x_ref, -1.0, 1.0, device=device))
+    return numpy_weights_(chain, rng, 0.25)
+
+
 def wide_stream(rng, device):
-    """train() on the wide serving chain (d 32, n 8, 8 couplings of hidden
-    256): past train_run's shared memory, inside train_stream's envelope, so
-    the default routing takes the stream mode; the plain program on the same
-    weights and batch order beside it, for its ms per step."""
-    rows, batch, epochs = 4096, 256, 2
+    """train() at the emulator32.train cell's shape (CELL): past
+    train_run's shared memory, so the default routing takes the stream
+    mode, and the launch rule its tensor-core design; the plain program on
+    the same weights and batch order beside it. Then the kernel alone on
+    the same run in each design (the tile body forced), ms a step, against
+    the bound: the step's products in 3xTF32 at the TF32 rate."""
+    rows, batch, epochs = CELL["rows"], CELL["batch"], CELL["epochs"]
     x, th01 = data(rng, rows, D, N_COND, "cpu")
     arrays = dt.DataArrays.make(x.numpy(), th01.numpy(), rng=0)
-    flow = dt.Flow(wide_chain(False, rng, device), arrays, device=device)
+    flow = dt.Flow(cell_chain(rng, device), arrays, device=device)
     plain = dt.Flow(copy.deepcopy(flow.model), arrays, device=device)
     n_train = len(arrays.partition.training)
     perms = ft.draw_epoch_perms(torch.Generator().manual_seed(SEED), epochs,
                                 n_train)
     tk.run_fused_train.launches = 0
     stk.run_fused_train_stream.launches = 0
+    stk.run_fused_train_stream.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     with warnings.catch_warnings():
@@ -1125,11 +1150,14 @@ def wide_stream(rng, device):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = stk.run_fused_train_stream.launches
+    tc_launches = stk.run_fused_train_stream.tc_launches
     if flow.trained_path != "fused" or flow.fused_kernel_mode != "stream" \
-            or launches != 1 or tk.run_fused_train.launches != 0:
+            or launches != 1 or tc_launches != 1 \
+            or tk.run_fused_train.launches != 0:
         fail(f"wide chain: train took {flow.trained_path} / "
              f"{flow.fused_kernel_mode} with {launches} train_stream "
-             f"launches ({flow.fused_decline_reason})")
+             f"launches ({tc_launches} tensor-core; "
+             f"{flow.fused_decline_reason})")
     # the kernel alone on the same run, from the same starting weights
     (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
         ft.chain_train_fold(plain.model)
@@ -1137,11 +1165,15 @@ def wide_stream(rng, device):
     xt, tht = arrays.normalized_training_data(plain.metadata)
     xt, tht = put(xt, device), put(tht, device)
     zeros = [torch.zeros_like(p) for p in tparams]
-    kernel_ms = time_ms(lambda: stk.run_fused_train_stream(
-        plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht, perms,
-        batchsize=batch, step_plan=sp), warmup=1, runs=3)
-    tile, threads, shared, n_blocks, staged = stk.device_launch_shape(
-        sp, batch)
+    steps = epochs * -(-n_train // batch)
+    ms = {}
+    for tc in (True, False):
+        with stream_design(tc):
+            ms[tc] = time_ms(lambda: stk.run_fused_train_stream(
+                plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht,
+                perms, batchsize=batch, step_plan=sp), warmup=1,
+                runs=3) / steps
+    shape = stk.device_launch_shape(sp, batch)
     t0 = time.time()
     dt.train(plain, arrays, epochs=epochs, batchsize=batch, verbose=False,
              fused_kernel=False, _epoch_perms=perms)
@@ -1150,21 +1182,24 @@ def wide_stream(rng, device):
     for f in (flow, plain):
         if not np.isfinite(f.valid_loss).all() or len(f.valid_loss) != 2:
             fail(f"wide chain: histories {f.train_loss} / {f.valid_loss}")
-    # two f32 trajectories over 30 Adam steps: the gate of the long runs
     hist_err = float(np.abs(np.asarray(flow.valid_loss)
                             - np.asarray(plain.valid_loss)).max())
     if hist_err > 5e-2:
         fail(f"wide chain: validation NLL {flow.valid_loss} vs the plain "
              f"program's {plain.valid_loss}")
-    steps = epochs * -(-n_train // batch)
+    flops = 3 * 2 * CELL["macs_per_row"] * batch
     return dict(rows=rows, batchsize=batch, epochs=epochs, steps=steps,
                 train_stream_launches=launches,
+                design="tensor-core" if shape.tc else "tile body",
                 train_stream_ms_per_step=1e3 * seconds / steps,
-                kernel_alone_ms_per_step=kernel_ms / steps,
+                kernel_alone_ms_per_step=ms[True],
+                tile_body_ms_per_step=ms[False],
                 plain_program_ms_per_step=1e3 * plain_seconds / steps,
-                folded_parameters=sp.n_params, tile_rows=tile,
-                threads=threads, shared_bytes=shared, blocks=n_blocks,
-                parameters_staged=staged,
+                bound_ms_per_step_3xtf32=1e3 * 3 * flops / PEAK_TF32_FLOPS,
+                folded_parameters=sp.n_params, tile_rows=shape.tile,
+                threads=shape.threads, shared_bytes=shape.shared_bytes,
+                blocks=shape.n_blocks,
+                workspace_bytes=stk.stream_workspace_bytes(sp, batch),
                 valid_nll=flow.valid_loss, valid_nll_plain=plain.valid_loss,
                 valid_history_err_vs_plain=hist_err)
 
@@ -1469,6 +1504,39 @@ def same_bits(a, b):
     return all(torch.equal(torch.nan_to_num(u), torch.nan_to_num(v))
                and torch.equal(torch.isnan(u), torch.isnan(v))
                for u, v in zip(flat(a), flat(b)))
+
+
+@contextlib.contextmanager
+def stream_design(tc):
+    """train_stream's launch rule replaced for the block: every plan the
+    tensor-core design can run takes it (``tc``), or none does."""
+    rule = stk.uses_tc
+    stk.uses_tc = ((lambda sp, batchsize: stk.tc_reason(sp) is None) if tc
+                   else (lambda sp, batchsize: False))
+    try:
+        yield
+    finally:
+        stk.uses_tc = rule
+
+
+def check_stream_small_designs(rng, device):
+    """check_stream_small under each design: the tile body, then the
+    tensor-core design wherever it can run the chain (the ActNorm chains
+    keep the tile body); the second's cases named ``tc_<case>``."""
+    errs, skips = {}, {}
+    for tc in (False, True):
+        before = stk.run_fused_train_stream.tc_launches
+        with stream_design(tc):
+            e, k = check_stream_small(rng, device)
+        ran = stk.run_fused_train_stream.tc_launches - before
+        if bool(ran) != tc:
+            fail(f"train_stream small cases: {ran} tensor-core launches "
+                 f"with the design {'forced' if tc else 'off'}")
+        pre = "tc_" if tc else ""
+        errs.update({pre + k2: v for k2, v in e.items()})
+        skips.update({pre + k2: v for k2, v in k.items()})
+        skips[pre + "tc_launches"] = ran
+    return errs, skips
 
 
 def check_stream_small(rng, device):
@@ -2254,6 +2322,8 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
     got = kernel()
     torch.cuda.synchronize()
     ms = time_ms(kernel, warmup=1, runs=3)
+    with stream_design(True):     # the design the rule leaves aside here
+        tc_ms = time_ms(kernel, warmup=1, runs=3)
     t0 = time.time()
     want = stk.fused_train_stream_plain(*head, batchsize=batch,
                                         with_losses=True)
@@ -2273,9 +2343,9 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
         row_chunk=ft._EVAL_ROW_CHUNK) for xs, ths in ((xt, tht), (xv, thv))],
         warmup=1, runs=3)
 
-    tile, threads, shared, n_blocks, staged = stk.device_launch_shape(
+    tile, threads, shared, n_blocks, staged, tc = stk.device_launch_shape(
         sp, batch)
-    co_resident = stk.co_resident_blocks(threads, shared)
+    co_resident = stk.co_resident_blocks(threads, shared, tc)
     n_batches = -(-n_train // batch)
     n_pad = n_batches * batch
     # the bound: the products the epoch needs (forward + two backward per
@@ -2288,7 +2358,9 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
                   + pk.flat_consts.numel() + pk.prog.numel() + 1)
     b_ms, by = bound_ms(flops, nbytes)
     say(phase="stream_kernel_times", card=card, epoch_steps=n_batches,
+        design="tensor-core" if tc else "tile body",
         train_stream_ms_per_epoch=ms, train_stream_ms_per_step=ms / n_batches,
+        tensor_core_design_ms_per_epoch=tc_ms,
         plain_version_ms_per_epoch=plain,
         plain_version_ms_per_step=plain / n_batches,
         eval_snapshots_ms_3_epochs_both_splits=eval_ms,
@@ -2311,7 +2383,8 @@ def stream_kernel_row(make, dataset, perms, launches, err_small, err_main,
                  f"hidden {MED['hidden']} + affine ({sp.n_params} folded "
                  f"parameters), {n_blocks} blocks of {tile} rows x {threads} "
                  f"threads",
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+        "ms": ms, "tensor_core_design_ms": tc_ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": by,
         "library_ms": None, "ms_per_step": ms / n_batches,
         "plain_ms_per_step": plain / n_batches, "eval_snapshots_ms": eval_ms,
         "needed_flops": flops, "needed_bytes": nbytes,
@@ -5457,7 +5530,7 @@ def main():
         tolerance=STEP_TOL, two_launches_equal="bit for bit")
 
     # phase 3f: train_stream against its plain version, small runs
-    stream_errs, stream_skips = check_stream_small(rng, device)
+    stream_errs, stream_skips = check_stream_small_designs(rng, device)
     errs["train_stream"] = max(stream_errs.values())
     say(phase="stream_kernel_small", max_abs_err_by_case=stream_errs,
         skipped_updates=stream_skips, tolerance=TRAIN_TOL,

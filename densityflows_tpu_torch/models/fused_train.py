@@ -761,12 +761,15 @@ def train_fused(
     return out_state
 
 
-def stream_chunk_epochs(n_params, n_rows, batchsize, epochs) -> int:
+def stream_chunk_epochs(n_params, n_rows, batchsize, epochs,
+                        workspace_bytes=0) -> int:
     """Epochs per ``train_stream`` launch: as many as
-    ``_STREAM_DEVICE_BUDGET`` holds (each needs its batch order and one
-    snapshot), the chunks then balanced."""
+    ``_STREAM_DEVICE_BUDGET`` holds beside the launch's workspace (each
+    epoch needs its batch order and one snapshot), the chunks then
+    balanced."""
     per_epoch = 4 * (-(-n_rows // batchsize) * batchsize + n_params)
-    e_max = max(1, int(_STREAM_DEVICE_BUDGET // per_epoch))
+    e_max = max(1, int((_STREAM_DEVICE_BUDGET - workspace_bytes)
+                       // per_epoch))
     return -(-epochs // -(-epochs // e_max))
 
 
@@ -783,14 +786,20 @@ def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
     holds one), kept when the first chunk or when below the best so far;
     the resident kernel's rule (a NaN in the history stops every later
     update) differs there."""
-    from ..ops.stream_kernels import eval_snapshots, run_fused_train_stream
+    from ..ops.stream_kernels import (
+        eval_snapshots,
+        run_fused_train_stream,
+        stream_workspace_bytes,
+        uses_tc,
+    )
 
     x, th, xv, thv = arrays
     epochs, n = perms.shape
     if epochs < 1:
         raise ValueError("epochs must be at least 1")
     n_batches = -(-n // batchsize)
-    chunk = stream_chunk_epochs(sp.n_params, n, batchsize, epochs)
+    chunk = stream_chunk_epochs(sp.n_params, n, batchsize, epochs,
+                                stream_workspace_bytes(sp, batchsize))
     if verbose:
         print(f"[fused-train STREAMING kernel: {epochs} epochs in "
               f"{-(-epochs // chunk)} chunk(s) of <= {chunk} ({n} rows, "
@@ -799,7 +808,10 @@ def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
     tls, vls, skips = [], [], []
     best, best_vl = None, np.inf
     for done in range(0, epochs, chunk):
-        with span("df.enqueue"):
+        with span("df.enqueue") as enq:
+            if enq.recording:
+                # 1 where the launch takes the tensor-core design
+                enq.counts["tc"] = int(x.is_cuda and uses_tc(sp, batchsize))
             params, mu, nu, snaps, sk = run_fused_train_stream(
                 sp.plan, params, sp.masks, sp.mask_slots, sp.cparams, mu, nu,
                 x, th, perms[done:done + chunk], batchsize=batchsize,

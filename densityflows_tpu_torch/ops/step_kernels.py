@@ -187,6 +187,7 @@ class StepPlan:
         self._tiles = {}
         self._shapes = {}
         self._launchers = {}
+        self._tc = {}        # ops/stream_kernels.py's tensor-core design
 
     # -- the flat layout --------------------------------------------------
 
@@ -206,13 +207,18 @@ class StepPlan:
 
     # -- the lowering -------------------------------------------------------
 
-    def packed(self, tile: int):
-        pk = self._packed.get(tile)
+    def packed(self, tile: int, keep_deltas: bool = False):
+        """The plan lowered for tiles of ``tile`` rows; ``keep_deltas``:
+        the layout of train_stream's tensor-core design
+        (``pack_train_plan``)."""
+        key = (tile, bool(keep_deltas))
+        pk = self._packed.get(key)
         if pk is None:
             pk = pack_train_plan(self.plan, self._templates, self.masks,
                                  self.mask_slots, self.cparams, self.d,
-                                 self.n, tile, state_in_shared=False)
-            self._packed[tile] = pk
+                                 self.n, tile, state_in_shared=False,
+                                 keep_deltas=keep_deltas)
+            self._packed[key] = pk
         return pk
 
     def shared_bytes(self, tile: int, staged: bool = False) -> int:

@@ -13,10 +13,21 @@ says how the blocks keep in order). One launch runs a chunk of epochs and
 writes a snapshot of the folded parameters after each epoch's last batch;
 the per-epoch NLL histories are computed outside, from the snapshots.
 
+Two designs run the same step (``csrc/stream_kernels.cu``); the launch
+rule :func:`uses_tc` picks one from the plan's shape and the batch. The tile
+body (``csrc/grads_tile.cuh``) keeps a row tile's caches in a block's
+shared memory and wins where one round of its tiles covers the batch; the
+tensor-core design (``csrc/stream_tc.cuh``) folds tiles of ``TC_ROWS`` rows
+whose caches lie in a device workspace, runs the products on the tensor
+cores in 3xTF32 and sums the weight gradients over segments of the batch,
+and wins where the tile body would take several rounds of small tiles
+(measured on an H100, ``PERF.md``).
+
 Plans, folded tensors, masks and constants are those of
 ``ops/train_kernels.py``; the lowering and the flat layout are the step
 kernel's (:class:`~.step_kernels.StepPlan`: the shared memory of a block
-holds one row tile's rows and caches only). Batch order is
+holds one row tile's rows and caches only; the tensor-core design's tile
+layout keeps every dense layer's cotangent, ``keep_deltas``). Batch order is
 ``epoch_perms``, an ``(epochs, n)`` array of per-epoch row permutations; the
 final partial batch is padded with row 0 and masked by position, importance
 weights multiply the mask.
@@ -25,14 +36,18 @@ weights multiply the mask.
   ``train_stream`` (it replaces
   ``densityflows_tpu/ops/pallas_train_stream.py::_stream_kernel``) or raises;
   on CPU tensors it runs :func:`fused_train_stream_plain`.
-  ``run_fused_train_stream.launches`` counts kernel launches.
+  ``run_fused_train_stream.launches`` counts kernel launches,
+  ``.tc_launches`` those of the tensor-core design.
 - :func:`fused_train_stream_plain` — plain PyTorch, the same per-step algebra
   (``step_grads_plain`` and the kernels' Adam).
 - :func:`eval_snapshots` — plain PyTorch: per-epoch full-split NLLs of the
   stacked snapshots, in row chunks.
 - :func:`stream_reason` / :func:`stream_shared_bytes` / :func:`launch_shape`
   — the envelope (the caches of one row in one block's shared memory) and
-  the row tile, threads, residency and grid of a launch.
+  the design, row tile, threads, residency and grid of a launch;
+  :func:`uses_tc`, :func:`tc_reason`, :func:`tc_items` and
+  :func:`stream_workspace_bytes` — the tensor-core design's rule, envelope,
+  weight-gradient items and workspace.
 - :func:`batch_denominators` — every batch's ``Σ mask`` in the kernel's
   fixed lane order, computed before the launch.
 """
@@ -40,6 +55,7 @@ weights multiply the mask.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,24 +65,62 @@ from .chain_kernels import MAX_SHARED_BYTES
 from .step_kernels import (
     STEP_MAX_THREADS,
     StepPlan,
+    _align4,
     _full_f32,
     step_grads_plain,
 )
 from .train_kernels import (
+    _B_ANORM,
+    _B_DENSE,
+    _HEADER_WORDS,
+    _INSTR_WORDS,
     _adam_scalars,
     _adam_step,
     _device_f32,
     _folded_log_prob,
+    _H_NBWD,
+    _H_NFWD,
     pad_epoch_perms,
 )
 
 __all__ = ["run_fused_train_stream", "fused_train_stream_plain",
            "eval_snapshots", "stream_reason", "stream_shared_bytes",
-           "launch_shape", "batch_denominators", "MAX_SHARED_BYTES"]
+           "launch_shape", "batch_denominators", "tc_reason",
+           "stream_workspace_bytes", "uses_tc", "StreamShape",
+           "MAX_SHARED_BYTES"]
 
 # a batch's denominator is summed in this many strided lanes, then the lanes
 # in order: one fixed order of f32 adds
 DENOM_LANES = 32
+
+# The tensor-core design (csrc/stream_tc.cuh): tiles of TC_ROWS rows, blocks
+# of TC_THREADS threads with TC_SHARED_BYTES of shared memory (its
+# TC_SHARED_FLOATS), weight-gradient items of TC_ITEM x TC_ITEM outputs over
+# segments of TC_SEG_TILES tiles.
+TC_ROWS = 64
+TC_THREADS = 512
+TC_SHARED_BYTES = 4 * (2 * (TC_ROWS + 2 * 256) * 36 + 2 * TC_ROWS * 36 + 8)
+TC_ITEM = 128
+TC_SEG_TILES = 16
+# The launch rule: the tensor-core design where it can run the plan and the
+# tile body (grads_tile.cuh), whose row tile is as wide as a block's shared
+# memory holds the caches of, would cut the batch into more than
+# TC_MIN_TILES tiles (about one a SM: then its blocks re-read every weight
+# and rewrite their gradient partials tile after tile); else the tile
+# body, which wins where one round of its tiles covers the batch.
+TC_MIN_TILES = 128
+
+
+class StreamShape(NamedTuple):
+    """A ``train_stream`` launch: the design (``tc``: the tensor-core one),
+    its row tile, threads, dynamic shared memory and grid, and whether the
+    parameters are staged in shared memory (the tile body only)."""
+    tile: int
+    threads: int
+    shared_bytes: int
+    n_blocks: int
+    staged: bool
+    tc: bool
 
 
 def stream_reason(sp: StepPlan):
@@ -116,40 +170,149 @@ def _stream_block(sp: StepPlan, batchsize: int, stage=None):
 def stream_shared_bytes(sp: StepPlan, batchsize: int) -> int:
     """Dynamic shared memory of one block for batches of ``batchsize``
     rows (the parameters staged where they fit)."""
-    return _stream_block(sp, batchsize)[2]
+    return launch_shape(sp, batchsize).shared_bytes
+
+
+def tc_reason(sp: StepPlan):
+    """``None`` when the tensor-core design can run the plan, else why not:
+    its weight gradients are the dense layers' a^T.delta and bias sums, so
+    every folded parameter must belong to one dense layer."""
+    reason = sp._tc.get("reason", False)
+    if reason is False:
+        pk = sp.packed(TC_ROWS, keep_deltas=True)
+        bwd = _bwd_instructions(pk.prog.cpu().numpy())
+        # the dense layers' weights and biases must tile the parameters
+        spans = sorted([(ins[3], ins[2] * ins[4]) for ins in bwd
+                        if ins[0] == _B_DENSE]
+                       + [(ins[6], ins[4]) for ins in bwd
+                          if ins[0] == _B_DENSE and ins[6] >= 0])
+        ends = [0] + [o + n for o, n in spans]
+        reason = None
+        if any(ins[0] == _B_ANORM for ins in bwd):
+            reason = ("an ActNorm layer: its gradients are row sums the "
+                      "tensor-core design of train_stream does not take")
+        elif [o for o, _ in spans] != ends[:-1] or ends[-1] != sp.n_params:
+            reason = ("folded parameters outside the dense layers: the "
+                      "tensor-core design of train_stream takes the dense "
+                      "layers' gradients only")
+        sp._tc["reason"] = reason
+    return reason
+
+
+def _bwd_instructions(words) -> list:
+    """The backward program's instructions (lists of words) of a lowered
+    program ``[header | forward | backward]``."""
+    n_fwd, n_bwd = int(words[_H_NFWD]), int(words[_H_NBWD])
+    b0 = _HEADER_WORDS + n_fwd * _INSTR_WORDS
+    return [words[b0 + i * _INSTR_WORDS:b0 + (i + 1) * _INSTR_WORDS].tolist()
+            for i in range(n_bwd)]
+
+
+def uses_tc(sp: StepPlan, batchsize: int) -> bool:
+    """The launch rule, from the plan's shape and the batch's rows: whether
+    a launch takes the tensor-core design."""
+    if tc_reason(sp) is not None:
+        return False
+    if stream_reason(sp) is not None:
+        return True     # past the tile body's envelope
+    return -(-batchsize // _stream_tile(sp, batchsize)) > TC_MIN_TILES
+
+
+def _tc_counts(batchsize: int):
+    """``(n_tiles, n_seg)`` of the tensor-core design at ``batchsize``."""
+    n_tiles = -(-batchsize // TC_ROWS)
+    return n_tiles, -(-n_tiles // TC_SEG_TILES)
+
+
+def tc_items(sp: StepPlan, batchsize: int) -> np.ndarray:
+    """``(n_items, 4)`` int32: the weight-gradient items of the tensor-core
+    design, each ``(word of its B_DENSE instruction, first input feature,
+    first output column, segment)``; the largest first, so that the blocks,
+    which take items k, k + grid, ..., end close together."""
+    got = sp._tc.get(("items", batchsize))
+    if got is not None:
+        return got
+    pk = sp.packed(TC_ROWS, keep_deltas=True)
+    words = pk.prog.cpu().numpy()
+    n_tiles, n_seg = _tc_counts(batchsize)
+    n_fwd = int(words[_H_NFWD])
+    items = []
+    for j, ins in enumerate(_bwd_instructions(words)):
+        if ins[0] != _B_DENSE:
+            continue
+        word = _HEADER_WORDS + (n_fwd + j) * _INSTR_WORDS
+        k, n = ins[2], ins[4]
+        for m0 in range(0, k, TC_ITEM):
+            for n0 in range(0, n, TC_ITEM):
+                area = (-(-min(TC_ITEM, k - m0) // 32)
+                        * -(-min(TC_ITEM, n - n0) // 32))
+                for seg in range(n_seg):
+                    tiles = min(n_tiles, (seg + 1) * TC_SEG_TILES) \
+                        - seg * TC_SEG_TILES
+                    items.append((-area * tiles, word, m0, n0, seg))
+    items.sort()
+    got = np.array([i[1:] for i in items], np.int32).reshape(-1, 4)
+    sp._tc["items", batchsize] = got
+    return got
+
+
+def stream_workspace_bytes(sp: StepPlan, batchsize: int) -> int:
+    """Device memory a launch at ``batchsize`` takes besides the state and
+    the partial buffer: for the tensor-core design every tile's rows,
+    caches and cotangents (the tile layout rounded up to 16 bytes), the
+    tiles' losses and the weights' two 3xTF32 planes; 0 for the tile
+    body."""
+    if not uses_tc(sp, batchsize):
+        return 0
+    n_tiles, _ = _tc_counts(batchsize)
+    stride = _align4(sp.packed(TC_ROWS, keep_deltas=True).total_floats)
+    return 4 * (n_tiles * stride + _align4(n_tiles)
+                + 2 * _align4(sp.n_params))
 
 
 def launch_shape(sp: StepPlan, batchsize: int, co_resident=None,
-                 n_blocks=None, stage=None):
-    """``(tile, threads, shared_bytes, n_blocks, staged)`` of a launch, all
-    in one place: the step kernel's tile and threads (``StepPlan.pick_tile``
-    / ``threads``, at most ``STEP_MAX_THREADS``), the parameters staged in
-    shared memory wherever they fit beside the tile (``stage`` forces it),
-    and the grid (one block per tile, at most its cap), at most
-    ``co_resident`` blocks of that shape — a cooperative launch needs every
+                 n_blocks=None, stage=None) -> StreamShape:
+    """The :class:`StreamShape` of a launch, all in one place. The design
+    by the plan's shape and the batch (``uses_tc``). The tile body: the step
+    kernel's tile and threads (``StepPlan.pick_tile`` / ``threads``, at most
+    ``STEP_MAX_THREADS``), the parameters staged in shared memory wherever
+    they fit beside the tile (``stage`` forces it), and the grid (one block
+    per tile, at most its cap). The tensor-core design: tiles of
+    ``TC_ROWS`` rows, ``TC_THREADS`` threads, a block per SM (the tiles'
+    count without a device), nothing staged. Either grid has at most
+    ``co_resident`` blocks of its shape — a cooperative launch needs every
     block resident at once. An explicit ``n_blocks`` beyond either limit is
     refused."""
-    tile, threads, shared, staged = _stream_block(sp, batchsize, stage)
-    n_tiles = -(-batchsize // tile)
+    tc = uses_tc(sp, batchsize)
+    if tc:
+        if stage:
+            raise ValueError("train_stream: the tensor-core design stages "
+                             "no parameters")
+        tile, threads, shared, staged = (TC_ROWS, TC_THREADS,
+                                         TC_SHARED_BYTES, False)
+        n_tiles = _tc_counts(batchsize)[0]
+    else:
+        tile, threads, shared, staged = _stream_block(sp, batchsize, stage)
+        n_tiles = -(-batchsize // tile)
     if co_resident is not None and co_resident < 1:
         raise ValueError(
             f"train_stream: no block of {threads} threads and "
             f"{shared} bytes of shared memory can be resident, or the device "
             "has no cooperative launch")
     if n_blocks is None:
-        n_blocks = sp.grid(batchsize, tile)
+        n_blocks = n_tiles if tc else sp.grid(batchsize, tile)
         if co_resident is not None:
-            n_blocks = min(n_blocks, co_resident)
+            n_blocks = co_resident if tc else min(n_blocks, co_resident)
     if co_resident is not None and n_blocks > co_resident:
         raise ValueError(
             f"train_stream: a grid of {n_blocks} blocks, but only "
             f"{co_resident} blocks of {threads} threads and "
             f"{shared} bytes of shared memory can be resident at once")
-    if not 1 <= n_blocks <= n_tiles:
+    if n_blocks < 1 or (not tc and n_blocks > n_tiles):
         raise ValueError(
             f"train_stream: {n_blocks} blocks for {n_tiles} row tiles; every "
             "block needs a tile")
-    return tile, threads, shared, int(n_blocks), staged
+    return StreamShape(tile, threads, shared, int(n_blocks), staged, tc)
 
 
 def batch_denominators(idx, n_rows: int, batchsize: int, w=None):
@@ -266,6 +429,23 @@ def eval_snapshots(snaps, cparams, x, theta, w, *, plan, row_chunk=4096):
 
 # -- the kernel's wrapper ---------------------------------------------------------------
 
+def _device_items(sp: StepPlan, batchsize: int, device) -> torch.Tensor:
+    """:func:`tc_items` on ``device``, uploaded once per batch size."""
+    key = ("device_items", batchsize, str(device))
+    got = sp._tc.get(key)
+    if got is None:
+        got = torch.as_tensor(tc_items(sp, batchsize), device=device)
+        sp._tc[key] = got
+    return got
+
+
+def _workspace(sp: StepPlan, batchsize: int, device) -> torch.Tensor:
+    """The tensor-core design's workspace: :func:`stream_workspace_bytes`
+    of float32 on ``device``."""
+    return torch.empty(stream_workspace_bytes(sp, batchsize) // 4,
+                       dtype=torch.float32, device=device)
+
+
 _LIB = None
 
 
@@ -281,18 +461,19 @@ def _library():
             ctypes.c_int, ctypes.c_void_p]
         lib.df_train_stream.restype = ctypes.c_int
         lib.df_train_stream_max_blocks.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
         lib.df_train_stream_max_blocks.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def co_resident_blocks(threads: int, shared_bytes: int) -> int:
-    """Blocks of ``train_stream`` with this shape that the current CUDA
-    device can hold at once (occupancy per SM times the SM count; 0 where
-    the device has no cooperative launch)."""
+def co_resident_blocks(threads: int, shared_bytes: int, tc=False) -> int:
+    """Blocks of ``train_stream`` (``tc``: of its tensor-core design) with
+    this shape that the current CUDA device can hold at once (occupancy per
+    SM times the SM count; 0 where the device has no cooperative launch)."""
     out = ctypes.c_int(0)
-    err = _library().df_train_stream_max_blocks(int(threads),
+    err = _library().df_train_stream_max_blocks(int(bool(tc)), int(threads),
                                                  int(shared_bytes),
                                                  ctypes.byref(out))
     if err != 0:
@@ -305,8 +486,9 @@ def device_launch_shape(sp: StepPlan, batchsize: int, n_blocks=None):
     """:func:`launch_shape` on the current CUDA device, its grid capped at
     the blocks of that shape (threads, shared memory with the staged
     parameters where they are staged) the device can hold at once."""
+    shape = launch_shape(sp, batchsize)
     return launch_shape(sp, batchsize, co_resident_blocks(
-        *_stream_block(sp, batchsize)[1:3]), n_blocks)
+        shape.threads, shape.shared_bytes, shape.tc), n_blocks)
 
 
 def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
@@ -315,9 +497,9 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     """Check the arguments, lay out the buffers on ``x``'s device and hand
     them to ``launch(ptrs, iargs, fargs, threads, shared_bytes, n_blocks) →
     error code``, the C entry point of ``csrc/stream_kernels.cu``.
-    ``shape``: :func:`launch_shape`'s ``(tile, threads, shared_bytes,
-    n_blocks, staged)``. ``clocks``: a float32 buffer on the device for the cycle
-    counts of the ``DF_STREAM_CLOCKS`` build, or None."""
+    ``shape``: :func:`launch_shape`'s :class:`StreamShape`. ``clocks``: a
+    float32 buffer on the device for the cycle counts of the
+    ``DF_STREAM_CLOCKS`` build (the tile body's), or None."""
     device = x.device
     n_rows, d = x.shape
     n_cond = theta.shape[-1] if theta is not None else 0
@@ -329,7 +511,7 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     if sp.device != device:
         raise ValueError(
             f"plan parameters are on {sp.device}, data on {device}")
-    tile, threads, shared, n_blocks, staged = shape
+    tile, threads, shared, n_blocks, staged, tc = shape
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"train_stream needs {shared} bytes of shared "
                          f"memory (limit {MAX_SHARED_BYTES})")
@@ -339,7 +521,12 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
         raise ValueError("epochs must be at least 1")
     n_batches = n_pad // batchsize
     n_tiles = -(-batchsize // tile)
-    packed = sp.packed(tile)
+    packed = sp.packed(tile, keep_deltas=tc)
+    # the tensor-core design's segments of the batch, its W items and its
+    # workspace; the tile body's partial rows are its blocks'
+    n_seg = _tc_counts(batchsize)[1] if tc else 0
+    items = _device_items(sp, batchsize, device) if tc else None
+    rows = n_seg if tc else n_blocks
 
     x = _device_f32(x, "x", (n_rows, d), device)
     if n_cond:
@@ -355,7 +542,8 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
         perm = torch.as_tensor(idx, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     n_p = sp.n_params
-    partial = torch.empty(n_blocks * (n_p + 1), **f32)
+    partial = torch.empty(rows * (n_p + 1), **f32)
+    ws = _workspace(sp, batchsize, device) if tc else None
     grad = torch.empty(n_p + 1, **f32)
     flags = torch.empty(n_blocks, **f32)
     snaps = torch.empty(epochs, n_p, **f32)
@@ -366,15 +554,16 @@ def _train_stream(launch, sp: StepPlan, tparams, mu, nu, x, theta,
     def ptr(t):
         return t.data_ptr() if t is not None and t.numel() else None
 
-    ptrs = (ctypes.c_void_p * 18)(
+    ptrs = (ctypes.c_void_p * 20)(
         ptr(x), ptr(theta if n_cond else None), ptr(w), ptr(perm),
         ptr(packed.flat_mask), ptr(packed.flat_consts), ptr(packed.prog),
         ptr(state[0]), ptr(state[1]), ptr(state[2]), ptr(partial), ptr(grad),
         ptr(flags), ptr(snaps), ptr(skips), ptr(losses), ptr(clocks),
-        ptr(denoms))
-    iargs = (ctypes.c_int * 9)(
+        ptr(denoms), ptr(ws), ptr(items))
+    iargs = (ctypes.c_int * 13)(
         epochs, n_batches, batchsize, n_rows, n_tiles, int(count0),
-        int(w is not None), int(bool(guard_nonfinite)), int(staged))
+        int(w is not None), int(bool(guard_nonfinite)), int(staged), int(tc),
+        n_seg, TC_SEG_TILES, 0 if items is None else items.shape[0])
     hp = _adam_scalars(lr, b1, b2, eps)
     fargs = (ctypes.c_float * 8)(*(float(hp[k]) for k in (
         "lr", "b1", "b2", "eps", "omb1", "omb2", "logb1", "logb2")))
@@ -443,7 +632,9 @@ def run_fused_train_stream(plan, tparams, masks, mask_slots, cparams, mu, nu,
             list(tparams), list(mu), list(nu), x, theta, epoch_perms,
             shape=shape, clocks=clocks, **kw)
     run_fused_train_stream.launches += 1
+    run_fused_train_stream.tc_launches += int(shape.tc)
     return out
 
 
 run_fused_train_stream.launches = 0
+run_fused_train_stream.tc_launches = 0

@@ -637,13 +637,19 @@ class _TrainPacker:
     reused (hidden layers ping-pong per net, the coupling caches into one
     discarded buffer); no backward is emitted. ``paired``: the nets of a
     coupling run side by side (their layers in shared phases), each with its
-    own pair of backward scratch buffers."""
+    own pair of backward scratch buffers. ``keep_deltas``: every backward
+    cotangent a dense layer reads (its delta) gets rows of its own, and so
+    does every coupling's s / t pair, so that all of them still hold their
+    values when the backward has ended (the layout of train_stream's
+    tensor-core design, whose weight gradients are summed over the batch
+    after the backward)."""
 
     def __init__(self, d, n, batchsize, shapes, offs, *, evaluation=False,
-                 paired=False):
+                 paired=False, keep_deltas=False):
         self.d, self.n, self.bsz = d, n, batchsize
         self.shapes, self.offs = shapes, offs
         self.evaluation, self.paired = evaluation, paired
+        self.keep_deltas = keep_deltas
         self.top = 0          # floats of shared memory handed out
         self.fwd = []
         self.bwd_groups = []  # per op; emitted in reverse op order
@@ -667,6 +673,11 @@ class _TrainPacker:
         if self.evaluation:
             return self.hidden_bufs[net][layer % 2]
         return self.rows(width)
+
+    def delta(self, width: int, slot: int) -> int:
+        """Rows for a hidden cotangent of ``width`` columns: scratch buffer
+        ``slot``, or rows of its own where the deltas are kept."""
+        return self.rows(width) if self.keep_deltas else self.scratch[slot]
 
     def cache(self) -> int:
         """A coupling's d-wide cache (e or the clamped s)."""
@@ -739,7 +750,8 @@ class _TrainPacker:
         scratch = scratch or self.scratch
         steps = []
         for dense in reversed(layers[1:]):
-            dout = scratch[flip]
+            dout = (self.rows(dense.blocks[0][1]) if self.keep_deltas
+                    else scratch[flip])
             flip ^= 1
             self.dense_bwd(dense.blocks[0], dense.width, delta, dense.bias_k,
                            dout, 0, act)
@@ -834,11 +846,12 @@ def _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz):
             heads.append(dense)
         # the two heads leave the cotangent of the shared stack's output in
         # scratch[0]: s̄·Wsᵀ, then + t̄·Wtᵀ, then the activation derivative
+        top_bar = pk.delta(top.width, 0)
         pk.dense_bwd(heads[0].blocks[0], pk.d, s_buf, heads[0].bias_k,
-                     pk.scratch[0], 0, "identity")
+                     top_bar, 0, "identity")
         pk.dense_bwd(heads[1].blocks[0], pk.d, t_buf, heads[1].bias_k,
-                     pk.scratch[0], 1, act_s)
-        pk.net_bwd(stack, act_s, pk.scratch[0], gz, flip=1)
+                     top_bar, 1, act_s)
+        pk.net_bwd(stack, act_s, top_bar, gz, flip=1)
     else:
         k0 = 0 + ti
         fwd, bwd = [], []
@@ -929,6 +942,8 @@ def _lower_ops(pk, plan, d, x_in, s_buf, t_buf, gz, x_outs):
         x_out = x_outs(k)
         pk.bwd_groups.append([])
         if tag == "coupling":
+            if pk.keep_deltas:
+                s_buf, t_buf = pk.rows(d), pk.rows(d)
             _lower_coupling(pk, op, ti, x_in, x_out, s_buf, t_buf, gz)
         elif tag == "anorm":
             pk.fwd.append(pk.instr(_F_ANORM, x_in, x_out, offs[ti],
@@ -1003,7 +1018,8 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
                     batchsize: int, *, state_in_shared: bool = True,
                     paired: bool | None = None,
                     eval_rows: int | None = None,
-                    grad_segments: int | None = None) -> PackedTrainPlan:
+                    grad_segments: int | None = None,
+                    keep_deltas: bool = False) -> PackedTrainPlan:
     """Lower a training plan into the kernel's forward and backward programs
     and lay out the block's shared memory for batches of ``batchsize`` rows.
     Depends on the shapes of ``tparams`` and on the values of the masks and
@@ -1026,10 +1042,18 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
     ``_check_budget`` is that of a block holding the state and one batch.
     ``paired`` / ``grad_segments`` / ``eval_rows`` (a cap on the evaluation
     tile) hold those choices fixed: hooks for the tests and the probes that
-    run the fallback layouts, never set by the library."""
+    run the fallback layouts, never set by the library.
+
+    ``keep_deltas`` (with ``state_in_shared=False`` only) gives every
+    dense layer's output cotangent and every coupling's s / t rows of their
+    own (``_TrainPacker``): the layout of one 64-row tile in the device
+    workspace of train_stream's tensor-core design."""
     if not state_in_shared:
         return _pack(plan, tparams, masks, mask_slots, cparams, d, n,
-                     batchsize, state_in_shared=False, paired=False)
+                     batchsize, state_in_shared=False, paired=False,
+                     keep_deltas=keep_deltas)
+    if keep_deltas:
+        raise ValueError("keep_deltas is a layout of the device workspace")
     kw = dict(state_in_shared=True, eval_cap=eval_rows)
     parts = _parts(batchsize)
     choices = [(pair, segs, parts) for pair in (True, False)
@@ -1048,7 +1072,8 @@ def pack_train_plan(plan, tparams, masks, mask_slots, cparams, d: int, n: int,
 
 
 def _pack(plan, tparams, masks, mask_slots, cparams, d, n, batchsize, *,
-          state_in_shared, paired, segs=1, parts=1, eval_cap=None):
+          state_in_shared, paired, segs=1, parts=1, eval_cap=None,
+          keep_deltas=False):
     device = tparams[0].device
     shapes = [tuple(int(s) for s in p.shape) for p in tparams]
     if any(len(s) != 2 for s in shapes):
@@ -1059,7 +1084,8 @@ def _pack(plan, tparams, masks, mask_slots, cparams, d, n, batchsize, *,
         o += int(np.prod(s))
     n_params = o
     hmax = max([s[1] for s in shapes] + [d])
-    pk = _TrainPacker(d, n, batchsize, shapes, offs, paired=paired)
+    pk = _TrainPacker(d, n, batchsize, shapes, offs, paired=paired,
+                      keep_deltas=keep_deltas)
     n_consts = sum(int(c.numel()) for c in cparams)
     if state_in_shared:
         hdr = {name: pk.alloc(n_params) for name in ("P", "MU", "NU", "G")}
@@ -1069,9 +1095,11 @@ def _pack(plan, tparams, masks, mask_slots, cparams, d, n, batchsize, *,
     cache0 = pk.top
     pk.th_off = hdr["TH"] = pk.rows(n) if n else -1
     x_in = hdr["X0"] = pk.rows(d)
-    s_buf, t_buf = pk.rows(d), pk.rows(d)
+    # kept deltas: each coupling's s / t rows and each cotangent its own
+    s_buf, t_buf = (-1, -1) if keep_deltas else (pk.rows(d), pk.rows(d))
     gz = hdr["GZ"] = pk.rows(d)
-    pk.scratch = (pk.rows(hmax), pk.rows(hmax))
+    if not keep_deltas:
+        pk.scratch = (pk.rows(hmax), pk.rows(hmax))
     if paired:
         pk.net_scratch = (pk.scratch, (pk.rows(hmax), pk.rows(hmax)))
     for name in ("LDJ", "MASK", "JBAR", "LP"):

@@ -242,6 +242,167 @@ def test_train_stream_kernel_matches_plain(cuda, weighted):
     assert got[4].tolist() == want[4].tolist() == [0, 0, 0, 0]
 
 
+def _tc_case(device, d=5, n=1, hidden=16, blocks=None, rows=137, batch=32,
+             epochs=4):
+    """A chain the tensor-core design of train_stream can run (no ActNorm):
+    split, joint clamped and NICE couplings, a permutation; or ``blocks``
+    coupling blocks of two hidden layers with ReLU, the benchmark's
+    emulator32 shape. Its fold, training rows, batch order and weights."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    th = rng.uniform(-1, 2, size=(rows, n)).astype(np.float32)
+    g = torch.Generator().manual_seed(0)
+    kw = dict(n=n, generator=g, device=device, zero_init_final=False,
+              hidden_dim_s=hidden, hidden_dim_t=hidden)
+    if blocks is None:
+        layers = [dt.coupling_layer(d, [0, 1, 2], **kw),
+                  dt.coupling_layer(d, [2, 3, 4], joint_conditioner=True,
+                                    max_log_scale=0.5, **kw),
+                  dt.permutation_layer([4, 2, 0, 3, 1]),
+                  dt.coupling_layer(d, [4, 0, 1],
+                                    kind=dt.NICECouplingLayer, **kw)]
+    else:
+        kw.update(n_sublayers_s=2, n_sublayers_t=2, activation_s="relu",
+                  activation_t="relu")
+        layers = [dt.coupling_block(d, list(range(d // 2, d)), **kw)
+                  for _ in range(blocks)]
+    chain = dt.flow_chain(*layers,
+                          dt.normalization_layer(x, -1.0, 1.0, device=device))
+    fold = FT.chain_train_fold(chain)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
+
+    perms = np.stack([rng.permutation(rows) for _ in range(epochs)])
+    return fold, (put(x), put(th)), perms, put(rng.uniform(0.3, 2.0, rows))
+
+
+def _stream_bits_equal(a, b):
+    return all(torch.equal(u, v) for i in (0, 1, 2, 3)
+               for u, v in zip(a[i], b[i])) and \
+        torch.equal(a[5].nan_to_num(), b[5].nan_to_num())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_train_stream_tc_design_matches_plain(cuda, monkeypatch, weighted):
+    """The tensor-core design (forced on a chain too small for the launch
+    rule to take it): 4 epochs of batch 32 over 137 rows (a ragged last
+    batch), with the guard, against the plain version at 1e-4; two
+    launches give the same bits; two chunks of two epochs equal one launch
+    bit for bit; the grid does not change the bits."""
+    monkeypatch.setattr(STK, "uses_tc",
+                        lambda sp, batchsize: STK.tc_reason(sp) is None)
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), (x, th), perms, \
+        w = _tc_case(cuda)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, x, th)
+    kw = dict(batchsize=32, guard_nonfinite=True, with_losses=True,
+              w=w if weighted else None)
+    before = STK.run_fused_train_stream.tc_launches
+    got = STK.run_fused_train_stream(*head, perms, **kw)
+    again = STK.run_fused_train_stream(*head, perms, **kw)
+    three = STK.run_fused_train_stream(*head, perms, n_blocks=3, **kw)
+    a = STK.run_fused_train_stream(*head, perms[:2], **kw)
+    n_batches = -(-x.shape[0] // 32)
+    b = STK.run_fused_train_stream(
+        plan, a[0], masks, slots, cparams, a[1], a[2], x, th, perms[2:],
+        count0=2 * n_batches - int(a[4].sum()), **kw)
+    torch.cuda.synchronize()
+    assert STK.run_fused_train_stream.tc_launches == before + 5
+    want = STK.fused_train_stream_plain(*head, perms, **kw)
+    for i in (0, 1, 2, 3):
+        for u, v in zip(got[i], want[i]):
+            torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[5], want[5], rtol=0, atol=1e-4)
+    assert got[4].tolist() == want[4].tolist()
+    assert _stream_bits_equal(got, again) and _stream_bits_equal(got, three)
+    chained = (b[0], b[1], b[2], [torch.cat([u, v]) for u, v in
+                                  zip(a[3], b[3])], None,
+               torch.cat([a[5], b[5]]))
+    assert _stream_bits_equal(got, chained)
+
+
+def test_train_stream_tc_design_past_one_pass(cuda, monkeypatch):
+    """Hidden layers of 300: the tensor-core design's tile products take two
+    passes of output columns and its W items three blocks of input
+    features. One Adam step on a batch of 96 against the plain version: the
+    gradient (the first moment) to 1e-5 of its largest entry, parameters
+    and loss at 1e-5. (Over 2 epochs Adam carries rounding into entries
+    whose gradient is near zero: there the tile body and this design end
+    8.8e-4 from the plain version alike, on an H100.)"""
+    monkeypatch.setattr(STK, "uses_tc",
+                        lambda sp, batchsize: STK.tc_reason(sp) is None)
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), (x, th), perms, \
+        _w = _tc_case(cuda, d=6, n=2, hidden=300, blocks=1, rows=200,
+                      epochs=1)
+    zeros = [torch.zeros_like(p) for p in tparams]
+    rows = perms[0, :96]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, x[rows],
+            th[rows], np.arange(96)[None])
+    before = STK.run_fused_train_stream.tc_launches
+    got = STK.run_fused_train_stream(*head, batchsize=96, with_losses=True)
+    want = STK.fused_train_stream_plain(*head, batchsize=96,
+                                        with_losses=True)
+    torch.cuda.synchronize()
+    assert STK.run_fused_train_stream.tc_launches == before + 1
+    for u, v in zip(got[1], want[1]):
+        assert float((u - v).abs().max()) <= 1e-5 * float(v.abs().max())
+    for u, v in zip(got[0], want[0]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[5], want[5], rtol=0, atol=1e-5)
+
+
+def _leaf_gap(got, want):
+    """``perfbench/check.py``'s leaf number: the widest ``|‖a‖ − ‖r‖| /
+    max(‖r‖, median leaf ‖r‖)`` over leaves whose reference is above a
+    thousandth of the median leaf's."""
+    na = [float(t.double().norm()) for t in got]
+    nr = [float(t.double().norm()) for t in want]
+    med = float(np.median(nr))
+    return max(abs(a - r) / max(r, med) for a, r in zip(na, nr)
+               if r > 1e-3 * med)
+
+
+def test_train_stream_tc_design_at_the_cell_shape(cuda):
+    """The benchmark's emulator32.train shape (d 32, n 8, 4 coupling blocks
+    of hidden 256, batch 8192): the launch rule takes the tensor-core
+    design; against the plain version within the cell's training limits
+    (perfbench/limits/emulator32.train.json: the first step's gradient
+    ``grad_gap`` 2.5e-5, the steps' change ``step_gap`` 1e-3, every step's
+    loss 1e-5); two launches give the same bits, and two chunks equal one
+    launch."""
+    (plan, _tc, tparams, masks, slots, cparams, _f, _u), (x, th), perms, \
+        _w = _tc_case(cuda, d=32, n=8, hidden=256, blocks=4, rows=3 * 8192,
+                      epochs=2)
+    sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 32, 8, _tc)
+    assert STK.launch_shape(sp, 8192).tc
+    zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, x, th)
+    kw = dict(batchsize=8192, with_losses=True, step_plan=sp)
+    got = STK.run_fused_train_stream(*head, perms, **kw)
+    again = STK.run_fused_train_stream(*head, perms, **kw)
+    a = STK.run_fused_train_stream(*head, perms[:1], **kw)
+    b = STK.run_fused_train_stream(plan, a[0], masks, slots, cparams, a[1],
+                                   a[2], x, th, perms[1:], count0=3, **kw)
+    rows = perms[0, :8192]
+    one = (x[rows], th[rows], np.arange(8192)[None])   # the first step
+    first = STK.run_fused_train_stream(*head[:7], *one, **kw)
+    kw.pop("step_plan")
+    want = STK.fused_train_stream_plain(*head, perms, **kw)
+    want1 = STK.fused_train_stream_plain(*head[:7], *one, **kw)
+    torch.cuda.synchronize()
+    assert _leaf_gap(first[1], want1[1]) <= 2.5e-5      # mu = (1 - b1) g
+    moved = [u - p for u, p in zip(got[0], tparams)]
+    assert _leaf_gap(moved, [u - p for u, p in zip(want[0], tparams)]) <= 1e-3
+    loss_gap = ((got[5] - want[5]).abs() / (1 + want[5].abs())).max()
+    assert float(loss_gap) <= 1e-5
+    assert _stream_bits_equal(got, again)
+    chained = (b[0], b[1], b[2], [torch.cat([u, v]) for u, v in
+                                  zip(a[3], b[3])], None,
+               torch.cat([a[5], b[5]]))
+    assert _stream_bits_equal(got, chained)
+
+
 def test_train_fused_takes_the_stream_mode(cuda, monkeypatch):
     """With the resident budget failing, ``train`` on a CUDA flow runs
     ``train_stream`` once and no other training kernel."""

@@ -166,7 +166,13 @@ def test_train_records_its_stages_and_the_bytes_uploaded(monkeypatch, case,
     # a CPU flow copies the rows once; the batch order is copied by the
     # CUDA wrappers alone
     assert uploads == [_upload_bytes(data, flow)] == [4000]
-    assert all(s.counts == {} for s in group if s.name != "df.upload")
+    # the stream mode's launches say which design they take: on the CPU the
+    # plain version runs, neither design
+    enqueues = [s.counts for s in group if s.name == "df.enqueue"]
+    assert enqueues == ([{"tc": 0}] if route == "stream"
+                        else [{}] * len(enqueues))
+    assert all(s.counts == {} for s in group
+               if s.name not in ("df.upload", "df.enqueue"))
 
 
 def test_a_train_call_inside_another_is_its_stage(case):

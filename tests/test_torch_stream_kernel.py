@@ -381,7 +381,8 @@ def test_outside_both_envelopes_raises_with_both_reasons(cond, monkeypatch):
 
 
 def test_launch_shape_tiles_grid_and_co_residency(cond, monkeypatch):
-    """The row tile and threads are the step kernel's (at most 512 threads);
+    """The tile body (the design of a plan this narrow): the row tile and
+    threads are the step kernel's (at most 512 threads);
     the parameters are staged where they fit beside the tile, and the shared
     bytes count them; the grid one block per tile, capped at the blocks that
     can be resident at once; an explicit grid past that cap, or past the
@@ -393,9 +394,9 @@ def test_launch_shape_tiles_grid_and_co_residency(cond, monkeypatch):
         FT.chain_train_fold(chain)
     sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 5, 1, tc)
     assert SKM.launch_shape(sp, 1024) == (8, 128, sp.shared_bytes(8, True),
-                                          128, True)
+                                          128, True, False)
     assert SKM.launch_shape(sp, 1024, stage=False) == (
-        8, 128, sp.shared_bytes(8), 128, False)
+        8, 128, sp.shared_bytes(8), 128, False, False)
     assert SKM.launch_shape(sp, 1024, co_resident=100)[3] == 100
     assert SKM.launch_shape(sp, 1024, co_resident=264)[3] == 128
     assert SKM.launch_shape(sp, 60)[3] == 8           # a ragged last tile
@@ -411,6 +412,10 @@ def test_launch_shape_tiles_grid_and_co_residency(cond, monkeypatch):
     with pytest.raises(ValueError, match="to stage the parameters"):
         SKM.launch_shape(sp, 1024, stage=True)
     monkeypatch.setattr(SKM, "MAX_SHARED_BYTES", sp.shared_bytes(4) + 200)
+    # 4-row tiles cut the batch into 256: the rule takes the tensor-core
+    # design, and the tile body's own shape is held with the rule off
+    assert SKM.launch_shape(sp, 1024).tc
+    monkeypatch.setattr(SKM, "uses_tc", lambda sp, batchsize: False)
     assert SKM.launch_shape(sp, 1024)[0] == 4
     with pytest.raises(ValueError, match="unsupported device"):
         SKM.run_fused_train_stream(
@@ -448,6 +453,8 @@ def emulated(tmp_path_factory):
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int]
     lib.df_train_stream_emulated.restype = ctypes.c_int
+    # the wrapper's mirror of the tensor-core design's shared memory
+    assert 4 * lib.df_train_stream_tc_shared_floats() == SKM.TC_SHARED_BYTES
 
     def launch(threads, reverse):
         return lambda ptrs, iargs, fargs, _threads, shared, n_blocks: \
@@ -706,6 +713,200 @@ def test_cuda_source_emulated_matches_the_jax_stream_kernel(
                                atol=TRAIN_ATOL)
     assert_leaves_close(f_s.model, f_t.model, TRAIN_ATOL)
     assert_opt_state_close(os_s, f_t.model, os_t, TRAIN_ATOL)
+
+
+# -- the tensor-core design under host emulation ---------------------------------------
+#
+# The tensor-core design (csrc/stream_tc.cuh) is taken where the tile body
+# would cut a batch into more than TC_MIN_TILES tiles; the tests' chains and
+# batches are smaller, so ``_tc`` sends every plan it can run there. On the
+# host its products are the stand-in that splits the operands as the card
+# does.
+
+def _tc(monkeypatch, seg_tiles=None):
+    monkeypatch.setattr(SKM, "uses_tc",
+                        lambda sp, batchsize: SKM.tc_reason(sp) is None)
+    if seg_tiles is not None:
+        monkeypatch.setattr(SKM, "TC_SEG_TILES", seg_tiles)
+
+
+def _tc_grads_cover(sp, items, n_seg):
+    """Per segment, how many W items (and bias sums) own each parameter."""
+    prog = sp.packed(SKM.TC_ROWS, keep_deltas=True).prog.numpy()
+    count = np.zeros((n_seg, sp.n_params), np.int64)
+    for word, m0, n0, seg in items:
+        ins = prog[word:word + 16]
+        k, w, n, bias = ins[2], ins[3], ins[4], ins[6]
+        m1, n1 = min(k, m0 + SKM.TC_ITEM), min(n, n0 + SKM.TC_ITEM)
+        rows = w + np.arange(m0, m1)[:, None] * n + np.arange(n0, n1)[None]
+        count[seg, rows.ravel()] += 1
+        if bias >= 0 and m0 == 0:
+            count[seg, bias + np.arange(n0, n1)] += 1
+    return count
+
+
+@pytest.mark.parametrize("guard,weighted", [(False, True), (True, False)])
+@pytest.mark.parametrize("variant", ["reference", "joint", "clamped", "nice",
+                                     "nobias_tanh"])
+def test_tc_design_emulated_equals_plain_version(emulated, monkeypatch,
+                                                 variant, guard, weighted):
+    """The tensor-core design: 3 epochs of batch 32 over 123 rows (a ragged
+    last batch, the tile's other 32 rows masked), with and without the guard
+    and the importance weights (one fully masked row group): parameters,
+    moments, snapshots and per-step losses against
+    ``fused_train_stream_plain`` at TRAIN_ATOL."""
+    _tc(monkeypatch)
+    case = StreamCase(variant)
+    kw = dict(guard_nonfinite=guard, w=case.w if weighted else None)
+    shape = SKM.launch_shape(case.sp, 32)
+    assert shape.tc and shape.tile == SKM.TC_ROWS
+    _assert_runs(case.run(emulated(96, 0), **kw), case.run(**kw), TRAIN_ATOL)
+
+
+def test_tc_design_emulated_is_independent_of_order_and_grid(emulated,
+                                                             monkeypatch):
+    """Threads and blocks of every grid phase in either order, other thread
+    counts and other grids give the same bits: every output of a tile, a W
+    item, a segment's loss and an Adam entry has one owner and a fixed
+    order, so the bits do not depend on the grid. Batches of 96 rows (two
+    tiles, the second half masked) in segments of one tile."""
+    _tc(monkeypatch, seg_tiles=1)
+    case = StreamCase("reference")
+    kw = dict(batchsize=96)
+    runs = [case.run(emulated(nt, rev), n_blocks=nb, **kw)
+            for nt, rev, nb in ((96, 0, None), (96, 1, None), (64, 2, 3),
+                                (32, 3, 1), (1024, 0, 5))]
+    for other in runs[1:]:
+        _assert_runs(other, runs[0], 0)
+    _assert_runs(runs[0], case.run(**kw), TRAIN_ATOL)
+
+
+def test_tc_design_emulated_guard_skips_and_chunks(emulated, monkeypatch):
+    """NaN rows poison the batches that gather them: with the guard the
+    tensor-core design skips the steps the plain version skips, keeps the
+    parameters finite and counts the skips; two chunked launches with the
+    state and the count carried equal one launch, bit for bit."""
+    _tc(monkeypatch, seg_tiles=1)
+    case = StreamCase("joint", epochs=4)
+    x = case.x.clone()
+    x[[5, 40, 77], 1] = float("nan")
+    case.x = x
+    kw = dict(guard_nonfinite=True, batchsize=64)
+    launch = emulated(96, 0)
+    got = case.run(launch, **kw)
+    want = case.run(**kw)
+    assert got[4].tolist() == want[4].tolist() and int(got[4].sum()) > 0
+    _assert_runs(got, want, TRAIN_ATOL)
+    for p in got[0] + got[1] + got[2]:
+        assert bool(torch.isfinite(p).all())
+    n_batches = -(-case.x.shape[0] // 64)
+    a = case.run(launch, perms=case.perms[:2], **kw)
+    b = case.run(launch, perms=case.perms[2:], state=a[:3],
+                 count0=2 * n_batches - int(a[4].sum()), **kw)
+    for i in (0, 1, 2):
+        for u, v in zip(got[i], b[i]):
+            assert torch.equal(u, v)
+    for k in range(len(got[3])):
+        assert torch.equal(got[3][k], torch.cat([a[3][k], b[3][k]]))
+    assert got[4].tolist() == a[4].tolist() + b[4].tolist()
+    assert torch.equal(got[5].nan_to_num(), torch.cat([a[5], b[5]]).nan_to_num())
+
+
+def _wide_step_plan(d, n, hidden, blocks):
+    """The StepPlan of a chain of ``blocks`` coupling blocks (split s / t
+    nets of two hidden layers), then a normalization layer."""
+    g = torch.Generator().manual_seed(0)
+    kw = dict(n=n, hidden_dim_s=hidden, hidden_dim_t=hidden, n_sublayers_s=2,
+              n_sublayers_t=2, generator=g, device="cpu")
+    halves = (list(range(d // 2, d)), list(range(d // 2)))
+    x_ref = np.random.default_rng(0).normal(size=(64, d)).astype(np.float32)
+    chain = dt.flow_chain(*[dt.coupling_block(d, halves[0], **kw)
+                            for _ in range(blocks)],
+                          dt.normalization_layer(x_ref, -1.0, 1.0,
+                                                 device="cpu"))
+    meta = dt.MetaData("", d, n, -np.ones(n, np.float32),
+                       np.ones(n, np.float32))
+    return FT.fold_for_step(dt.Flow(chain, meta, device="cpu")).step_plan
+
+
+def test_tc_launch_rule_routes_by_plan_shape(cond):
+    """The design comes from the plan's shape and the batch alone (the
+    crossover measured on an H100): the 32-D emulator's chain (hidden 256,
+    8 couplings; 4-row tiles in the tile body) takes the tensor-core design
+    at batch 8192 and 1024, d 16 / hidden 64 or 128 at batch 1024 (one
+    round of 8-row tiles) keep the tile body and take the tensor-core
+    design at batch 8192; the tests' small chains keep the tile body; a
+    chain with an ActNorm layer never takes it. ``launch_shape`` takes no
+    argument that picks the design."""
+    wide = _wide_step_plan(32, 8, 256, 4)
+    shape = SKM.launch_shape(wide, 8192)
+    assert shape.tc and shape[:5] == (SKM.TC_ROWS, SKM.TC_THREADS,
+                                      SKM.TC_SHARED_BYTES, 128, False)
+    assert SKM.launch_shape(wide, 8192, co_resident=132).n_blocks == 132
+    assert SKM.launch_shape(wide, 1024).tc
+    for h in (64, 128):
+        narrow = _wide_step_plan(16, 4, h, 2)
+        assert not SKM.launch_shape(narrow, 1024).tc
+        assert SKM.launch_shape(narrow, 8192).tc
+    jd, td, x = cond
+    for variant in ("reference", "actnorm"):
+        chain = to_torch(CHAINS[variant](jd, x))
+        plan, tc, tparams, masks, slots, cparams, _f, _u = \
+            FT.chain_train_fold(chain)
+        sp = SK.StepPlan(plan, tparams, masks, slots, cparams, 5, 1, tc)
+        assert not SKM.launch_shape(sp, 1024).tc
+    assert SKM.tc_reason(sp).startswith("an ActNorm layer")
+    assert SKM.tc_reason(wide) is None
+    import inspect
+    assert list(inspect.signature(SKM.launch_shape).parameters) == [
+        "sp", "batchsize", "co_resident", "n_blocks", "stage"]
+    with pytest.raises(ValueError, match="stages no parameters"):
+        SKM.launch_shape(wide, 8192, stage=True)
+
+
+@pytest.mark.parametrize("batchsize", [32, 8192])
+def test_tc_items_own_every_gradient_once_per_segment(batchsize):
+    """The W items of the 32-D emulator's plan: in every segment each
+    folded parameter (weights and biases) belongs to exactly one item, the
+    largest items first."""
+    sp = _wide_step_plan(32, 8, 256, 4)
+    items = SKM.tc_items(sp, batchsize)
+    n_tiles, n_seg = SKM._tc_counts(batchsize)
+    assert n_seg == -(-n_tiles // SKM.TC_SEG_TILES)
+    assert (_tc_grads_cover(sp, items, n_seg) == 1).all()
+    assert set(items[:, 3].tolist()) == set(range(n_seg))
+
+
+def test_tc_workspace_bytes_match_what_the_wrapper_allocates(
+        emulated, monkeypatch):
+    """``stream_workspace_bytes`` is the workspace a launch allocates (the
+    tiles' layout rounded up to 16 bytes, their losses, the weights' two
+    planes), 0 for the tile body, and ``stream_chunk_epochs`` keeps it out
+    of the epochs' budget."""
+    _tc(monkeypatch)
+    case = StreamCase("reference")
+    allocated = []
+    real = SKM._workspace
+
+    def spy(*a, **k):
+        allocated.append(real(*a, **k))
+        return allocated[-1]
+
+    monkeypatch.setattr(SKM, "_workspace", spy)
+    case.run(emulated(96, 0), batchsize=100)
+    pk = case.sp.packed(SKM.TC_ROWS, keep_deltas=True)
+    align = lambda v: -(-v // 4) * 4     # noqa: E731
+    want = 4 * (2 * align(pk.total_floats) + align(2)
+                + 2 * align(case.sp.n_params))
+    assert [t.numel() * 4 for t in allocated] == [want]
+    assert SKM.stream_workspace_bytes(case.sp, 100) == want
+    monkeypatch.setattr(SKM, "uses_tc", lambda sp, batchsize: False)
+    assert SKM.stream_workspace_bytes(case.sp, 100) == 0
+    budget = FT._STREAM_DEVICE_BUDGET
+    per_epoch = 4 * (1024 + 1000)
+    for ws in (0, budget // 2):
+        e_max = (budget - ws) // per_epoch
+        assert FT.stream_chunk_epochs(1000, 1024, 64, 3 * e_max, ws) == e_max
 
 
 def test_stream_kernel_source_is_hand_written():

@@ -426,6 +426,14 @@ def stream_bits(out):
     return h.hexdigest()
 
 
+# csrc/stream_kernels.cu's CK_* slots before CK_STEPS, in order
+STREAM_CLOCK_SLOTS = (
+    "denominator", "stage_parameters", "tiles", "sync_tiles", "reduce",
+    "sync_reduce", "update", "sync_update", "w_items", "sync_w_items",
+    "tile_products", "products_wait", "products_split", "products_mma",
+    "w_items_wait", "w_items_split", "w_items_mma")
+
+
 def stream(device, clocks_lib=None):
     """One epoch of train_stream at med (922 steps): ms per epoch and per
     step (CUDA events), the launch shape, the sha256 of its per-step losses
@@ -453,13 +461,12 @@ def stream(device, clocks_lib=None):
                final_loss=float(out[5][-1]))
     if clocks_lib is not None:
         use_stream_library(clocks_lib)
-        clk = torch.zeros(16, device=device)
+        clk = torch.zeros(32, device=device)
         kernel(clocks=clk)
         torch.cuda.synchronize()
         c = clk.tolist()
-        steps = c[8]
-        names = ("denominator", "stage_parameters", "tiles", "sync_tiles",
-                 "reduce", "sync_reduce", "update", "sync_update")
+        steps = c[len(STREAM_CLOCK_SLOTS)]
+        names = STREAM_CLOCK_SLOTS
         per_step = {k: c[i] / steps for i, k in enumerate(names)}
         total = sum(per_step.values())
         ms_clk = event_ms(lambda: kernel(clocks=clk), warmup=1, runs=3)
@@ -815,7 +822,7 @@ def use_stream_library(lib):
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_float), i, i, i, v]
     lib.df_train_stream.restype = i
-    lib.df_train_stream_max_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.df_train_stream_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.df_train_stream_max_blocks.restype = i
     stk._LIB = lib
 
