@@ -1109,6 +1109,17 @@ def drive_training(device, tmp):
 CELL = dict(rows=4 * 8192, batch=8192, epochs=2, macs_per_row=1_212_416)
 
 
+def leaf_gap(got, want):
+    """``perfbench/check.py``'s leaf number: the widest ``|‖a‖ − ‖r‖| /
+    max(‖r‖, median leaf ‖r‖)`` over leaves whose reference is above a
+    thousandth of the median leaf's."""
+    na = [float(t.double().norm()) for t in got]
+    nr = [float(t.double().norm()) for t in want]
+    med = float(np.median(nr))
+    return max(abs(a - r) / max(r, med) for a, r in zip(na, nr)
+               if r > 1e-3 * med)
+
+
 def cell_chain(rng, device):
     """perfbench's emulator32 chain (realnvp_flow with blocks) on random
     weights."""
@@ -1158,21 +1169,46 @@ def wide_stream(rng, device):
              f"{flow.fused_kernel_mode} with {launches} train_stream "
              f"launches ({tc_launches} tensor-core; "
              f"{flow.fused_decline_reason})")
-    # the kernel alone on the same run, from the same starting weights
+    # the kernel alone on the same run, from the same starting weights, in
+    # each design (the tile body forced), held against its plain version
+    # at the cell's training limits (perfbench/limits/emulator32.train.json):
+    # the first step's gradient through Adam's first moment, every step's
+    # loss and the run's change of the weights
     (plan, _tc, tparams, masks, slots, cparams, _f, _u) = \
         ft.chain_train_fold(plain.model)
     sp = ft.fold_for_step(plain).step_plan
     xt, tht = arrays.normalized_training_data(plain.metadata)
     xt, tht = put(xt, device), put(tht, device)
     zeros = [torch.zeros_like(p) for p in tparams]
+    head = (plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht)
+    rows0 = perms[0, :batch]
+    one = (xt[rows0], tht[rows0], np.arange(batch)[None])   # the first step
+    kw = dict(batchsize=batch, with_losses=True)
+    want = stk.fused_train_stream_plain(*head, perms, **kw)
+    want1 = stk.fused_train_stream_plain(*head[:7], *one, **kw)
     steps = epochs * -(-n_train // batch)
-    ms = {}
+    ms, gaps = {}, {}
     for tc in (True, False):
         with stream_design(tc):
+            got = stk.run_fused_train_stream(*head, perms, step_plan=sp, **kw)
+            got1 = stk.run_fused_train_stream(*head[:7], *one, step_plan=sp,
+                                              **kw)
+            torch.cuda.synchronize()
+            gaps[tc] = dict(
+                grad_gap=leaf_gap(got1[1], want1[1]),   # mu = (1 - b1) g
+                step_gap=leaf_gap([u - p for u, p in zip(got[0], tparams)],
+                                  [u - p for u, p in zip(want[0], tparams)]),
+                loss_gap=float(((got[5] - want[5]).abs()
+                                / (1 + want[5].abs())).max()))
             ms[tc] = time_ms(lambda: stk.run_fused_train_stream(
                 plan, tparams, masks, slots, cparams, zeros, zeros, xt, tht,
                 perms, batchsize=batch, step_plan=sp), warmup=1,
                 runs=3) / steps
+        limits = dict(grad_gap=2.5e-5, step_gap=1e-3, loss_gap=1e-5)
+        if not all(gaps[tc][k] <= v for k, v in limits.items()):
+            fail(f"wide chain: train_stream's "
+                 f"{'tensor-core design' if tc else 'tile body'} against "
+                 f"its plain version: {gaps[tc]} (limits {limits})")
     shape = stk.device_launch_shape(sp, batch)
     t0 = time.time()
     dt.train(plain, arrays, epochs=epochs, batchsize=batch, verbose=False,
@@ -1201,7 +1237,9 @@ def wide_stream(rng, device):
                 blocks=shape.n_blocks,
                 workspace_bytes=stk.stream_workspace_bytes(sp, batch),
                 valid_nll=flow.valid_loss, valid_nll_plain=plain.valid_loss,
-                valid_history_err_vs_plain=hist_err)
+                valid_history_err_vs_plain=hist_err,
+                kernel_alone_vs_plain=gaps[True],
+                tile_body_vs_plain=gaps[False])
 
 
 def elu_decline(rng, device):

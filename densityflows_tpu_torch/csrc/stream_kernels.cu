@@ -57,7 +57,8 @@
 //     mma.sync in 3xTF32, the weight gradients summed over segments of the
 //     batch, then (R) over the segments' rows. It wins where the tile body
 //     would take several rounds of small tiles (the emulator32 step: 4.0
-//     against 47 ms).
+//     against 47 ms), up to the batch whose workspace (every tile's
+//     caches, about 72 KB a row there) passes TC_WORKSPACE_BYTES.
 //
 // Each grid phase is a function of (block, n_blocks, step) that carries
 // nothing in shared memory into the next one but the staged constants and

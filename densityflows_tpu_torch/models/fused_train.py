@@ -790,7 +790,6 @@ def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
         eval_snapshots,
         run_fused_train_stream,
         stream_workspace_bytes,
-        uses_tc,
     )
 
     x, th, xv, thv = arrays
@@ -809,14 +808,15 @@ def _train_stream_chunks(sp, tparams, mu, nu, arrays, w_dev, perms, *,
     best, best_vl = None, np.inf
     for done in range(0, epochs, chunk):
         with span("df.enqueue") as enq:
-            if enq.recording:
-                # 1 where the launch takes the tensor-core design
-                enq.counts["tc"] = int(x.is_cuda and uses_tc(sp, batchsize))
+            tc0 = run_fused_train_stream.tc_launches
             params, mu, nu, snaps, sk = run_fused_train_stream(
                 sp.plan, params, sp.masks, sp.mask_slots, sp.cparams, mu, nu,
                 x, th, perms[done:done + chunk], batchsize=batchsize,
                 count0=count, w=w_dev[0], guard_nonfinite=guard,
                 step_plan=sp, **hp)
+            if enq.recording:
+                # 1 where the launch took the tensor-core design
+                enq.counts["tc"] = run_fused_train_stream.tc_launches - tc0
         with span("df.eval"):
             tl = eval_snapshots(snaps, sp.cparams, x, th, w_dev[0],
                                 plan=sp.plan, row_chunk=_EVAL_ROW_CHUNK)

@@ -21,7 +21,8 @@ tensor-core design (``csrc/stream_tc.cuh``) folds tiles of ``TC_ROWS`` rows
 whose caches lie in a device workspace, runs the products on the tensor
 cores in 3xTF32 and sums the weight gradients over segments of the batch,
 and wins where the tile body would take several rounds of small tiles
-(measured on an H100, ``PERF.md``).
+(measured on an H100, ``PERF.md``), as long as its workspace, which grows
+with the batch, stays within ``TC_WORKSPACE_BYTES``.
 
 Plans, folded tensors, masks and constants are those of
 ``ops/train_kernels.py``; the lowering and the flat layout are the step
@@ -109,6 +110,12 @@ TC_SEG_TILES = 16
 # and rewrite their gradient partials tile after tile); else the tile
 # body, which wins where one round of its tiles covers the batch.
 TC_MIN_TILES = 128
+# The tensor-core design's workspace holds every tile's caches, so it grows
+# with the batch (about 72 KB a row at the 32-D emulator's plan). The rule
+# keeps it within TC_WORKSPACE_BYTES, half of train()'s per-call budget of
+# device memory (models/fused_train.py's _STREAM_DEVICE_BUDGET), and leaves
+# a larger batch to the tile body, whose memory does not grow with the batch.
+TC_WORKSPACE_BYTES = 80_000_000_000 // 16
 
 
 class StreamShape(NamedTuple):
@@ -211,11 +218,9 @@ def _bwd_instructions(words) -> list:
 def uses_tc(sp: StepPlan, batchsize: int) -> bool:
     """The launch rule, from the plan's shape and the batch's rows: whether
     a launch takes the tensor-core design."""
-    if tc_reason(sp) is not None:
-        return False
-    if stream_reason(sp) is not None:
-        return True     # past the tile body's envelope
-    return -(-batchsize // _stream_tile(sp, batchsize)) > TC_MIN_TILES
+    return (tc_reason(sp) is None
+            and -(-batchsize // _stream_tile(sp, batchsize)) > TC_MIN_TILES
+            and _tc_workspace_bytes(sp, batchsize) <= TC_WORKSPACE_BYTES)
 
 
 def _tc_counts(batchsize: int):
@@ -258,12 +263,16 @@ def tc_items(sp: StepPlan, batchsize: int) -> np.ndarray:
 
 def stream_workspace_bytes(sp: StepPlan, batchsize: int) -> int:
     """Device memory a launch at ``batchsize`` takes besides the state and
-    the partial buffer: for the tensor-core design every tile's rows,
-    caches and cotangents (the tile layout rounded up to 16 bytes), the
-    tiles' losses and the weights' two 3xTF32 planes; 0 for the tile
-    body."""
-    if not uses_tc(sp, batchsize):
-        return 0
+    the partial buffer: :func:`_tc_workspace_bytes` for the tensor-core
+    design, 0 for the tile body."""
+    return _tc_workspace_bytes(sp, batchsize) if uses_tc(sp, batchsize) \
+        else 0
+
+
+def _tc_workspace_bytes(sp: StepPlan, batchsize: int) -> int:
+    """The tensor-core design's workspace at ``batchsize``: every tile's
+    rows, caches and cotangents (the tile layout rounded up to 16 bytes),
+    the tiles' losses and the weights' two 3xTF32 planes."""
     n_tiles, _ = _tc_counts(batchsize)
     stride = _align4(sp.packed(TC_ROWS, keep_deltas=True).total_floats)
     return 4 * (n_tiles * stride + _align4(n_tiles)

@@ -145,6 +145,7 @@ def test_stream_kernel_guard_and_chunks(monkeypatch):
         calls.append(len(a[9]))
         return real(*a, **k)
 
+    spy.tc_launches = 0     # the wrapper's count; the CPU launches neither
     monkeypatch.setattr(SKM, "run_fused_train_stream", spy)
     os_t = FT.train_fused(f_t, td, _epoch_perms=jax_epoch_perms(
         jax.random.key(3), 6, n), **kw)
@@ -697,11 +698,13 @@ def test_cuda_source_emulated_matches_the_jax_stream_kernel(
         calls.append(len(epoch_perms))
         kw = dict(dict(count0=0, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, w=None,
                        guard_nonfinite=False, with_losses=False), **kw)
+        shape = SKM.launch_shape(sp, batchsize, stage=stage)
+        run.tc_launches += int(shape.tc)   # as the wrapper counts
         return SKM._train_stream(
             launch, sp, list(tparams), list(mu), list(nu), x, theta,
-            epoch_perms, batchsize=batchsize,
-            shape=SKM.launch_shape(sp, batchsize, stage=stage), **kw)
+            epoch_perms, batchsize=batchsize, shape=shape, **kw)
 
+    run.tc_launches = 0
     monkeypatch.setattr(SKM, "run_fused_train_stream", run)
     perms = jax_epoch_perms(jax.random.key(5), 3, len(jd.partition.training))
     os_t = dt.train(f_t, td, fused_kernel=True, _epoch_perms=perms, **kw)
@@ -862,6 +865,28 @@ def test_tc_launch_rule_routes_by_plan_shape(cond):
         "sp", "batchsize", "co_resident", "n_blocks", "stage"]
     with pytest.raises(ValueError, match="stages no parameters"):
         SKM.launch_shape(wide, 8192, stage=True)
+
+
+def test_tc_launch_rule_keeps_the_tile_body_past_the_workspace_budget(
+        monkeypatch):
+    """The tensor-core design's workspace grows with the batch: at a batch
+    whose workspace passes ``TC_WORKSPACE_BYTES`` (half of train()'s
+    per-call device budget) the rule keeps the tile body, which takes no
+    workspace; the limit is inclusive."""
+    wide = _wide_step_plan(32, 8, 256, 4)
+    assert 2 * SKM.TC_WORKSPACE_BYTES == FT._STREAM_DEVICE_BUDGET
+    big = 1 << 20
+    assert SKM._tc_workspace_bytes(wide, big) > SKM.TC_WORKSPACE_BYTES
+    assert not SKM.uses_tc(wide, big)
+    assert not SKM.launch_shape(wide, big).tc
+    assert SKM.stream_workspace_bytes(wide, big) == 0
+    ws = SKM.stream_workspace_bytes(wide, 8192)
+    assert 0 < ws == SKM._tc_workspace_bytes(wide, 8192)
+    monkeypatch.setattr(SKM, "TC_WORKSPACE_BYTES", ws)
+    assert SKM.launch_shape(wide, 8192).tc
+    monkeypatch.setattr(SKM, "TC_WORKSPACE_BYTES", ws - 1)
+    assert not SKM.launch_shape(wide, 8192).tc
+    assert SKM.stream_workspace_bytes(wide, 8192) == 0
 
 
 @pytest.mark.parametrize("batchsize", [32, 8192])
