@@ -81,8 +81,10 @@ from .models.fused_train import (
 from .models.glow import (
     ActNormLayer,
     InvertibleLinearLayer,
+    LULinearLayer,
     actnorm_layer,
     invertible_linear_layer,
+    lu_linear_layer,
 )
 from .models.layers import (
     JointRNVPCouplingLayer,
@@ -194,6 +196,7 @@ __all__ = [
     "MAFLayer", "maf_layer", "IAFLayer", "iaf_layer",
     "ActNormLayer", "actnorm_layer",
     "InvertibleLinearLayer", "invertible_linear_layer",
+    "LULinearLayer", "lu_linear_layer",
     "CouplingBlock", "coupling_block",
     "EmbeddedChain", "embed_conditions",
     "FlowChain", "flow_chain", "concatenate",

@@ -259,10 +259,12 @@ def _one_program(flows) -> bool:
     non-trainable leaf (masks, pivots, normalization ranges) from member 0,
     so these must be equal, and the per-layer coupling kernels
     (``set_fused_kernels(True)``) must be off, as their autograd functions
-    have no batching rule."""
+    have no batching rule; a model with batch norm trains member by member
+    (its batch statistics move buffers in place)."""
     from .models.layers import use_fused
+    from .ops.mlp import has_batch_norm
 
-    if use_fused(0):
+    if use_fused(0) or any(has_batch_norm(f.model) for f in flows):
         return False
     fixed = [[t for t in element_leaves(f.model)
               if not isinstance(t, torch.nn.Parameter)] for f in flows]

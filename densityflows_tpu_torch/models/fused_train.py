@@ -405,6 +405,7 @@ def chain_train_fold(chain):
     # StandardNormal base is permutation-symmetric).
     cmap = None  # layer-frame dim k lives at kernel dim cmap[k]
     spec = []    # (layer, coord_map) per op that is not a permutation
+    outside = []
     for layer in _inverse_order(chain):
         if isinstance(layer, PermutationLayer):
             inv = np.asarray(layer._inv(), np.int64)
@@ -413,11 +414,13 @@ def chain_train_fold(chain):
                                 NICECouplingLayer, ActNormLayer,
                                 NormalizationLayer)):
             spec.append((layer, cmap))
-        else:
-            raise UnsupportedFusedTrain(
-                f"{type(layer).__name__} is outside the fused-train "
-                "envelope (RNVP/joint/NICE couplings + ActNorm/"
-                "Normalization/Permutation only)")
+        elif type(layer).__name__ not in outside:
+            outside.append(type(layer).__name__)
+    if outside:
+        raise UnsupportedFusedTrain(
+            f"{', '.join(outside)} {'is' if len(outside) == 1 else 'are'} "
+            "outside the fused-train envelope (RNVP/joint/NICE couplings + "
+            "ActNorm/Normalization/Permutation only)")
 
     def fold(get):
         plan, tcounts, tparams, masks_dense, cparams = [], [], [], [], []

@@ -8,6 +8,12 @@ PyTorch counterpart of ``densityflows_tpu/models/glow.py``.
 - :class:`InvertibleLinearLayer`: a dense, trainable feature mixing
   W = P L U with the log-determinant read off the U diagonal. The forward
   (sampling) direction uses two triangular solves.
+- :class:`LULinearLayer`: nflows' ``LULinear`` (the mixing of Dingo's
+  flows): ``y = L U x + b`` from data to latent, L unit lower-triangular,
+  U upper-triangular with diagonal ``softplus(ũ + c) + 1e-3``, a trainable
+  bias; no permutation (a ``PermutationLayer`` beside it gives one). ``c =
+  log(e^(1 − 1e-3) − 1)`` is nflows' identity value of its ũ, so ũ = 0 is
+  diag U = 1.
 
 ``forward`` = latent → data, ``inverse`` = data → latent, both returning
 per-sample ldj of batch shape; ``forward_`` is the ldj-free sampling path.
@@ -15,8 +21,11 @@ per-sample ldj of batch shape; ``forward_`` is the ldj-free sampling path.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
@@ -24,6 +33,7 @@ from .._device import resolve_device
 __all__ = [
     "ActNormLayer", "actnorm_layer",
     "InvertibleLinearLayer", "invertible_linear_layer",
+    "LULinearLayer", "lu_linear_layer",
 ]
 
 
@@ -166,3 +176,82 @@ def invertible_linear_layer(d: int, *, generator=None,
 
     return InvertibleLinearLayer(f32(np.tril(l, -1)), f32(np.triu(u, 1)),
                                  f32(log_s), perm, sign)
+
+
+class LULinearLayer(nn.Module):
+    """nflows' ``LULinear``: data → latent ``y = L U x + b``, ldj
+    ``Σ log diag U``. ``lower`` / ``upper`` hold the strict triangles'
+    entries in ``numpy.tril_indices(d, -1)`` / ``triu_indices(d, 1)`` order,
+    ``unconstrained_diag`` ũ with ``diag U = softplus(ũ + c) + eps``, ``c =
+    log(e^(1 − eps) − 1)`` (nflows stores ũ + c: the same map and
+    gradients, with ũ = 0 at the identity), ``bias`` b. The forward
+    (sampling) direction solves the two triangles."""
+
+    def __init__(self, lower, upper, unconstrained_diag, bias, *,
+                 eps: float = 1e-3):
+        super().__init__()
+        self.lower = nn.Parameter(lower)
+        self.upper = nn.Parameter(upper)
+        self.unconstrained_diag = nn.Parameter(unconstrained_diag)
+        self.bias = nn.Parameter(bias)
+        self.eps = float(eps)
+        self.shift = math.log(math.expm1(1.0 - self.eps))
+
+    @property
+    def d(self) -> int:
+        return int(self.bias.shape[0])
+
+    def _diag(self):
+        return F.softplus(self.unconstrained_diag + self.shift) + self.eps
+
+    def _lu(self, diag):
+        d, dev, dt = self.d, self.bias.device, self.bias.dtype
+        lo = torch.tril_indices(d, d, -1, device=dev)
+        up = torch.triu_indices(d, d, 1, device=dev)
+        l = torch.eye(d, dtype=dt, device=dev).index_put(
+            (lo[0], lo[1]), self.lower)
+        u = torch.diag(diag).index_put((up[0], up[1]), self.upper)
+        return l, u
+
+    def weight(self):
+        """W = L U (data → latent ``y = x Wᵀ + b``)."""
+        l, u = self._lu(self._diag())
+        return l @ u
+
+    def inverse(self, x, theta=None):
+        """data → latent: y = (x Uᵀ) Lᵀ + b, as nflows multiplies; ldj =
+        +Σ log diag U."""
+        diag = self._diag()
+        l, u = self._lu(diag)
+        ldj = torch.log(diag).sum().expand(x.shape[:-1])
+        return (x @ u.T) @ l.T + self.bias, ldj
+
+    def _solve(self, y):
+        l, u = self._lu(self._diag())
+        batch_shape = y.shape[:-1]
+        v = (y.reshape(-1, self.d) - self.bias).T
+        v = torch.linalg.solve_triangular(l, v, upper=False,
+                                          unitriangular=True)
+        x = torch.linalg.solve_triangular(u, v, upper=True)
+        return x.T.reshape(batch_shape + (self.d,))
+
+    def forward(self, z, theta=None):
+        ldj = torch.log(self._diag()).sum().expand(z.shape[:-1])
+        return self._solve(z), -ldj
+
+    def forward_(self, z, theta=None):
+        return self._solve(z)
+
+    def summarize(self) -> str:
+        return f"LULinear          | d = {self.d} (L·U + b, trainable)"
+
+
+def lu_linear_layer(d: int, *, eps: float = 1e-3,
+                    device=None) -> LULinearLayer:
+    """nflows' identity initialisation: every leaf zero, diag U = 1."""
+    device = resolve_device(device)
+    m = d * (d - 1) // 2
+    return LULinearLayer(torch.zeros(m, device=device),
+                         torch.zeros(m, device=device),
+                         torch.zeros(d, device=device),
+                         torch.zeros(d, device=device), eps=eps)

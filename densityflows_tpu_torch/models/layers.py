@@ -36,8 +36,11 @@ from torch import nn
 from .._device import resolve_device
 from ..axes import CouplingAxes, coupling_axes
 from ..ops import coupling as C
-from ..ops.mlp import MLP, apply_mlp, count_params, init_mlp
-from ..ops.spline import n_spline_params, rq_spline
+from ..ops.mlp import (
+    MLP, ResidualNet, apply_mlp, count_params, init_mlp, init_residual_net,
+)
+from ..ops.spline import n_spline_params, rq_spline, rq_spline_nflows
+from ..utils.spans import span
 
 __all__ = [
     "RNVPCouplingLayer", "NICECouplingLayer", "JointRNVPCouplingLayer",
@@ -83,6 +86,7 @@ def _cast_in_graph(model, dtype=torch.bfloat16):
         in_net = in_net or _is_net(module)
         c = copy.copy(module)
         c.__dict__.pop("_fused_plan_cache", None)  # the originals' plans
+        c.__dict__.pop("_graph_cache", None)
         c.__dict__["_parameters"] = {
             k: (p.to(dtype) if in_net and p is not None
                 and p.is_floating_point() else p)
@@ -316,48 +320,84 @@ class NICECouplingLayer(nn.Module):
 
 class RQSCouplingLayer(nn.Module):
     """Rational-quadratic spline coupling layer (Neural Spline Flows,
-    Durkan et al. 2019; see ``ops/spline.py``). The conditioner MLP maps
+    Durkan et al. 2019; see ``ops/spline.py``). The conditioner maps
     (θ ⊕ identity dims) to ``3K−1`` raw spline parameters per transformed
     dim; the elementwise monotone spline acts on ``[-bound, bound]`` with
-    identity tails."""
+    identity tails.
 
-    def __init__(self, p_net: MLP, axes: CouplingAxes, n_bins: int = 8,
-                 bound: float = 3.0):
+    ``p_net`` is an :class:`~..ops.mlp.MLP` of ``[θ ; x_id]`` or a
+    :class:`~..ops.mlp.ResidualNet` of ``x_id`` with θ as its context.
+    ``spline_on`` says which direction evaluates the spline's closed form:
+    ``"sample"`` (latent → data; the density solves for the root, as the
+    JAX package does) or ``"density"`` (nflows' coupling transform: its
+    closed form data → latent, sampling solves for the root, in nflows'
+    arithmetic, ``ops/spline.py::rq_spline_nflows``). ``bin_divisor`` divides the
+    raw widths and heights before their softmax (nflows: √hidden for a
+    ``ResidualNet``). Each spline evaluation records a ``df.spline`` span
+    (``elems``: the transformed elements)."""
+
+    def __init__(self, p_net, axes: CouplingAxes, n_bins: int = 8,
+                 bound: float = 3.0, *, spline_on: str = "sample",
+                 bin_divisor: float = 1.0):
         super().__init__()
+        if spline_on not in ("sample", "density"):
+            raise ValueError(
+                f"spline_on must be 'sample' or 'density', got {spline_on!r}")
         self.p_net = p_net
         self.axes = axes
         self.n_bins = int(n_bins)
         self.bound = float(bound)
+        self.spline_on = spline_on
+        self.bin_divisor = float(bin_divisor)
 
     def _params(self, y, theta):
         y_id, y_af = C.split_features(y, self.axes)
-        raw = apply_mlp(self.p_net, C.nn_input(y_id, theta))
+        if isinstance(self.p_net, ResidualNet):
+            raw = self.p_net(y_id, theta)
+        else:
+            raw = apply_mlp(self.p_net, C.nn_input(y_id, theta))
         raw = raw.reshape(raw.shape[:-1] + (self.axes.transform_dim,
                                             n_spline_params(self.n_bins)))
+        if self.bin_divisor != 1.0:
+            k2 = 2 * self.n_bins
+            raw = torch.cat([raw[..., :k2] / self.bin_divisor,
+                             raw[..., k2:]], -1)
         return y_id, y_af, raw
 
-    def _transform(self, y, theta, inverse):
+    def _spline(self, y_af, raw, toward_data, with_ldj=True):
+        """The spline latent → data (``toward_data``) or data → latent."""
+        inverse = toward_data != (self.spline_on == "sample")
+        spline = rq_spline if self.spline_on == "sample" else rq_spline_nflows
+        with span("df.spline") as s:
+            if s.recording:
+                s.counts["elems"] = y_af.numel()
+            return spline(y_af, raw, bound=self.bound, inverse=inverse,
+                          with_ldj=with_ldj)
+
+    def _transform(self, y, theta, toward_data):
         y_id, y_af, raw = self._params(y, theta)
-        out, ldj_e = rq_spline(y_af, raw, bound=self.bound, inverse=inverse)
+        out, ldj_e = self._spline(y_af, raw, toward_data)
         return C.recombine_features(y_id, out, self.axes), ldj_e.sum(-1)
 
     def forward(self, z, theta):
-        return self._transform(z, theta, False)
+        return self._transform(z, theta, True)
 
     def inverse(self, x, theta):
-        return self._transform(x, theta, True)
+        return self._transform(x, theta, False)
 
     def forward_(self, z, theta):
         """ldj-free sampling path (``rq_spline(with_ldj=False)``)."""
         z_id, z_af, raw = self._params(z, theta)
-        x_af, _ = rq_spline(z_af, raw, bound=self.bound, with_ldj=False)
+        x_af, _ = self._spline(z_af, raw, True, with_ldj=False)
         return C.recombine_features(z_id, x_af, self.axes)
 
     def summarize(self) -> str:
         return (
             f"RQSCouplingLayer  | p_net > {list(self.p_net.dims)} "
             f"({count_params(self.p_net)} parameters, K={self.n_bins}, "
-            f"bound={self.bound})\n"
+            f"bound={self.bound}"
+            + (", spline on density" if self.spline_on == "density" else "")
+            + ")\n"
             f"                  | axes  > {self.axes.summarize()}"
         )
 
@@ -382,6 +422,9 @@ def coupling_layer(
     joint_conditioner: bool = False,
     n_bins: int = 8,
     bound: float = 3.0,
+    conditioner: str = "mlp",
+    batch_norm: bool = False,
+    spline_on: str = "sample",
     device=None,
 ):
     """Build a coupling layer with default conditioner MLPs.
@@ -399,7 +442,17 @@ def coupling_layer(
     ``max_log_scale`` (RNVP only, default 0 = off) soft-clamps the
     log-scale to (−M, M) via ``M·tanh(s/M)``. ``kind=RQSCouplingLayer``
     builds a spline coupling of ``n_bins`` bins on ``[-bound, bound]`` whose
-    one conditioner takes the t-net hyperparameters.
+    one conditioner takes the t-net hyperparameters, its closed form in the
+    direction ``spline_on`` (see :class:`RQSCouplingLayer`).
+
+    ``conditioner="residual"`` (spline couplings only) makes that
+    conditioner nflows' residual net (``ops/mlp.py::ResidualNet``):
+    ``n_sublayers_t`` residual blocks of width ``hidden_dim_t`` with
+    ``activation_t``, θ as the context of the first layer and of every
+    block's gate, :class:`~..ops.mlp.BatchNorm` in the blocks with
+    ``batch_norm``, initialised as nflows initialises it (``zero_init_final``
+    zeroes its output layer), and the raw bin widths and heights divided by
+    √``hidden_dim_t`` as nflows divides them.
     """
     from ..data import DataArrays  # local import to avoid a cycle
 
@@ -441,10 +494,30 @@ def coupling_layer(
     if kind is NICECouplingLayer:
         return NICECouplingLayer(
             net(out_dim, n_sublayers_t, hidden_dim_t, activation_t), axes)
+    if conditioner not in ("mlp", "residual"):
+        raise ValueError(
+            f"conditioner must be 'mlp' or 'residual', got {conditioner!r}")
+    if (conditioner == "residual" or batch_norm) \
+            and kind is not RQSCouplingLayer:
+        raise ValueError(
+            "conditioner='residual' and batch_norm are options of the spline "
+            f"coupling (kind=RQSCouplingLayer), got kind={kind.__name__}")
+    if batch_norm and conditioner != "residual":
+        raise ValueError("batch_norm needs conditioner='residual'")
     if kind is RQSCouplingLayer:
-        p_net = net(out_dim * n_spline_params(n_bins), n_sublayers_t,
-                    hidden_dim_t, activation_t)
-        return RQSCouplingLayer(p_net, axes, n_bins, float(bound))
+        n_out = out_dim * n_spline_params(n_bins)
+        if conditioner == "residual":
+            p_net = init_residual_net(
+                generator, len(axes.axis_id), n_out, axes.n,
+                hidden_dim=hidden_dim_t, n_blocks=n_sublayers_t,
+                activation=activation_t, batch_norm=batch_norm,
+                zero_final=zero_init_final, device=device)
+            divisor = float(np.sqrt(hidden_dim_t))
+        else:
+            p_net = net(n_out, n_sublayers_t, hidden_dim_t, activation_t)
+            divisor = 1.0
+        return RQSCouplingLayer(p_net, axes, n_bins, float(bound),
+                                spline_on=spline_on, bin_divisor=divisor)
     if kind is not RNVPCouplingLayer:
         raise NotImplementedError(
             f"coupling kind {getattr(kind, '__name__', kind)} is not a "

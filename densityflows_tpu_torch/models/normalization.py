@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..ops.coupling import take_last
 
 __all__ = [
     "NormalizationLayer", "normalization_layer",
@@ -76,13 +77,13 @@ class PermutationLayer(nn.Module):
         return inv.tolist()
 
     def forward(self, z, theta=None):
-        return z[..., list(self.perm)], z.new_zeros(z.shape[:-1])
+        return self.forward_(z), z.new_zeros(z.shape[:-1])
 
     def inverse(self, x, theta=None):
-        return x[..., self._inv()], x.new_zeros(x.shape[:-1])
+        return take_last(x, self._inv()), x.new_zeros(x.shape[:-1])
 
     def forward_(self, z, theta=None):
-        return z[..., list(self.perm)]
+        return take_last(z, self.perm)
 
     def summarize(self) -> str:
         return f"Permutation Layer {list(self.perm)}"

@@ -10,8 +10,12 @@ PyTorch counterpart of ``densityflows_tpu/ops/coupling.py``:
 - ldj is per-sample with the batch shape.
 
 The split/recombine is expressed as static gathers that autograd
-differentiates exactly. This module is the correctness reference of the
-whole-chain kernels and the path of chains they do not take.
+differentiates exactly. Their index tensors are made once per device
+(:func:`index_on`): an index given as a Python list would be copied to a
+CUDA device on every call, a copy that waits for the device to drain and
+that a CUDA graph cannot capture (``train.py``'s graphed steps).
+This module is the correctness reference of the whole-chain kernels and
+the path of chains they do not take.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from ..axes import CouplingAxes
 
 __all__ = [
+    "index_on",
+    "take_last",
     "split_features",
     "recombine_features",
     "nn_input",
@@ -32,11 +38,31 @@ __all__ = [
 ]
 
 
+_INDEX: dict = {}
+
+
+def index_on(idx, device) -> torch.Tensor:
+    """The int64 tensor of the static index ``idx`` on ``device``, made
+    once per index and device."""
+    key = (tuple(int(i) for i in idx), torch.device(device))
+    t = _INDEX.get(key)
+    if t is None:
+        t = _INDEX[key] = torch.tensor(key[0], dtype=torch.int64,
+                                       device=key[1])
+    return t
+
+
+def take_last(x, idx):
+    """``x[..., idx]`` for a static index ``idx`` (``index_select`` on the
+    last axis, its index tensor from :func:`index_on`)."""
+    return x.index_select(x.dim() - 1, index_on(idx, x.device))
+
+
 def split_features(x, axes: CouplingAxes):
     """Split (batch..., d) into identity and transformed parts along the
     last axis using the static index sets."""
-    x_id = x[..., list(axes.axis_id)] if axes.axis_id else x[..., :0]
-    x_af = x[..., list(axes.axis_af)] if axes.axis_af else x[..., :0]
+    x_id = take_last(x, axes.axis_id) if axes.axis_id else x[..., :0]
+    x_af = take_last(x, axes.axis_af) if axes.axis_af else x[..., :0]
     return x_id, x_af
 
 
@@ -50,8 +76,7 @@ def _inverse_perm(axes: CouplingAxes) -> list[int]:
 def recombine_features(y_id, y_af, axes: CouplingAxes):
     """Undo :func:`split_features`: place identity/transformed parts back at
     their original feature positions with one static gather."""
-    stacked = torch.cat([y_id, y_af], dim=-1)
-    return stacked[..., _inverse_perm(axes)]
+    return take_last(torch.cat([y_id, y_af], dim=-1), _inverse_perm(axes))
 
 
 def nn_input(x_id, theta):

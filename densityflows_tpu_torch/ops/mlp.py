@@ -16,10 +16,19 @@ column / row parallel pairs, with the two operators as autograd functions
 over the axis's process group — before a column-parallel layer the identity
 forward and a sum of the input gradient backward, after a row-parallel layer
 a sum of the partial products forward and the identity backward.
+
+:class:`ResidualNet` is nflows' ``ResidualNet`` (Durkan et al., "Neural
+Spline Flows", 2019), the conditioner of Dingo's spline couplings: a linear
+layer of ``[x ; context]``, residual blocks whose branch is gated by the
+context, a linear output layer. Its blocks may hold :class:`BatchNorm`
+layers, whose running statistics are buffers: they normalise by those
+statistics, and by the batch's own only inside :func:`batch_statistics`
+(the plain training program's batch losses).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -30,7 +39,8 @@ from torch import nn
 from .._device import resolve_device
 
 __all__ = ["MLP", "TensorParallelMLP", "init_mlp", "apply_mlp", "ACTIVATIONS",
-           "count_params"]
+           "count_params", "BatchNorm", "ResidualBlock", "ResidualNet",
+           "init_residual_net", "batch_statistics", "has_batch_norm"]
 
 ACTIVATIONS: dict[str, Callable] = {
     "relu": torch.relu,
@@ -261,6 +271,151 @@ def _apply_tp(mlp: TensorParallelMLP, x: torch.Tensor) -> torch.Tensor:
     return h.to(x.dtype)
 
 
-def count_params(mlp: MLP) -> int:
-    return sum(w.numel() for w in mlp.weights) + sum(
-        b.numel() for b in mlp.biases)
+def count_params(mlp) -> int:
+    return sum(p.numel() for p in mlp.parameters())
+
+
+class BatchNorm(nn.Module):
+    """``nn.BatchNorm1d`` over the last axis: ``weight`` (γ) and ``bias`` (β)
+    are parameters, ``running_mean`` / ``running_var`` buffers. It starts in
+    eval mode (the running statistics); in train mode (see
+    :func:`batch_statistics`) it normalises by the batch's mean and biased
+    variance and moves the running statistics by ``momentum`` towards the
+    batch's mean and unbiased variance."""
+
+    def __init__(self, weight, bias, running_mean, running_var, *,
+                 eps: float = 1e-3, momentum: float = 0.1):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+        self.register_buffer("running_mean", running_mean)
+        self.register_buffer("running_var", running_var)
+        self.eps, self.momentum = float(eps), float(momentum)
+        self.train(False)
+
+    def forward(self, x):
+        rows = x if x.dim() == 2 else x.reshape(-1, x.shape[-1])
+        out = F.batch_norm(rows, self.running_mean, self.running_var,
+                           self.weight, self.bias, self.training,
+                           self.momentum, self.eps)
+        return out if x.dim() == 2 else out.reshape(x.shape)
+
+
+def has_batch_norm(model) -> bool:
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+@contextlib.contextmanager
+def batch_statistics(model):
+    """Every :class:`BatchNorm` of ``model`` in train mode for the block (the
+    batch's statistics, running statistics updated), then back to its mode
+    before."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.training for m in norms]
+    for m in norms:
+        m.train(True)
+    try:
+        yield
+    finally:
+        for m, mode in zip(norms, before):
+            m.train(mode)
+
+
+class ResidualBlock(nn.Module):
+    """``t = W1 σ(BN1(W0 σ(BN0(h)) + b0)) + b1``, then ``h + t ⊙ sigmoid(Wc c
+    + bc)`` (nflows' ``ResidualBlock`` with its GLU context gate; no gate
+    without a context, no norms without batch norm). Weights (in, out)."""
+
+    def __init__(self, w0, b0, w1, b1, wc=None, bc=None, norms=None):
+        super().__init__()
+        self.norms = nn.ModuleList(norms or [])
+        self.w0, self.b0 = nn.Parameter(w0), nn.Parameter(b0)
+        self.w1, self.b1 = nn.Parameter(w1), nn.Parameter(b1)
+        self.wc = nn.Parameter(wc) if wc is not None else None
+        self.bc = nn.Parameter(bc) if bc is not None else None
+
+    def forward(self, h, context, act):
+        t = self.norms[0](h) if len(self.norms) else h
+        t = act(t) @ self.w0 + self.b0
+        if len(self.norms):
+            t = self.norms[1](t)
+        t = act(t) @ self.w1 + self.b1
+        if self.wc is not None:
+            t = t * torch.sigmoid(context @ self.wc + self.bc)
+        return h + t
+
+
+class ResidualNet(nn.Module):
+    """nflows' ``ResidualNet``: ``h = W_in [x ; c] + b_in``, the residual
+    blocks, ``W_out h + b_out``. Weights (in, out)."""
+
+    def __init__(self, w_in, b_in, blocks, w_out, b_out,
+                 activation: str = "relu"):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.w_in, self.b_in = nn.Parameter(w_in), nn.Parameter(b_in)
+        self.blocks = nn.ModuleList(blocks)
+        self.w_out, self.b_out = nn.Parameter(w_out), nn.Parameter(b_out)
+        self.activation = activation
+
+    @property
+    def hidden_features(self) -> int:
+        return int(self.w_in.shape[1])
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        """Widths [in + context, hidden, out]."""
+        return (int(self.w_in.shape[0]), self.hidden_features,
+                int(self.w_out.shape[1]))
+
+    def forward(self, x, context):
+        act = ACTIVATIONS[self.activation]
+        h = torch.cat([x, context], dim=-1) @ self.w_in + self.b_in
+        for block in self.blocks:
+            h = block(h, context, act)
+        return h @ self.w_out + self.b_out
+
+
+def init_residual_net(generator, in_features: int, out_features: int,
+                      context_features: int, *, hidden_dim: int = 32,
+                      n_blocks: int = 2, activation: str = "relu",
+                      batch_norm: bool = False, zero_final: bool = False,
+                      device=None) -> ResidualNet:
+    """A :class:`ResidualNet` initialised as nflows initialises it: every
+    linear layer ``nn.Linear``'s uniform ±1/√fan_in (weights and biases),
+    each block's second one ±1e-3; batch norm γ = 1, β = 0, running mean 0
+    and variance 1 (eps 1e-3, momentum 0.1). ``zero_final=True`` zeroes the
+    output layer. A zero-width context has no gates."""
+    device = resolve_device(device)
+    gdev = generator.device if generator is not None else device
+
+    def uniform(shape, bound):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=gdev)
+        return ((2.0 * u - 1.0) * bound).to(device)
+
+    def linear(d_in, d_out, bound=None):
+        bound = 1.0 / math.sqrt(d_in) if bound is None else bound
+        return uniform((d_in, d_out), bound), uniform((d_out,), bound)
+
+    h = int(hidden_dim)
+    w_in, b_in = linear(in_features + context_features, h)
+    blocks = []
+    for _ in range(int(n_blocks)):
+        norms = [BatchNorm(torch.ones(h, device=device),
+                           torch.zeros(h, device=device),
+                           torch.zeros(h, device=device),
+                           torch.ones(h, device=device))
+                 for _ in range(2)] if batch_norm else None
+        w0, b0 = linear(h, h)
+        w1, b1 = linear(h, h, 1e-3)
+        wc, bc = (linear(context_features, h) if context_features
+                  else (None, None))
+        blocks.append(ResidualBlock(w0, b0, w1, b1, wc, bc, norms))
+    if zero_final:
+        w_out = torch.zeros(h, out_features, device=device)
+        b_out = torch.zeros(out_features, device=device)
+    else:
+        w_out, b_out = linear(h, out_features)
+    return ResidualNet(w_in, b_in, blocks, w_out, b_out, activation)

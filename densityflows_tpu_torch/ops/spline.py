@@ -17,14 +17,22 @@ them with a one-hot contraction (a TPU workaround); compiled by XLA, as every
 entry point of that package runs it, the contraction is a select, and the
 NaN pattern of output and ldj is the same as the gather's: an element is NaN
 where a value of ITS bin is (a NaN elsewhere in its K-vector stays out).
+
+:func:`rq_spline_nflows` is nflows' ``unconstrained_rational_quadratic_spline``
+with linear tails, in nflows' arithmetic (knots pinned at ±B, bin sizes as
+knot differences, boundary derivatives through the softplus of a constant,
+``log`` of numerator less twice the ``log`` of the denominator): the
+transform of nflows' spline couplings, and so of Dingo's flows.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rq_spline", "n_spline_params"]
+__all__ = ["rq_spline", "rq_spline_nflows", "n_spline_params"]
 
 _MIN_BIN = 1e-3
 _MIN_DERIV = 1e-3
@@ -112,3 +120,66 @@ def rq_spline(inputs, params, *, bound: float = 3.0, inverse: bool = False,
     if inverse:
         ldj = -ldj
     return out, ldj
+
+
+def _nflows_knots(raw, lo, hi, minimum):
+    """Cumulative knots on [lo, hi] (ends pinned) and the bin sizes."""
+    k = raw.shape[-1]
+    frac = minimum + (1.0 - minimum * k) * torch.softmax(raw, dim=-1)
+    cum = torch.cumsum(frac, dim=-1)
+    cum = (hi - lo) * cum[..., :-1] + lo
+    edge = torch.full_like(cum[..., :1], lo)
+    cum = torch.cat([edge, cum, torch.full_like(edge, hi)], dim=-1)
+    return cum, cum[..., 1:] - cum[..., :-1]
+
+
+def rq_spline_nflows(inputs, params, *, bound: float = 1.0,
+                     inverse: bool = False, with_ldj: bool = True):
+    """nflows' RQ spline on ``[-bound, bound]``, identity outside:
+    ``(outputs, per-element log|dy/dx|)`` (``None`` without ``with_ldj``).
+    ``params``: (…, 3K−1) raw widths, heights and inner derivatives, in
+    nflows' order, after any scaling of the widths and heights."""
+    k = (params.shape[-1] + 1) // 3
+    uw, uh = params[..., :k], params[..., k:2 * k]
+    const = math.log(math.expm1(1.0 - _MIN_DERIV))
+    ud = F.pad(params[..., 2 * k:], (1, 1), value=const)
+    inside = (inputs >= -bound) & (inputs <= bound)
+    xc = torch.clamp(inputs, -bound, bound)
+    cw, widths = _nflows_knots(uw, -bound, bound, _MIN_BIN)
+    ch, heights = _nflows_knots(uh, -bound, bound, _MIN_BIN)
+    deriv = _MIN_DERIV + F.softplus(ud)
+    locs = (ch if inverse else cw).detach().clone()
+    locs[..., -1] += 1e-6
+    idx = (torch.sum(xc[..., None] >= locs, dim=-1) - 1)[..., None]
+
+    def at(a):
+        return a.gather(-1, idx)[..., 0]
+
+    x0, w, y0, hh = at(cw), at(widths), at(ch), at(heights)
+    delta = hh / w
+    d0, d1 = at(deriv[..., :-1]), at(deriv[..., 1:])
+    if not inverse:
+        theta = (xc - x0) / w
+        tt = theta * (1 - theta)
+        numer = hh * (delta * theta ** 2 + d0 * tt)
+        denom = delta + (d0 + d1 - 2 * delta) * tt
+        out = y0 + numer / denom
+    else:
+        dy = xc - y0
+        a = dy * (d0 + d1 - 2 * delta) + hh * (delta - d0)
+        b = hh * d0 - dy * (d0 + d1 - 2 * delta)
+        c = -delta * dy
+        disc = torch.clamp(b ** 2 - 4 * a * c, min=0.0)
+        theta = (2 * c) / (-b - torch.sqrt(disc))
+        tt = theta * (1 - theta)
+        denom = delta + (d0 + d1 - 2 * delta) * tt
+        out = theta * w + x0
+    if not with_ldj:
+        return torch.where(inside, out, inputs), None
+    dnum = delta ** 2 * (d1 * theta ** 2 + 2 * delta * tt
+                         + d0 * (1 - theta) ** 2)
+    lad = torch.log(dnum) - 2 * torch.log(denom)
+    if inverse:
+        lad = -lad
+    return (torch.where(inside, out, inputs),
+            torch.where(inside, lad, torch.zeros_like(lad)))

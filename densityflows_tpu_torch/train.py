@@ -47,6 +47,22 @@ the ``model`` axis's replicated leaves agree by construction. The step
 kernel declines such a mesh ("non-DP mesh axes"), in
 ``flow.fused_decline_reason``.
 
+Graphed steps: on a CUDA device the plain program replays each Adam step
+from three CUDA graphs (:class:`_GraphedSteps`: the batch loss, its
+gradient, the update written back to the moments; made once per model and
+batch shape, batch norm's running statistics restored after the warm-up)
+where the chain holds a spline coupling or an LU linear layer (which no
+kernel runs, so no kernel's check holds their eager steps), every element
+is of a type whose forward enqueues no host copy, the optimizer is
+``adam(...)`` and no mesh, remat, mixed precision, skipped step or
+per-layer coupling kernel is in play (:func:`_graph_reason`); the
+evaluations run eagerly. A step then costs the host a few launches instead
+of one per operation: the same kernels, in the same order. The model keeps
+the graphs of its last two batch shapes, and their memory pool (a step's
+activations: about 11 GB for Dingo's flow at batch 4096), for the calls
+that follow, until its trainable leaves are replaced or it is deleted; a
+deep copy or a pickle starts without them.
+
 Precision and memory options of the plain program: ``remat=True`` runs
 each layer of a chain under ``torch.utils.checkpoint`` (its activations are
 recomputed in the backward pass), ``mixed_precision=True`` casts the
@@ -59,8 +75,18 @@ decline recorded, and ``fused_kernel=True`` with either raises.
 While a ``torch.profiler`` session records, a call records its stages as
 spans of ``utils/spans.py`` under its ``df.train`` root: ``df.gather``,
 ``df.fold``, ``df.upload`` (``bytes``), ``df.enqueue``, ``df.eval``,
-``df.wait``, ``df.unfold`` on the kernel path, ``df.gather`` and
-``df.upload`` in the plain program.
+``df.wait``, ``df.unfold`` on the kernel path; ``df.gather``, ``df.upload``,
+per step ``df.forward`` (``rows``), ``df.backward`` and ``df.adam``, and per
+epoch ``df.eval`` in the plain program.
+
+Batch norm (``ops/mlp.py::BatchNorm``, in nflows' residual conditioners):
+a plain step's batch loss normalises by the batch's own statistics and
+moves the running ones (``batch_statistics``); every evaluation, in
+training and outside it, uses the running statistics. The plain program
+hands such a model the last, partial batch of an epoch unpadded, so that
+its statistics are those of the real rows. Data-parallel and remat runs
+of such a model raise: a rank's statistics would be its shard's, and a
+recomputed forward would move the running statistics twice.
 """
 
 from __future__ import annotations
@@ -87,6 +113,10 @@ from .models.fused_train import (
     load_leaves_,
     train_fused,
     trainable_leaves,
+)
+from .ops.mlp import (
+    MLP, BatchNorm, ResidualBlock, ResidualNet, batch_statistics,
+    has_batch_norm,
 )
 from .ops.step_kernels import folded_nll
 from .parallel.mesh import check_mesh
@@ -141,23 +171,30 @@ class Adam:
                          [torch.zeros_like(p) for p in params])
 
     def update(self, grads, state: AdamState, params=None):
+        count = state.count + 1
+        updates, mu, nu = self._step(
+            list(grads), list(state.mu), list(state.nu),
+            *_bias_corrections(self.b1, self.b2, count))
+        return updates, AdamState(count, mu, nu)
+
+    def _step(self, grads, mu, nu, bc1, bc2):
+        """``(updates, new mu, new nu)`` from the moments ``mu`` / ``nu``
+        (left as they are) and the bias corrections ``bc1`` / ``bc2``:
+        numbers, or device scalars where a graphed step replays it."""
         # one multi-tensor launch per operation over all the leaves; each
         # element is rounded as b1·m + (1 − b1)·g, b2·v + (1 − b2)·g²,
         # −lr · ((m / bc1) / (√(v / bc2) + eps)) written out leaf by leaf
-        count = state.count + 1
-        bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
-        grads = list(grads)
-        mu = torch._foreach_add(torch._foreach_mul(list(state.mu), self.b1),
+        mu = torch._foreach_add(torch._foreach_mul(mu, self.b1),
                                 torch._foreach_mul(grads, 1.0 - self.b1))
         nu = torch._foreach_add(
-            torch._foreach_mul(list(state.nu), self.b2),
+            torch._foreach_mul(nu, self.b2),
             torch._foreach_mul(torch._foreach_mul(grads, grads),
                                1.0 - self.b2))
         den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
         torch._foreach_add_(den, self.eps)
         updates = list(torch._foreach_div(torch._foreach_div(mu, bc1), den))
         torch._foreach_mul_(updates, -self.learning_rate)
-        return updates, AdamState(count, list(mu), list(nu))
+        return updates, list(mu), list(nu)
 
     def __repr__(self):
         return (f"adam(learning_rate={self.learning_rate}, b1={self.b1}, "
@@ -248,19 +285,177 @@ def _global_denominator(mask, mesh, denom=None):
     return denom
 
 
-def _autograd(model, loss_fn):
+def _autograd(model, loss_fn, rows=None):
     """``loss_fn()`` and its autograd gradients with respect to the model's
     trainable leaves (zeros where a leaf is empty or unused): ``(detached
-    loss, leaves, grads)``."""
+    loss, leaves, grads)``; ``rows`` counts the batch's rows in the
+    ``df.forward`` span."""
     leaves = trainable_leaves(model)
     wrt = [p for p in leaves if p.numel()]
     with torch.enable_grad():
-        loss = loss_fn()
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        with span("df.forward") as s:
+            if s.recording and rows is not None:
+                s.counts["rows"] = int(rows)
+            loss = loss_fn()
+        with span("df.backward"):
+            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = [(next(got) if p.numel() else None) for p in leaves]
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), leaves, grads
+
+
+class _GraphCache(dict):
+    """A model's graphed steps; a copy of the model starts without any (the
+    graphs hold the original's tensors)."""
+
+    def __deepcopy__(self, memo):
+        return _GraphCache()
+
+    def __reduce__(self):
+        return (_GraphCache, ())
+
+
+def _graph_reason(model, base, optimizer) -> str | None:
+    """Why the plain program's steps of ``model`` are not replayed from
+    CUDA graphs (None: they are): the chain must hold a spline coupling or
+    an LU linear layer, every element must be of a type whose forward and
+    backward enqueue no host copy and no host wait, every parameter
+    non-empty, and the optimizer this package's Adam."""
+    from .models.blocks import CouplingBlock
+    from .models.chains import FlowChain
+    from .models.distributions import StandardNormal
+    from .models.glow import ActNormLayer, LULinearLayer
+    from .models.layers import (
+        NICECouplingLayer, RNVPCouplingLayer, RQSCouplingLayer, use_fused)
+    from .models.normalization import NormalizationLayer, PermutationLayer
+
+    if type(optimizer) is not Adam:
+        return "an optimizer other than adam(...)"
+    if use_fused(0):
+        return "per-layer coupling kernels (set_fused_kernels(True))"
+    if not isinstance(base, StandardNormal):
+        return f"base {type(base).__name__}"
+    safe = (FlowChain, CouplingBlock, RNVPCouplingLayer, NICECouplingLayer,
+            RQSCouplingLayer, LULinearLayer, PermutationLayer, ActNormLayer,
+            NormalizationLayer, MLP, ResidualNet, ResidualBlock, BatchNorm,
+            torch.nn.ModuleList, torch.nn.ParameterList)
+    for m in model.modules():
+        if type(m) not in safe:
+            return f"{type(m).__name__} is not known to be graph-safe"
+    if not any(isinstance(m, (RQSCouplingLayer, LULinearLayer))
+               for m in model.modules()):
+        return ("no spline coupling or LU linear layer: the chain's eager "
+                "steps are what the kernels' checks hold them against")
+    if any(p.numel() == 0 for p in model.parameters()):
+        return "an empty parameter"
+    return None
+
+
+class _GraphedSteps:
+    """A model's Adam steps replayed from CUDA graphs. Per batch shape three
+    graphs over static inputs: the batch loss (batch norm in train mode),
+    its gradient (``torch.autograd.grad``) and :meth:`Adam._step` with its
+    add, written back to moments that the shapes share. A shape's graphs are made at its first
+    step (two warm-up passes of the loss and its gradient, batch norm's
+    running statistics put back after them, then the captures); the model
+    keeps them (``_graph_cache``: the last two shapes) while its parameters
+    stay where they are and the optimizer's hyperparameters stay the
+    same."""
+
+    def __init__(self, model, optimizer, leaves, key):
+        self.model, self.opt, self.leaves, self.key = (model, optimizer,
+                                                       leaves, key)
+        self.mu = [torch.zeros_like(p) for p in leaves]
+        self.nu = [torch.zeros_like(p) for p in leaves]
+        self.bc = [torch.ones((), device=leaves[0].device) for _ in range(2)]
+        self.count = 0
+        self.shapes = {}
+
+    @classmethod
+    def of(cls, model, optimizer):
+        leaves = trainable_leaves(model)
+        key = (tuple(p.data_ptr() for p in leaves), optimizer.learning_rate,
+               optimizer.b1, optimizer.b2, optimizer.eps)
+        cache = model.__dict__.setdefault("_graph_cache", _GraphCache())
+        steps = cache.get("steps")
+        if steps is None or steps.key != key:
+            cache.clear()
+            steps = cache["steps"] = cls(model, optimizer, leaves, key)
+        return steps
+
+    def load(self, opt_state):
+        """Continue ``opt_state`` (None: zero moments, no step yet)."""
+        if opt_state is None:
+            torch._foreach_zero_(self.mu)
+            torch._foreach_zero_(self.nu)
+            self.count = 0
+        else:
+            torch._foreach_copy_(self.mu, list(opt_state.mu))
+            torch._foreach_copy_(self.nu, list(opt_state.nu))
+            self.count = int(opt_state.count)
+
+    def state(self):
+        """A copy of the state, as :meth:`Adam.update` returns one."""
+        return AdamState(self.count, list(torch._foreach_mul(self.mu, 1.0)),
+                         list(torch._foreach_mul(self.nu, 1.0)))
+
+    def _capture(self, base, x, theta, mask):
+        model = self.model
+        static = [t.clone() for t in (x, theta, mask)]
+        saved = [b.detach().clone() for b in model.buffers()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), batch_statistics(model), \
+                torch.enable_grad():
+            for _ in range(2):
+                torch.autograd.grad(masked_nll_loss(model, base, *static),
+                                    self.leaves)
+        torch.cuda.current_stream().wait_stream(side)
+        if saved:
+            with torch.no_grad():
+                torch._foreach_copy_(list(model.buffers()), saved)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        with batch_statistics(model), torch.enable_grad():
+            with torch.cuda.graph(graphs[0], pool=pool):
+                loss = masked_nll_loss(model, base, *static)
+            with torch.cuda.graph(graphs[1], pool=pool):
+                grads = torch.autograd.grad(loss, self.leaves)
+        with torch.cuda.graph(graphs[2], pool=pool), torch.no_grad():
+            updates, mu, nu = self.opt._step(list(grads), self.mu, self.nu,
+                                             *self.bc)
+            torch._foreach_copy_(self.mu, mu)
+            torch._foreach_copy_(self.nu, nu)
+            torch._foreach_add_(self.leaves, updates)
+        # the graphs' outputs stay referenced with them
+        return static, graphs, (loss.detach(), grads)
+
+    def step(self, base, x, theta, rows, mask):
+        """One Adam step on the rows ``rows`` of ``x`` / ``theta``."""
+        key = (int(rows.shape[0]), tuple(x.shape[1:]), tuple(theta.shape[1:]))
+        entry = self.shapes.get(key)
+        if entry is None:
+            if len(self.shapes) >= 2:
+                del self.shapes[next(iter(self.shapes))]
+            entry = self.shapes[key] = self._capture(
+                base, x[rows], theta[rows], mask)
+        static, graphs, _ = entry
+        with span("df.forward") as s:
+            if s.recording:
+                s.counts["rows"] = int(rows.shape[0])
+            torch.index_select(x, 0, rows, out=static[0])
+            torch.index_select(theta, 0, rows, out=static[1])
+            static[2].copy_(mask)
+            graphs[0].replay()
+        with span("df.backward"):
+            graphs[1].replay()
+        with span("df.adam"):
+            self.count += 1
+            for t, v in zip(self.bc, _bias_corrections(
+                    self.opt.b1, self.opt.b2, self.count)):
+                t.fill_(v)
+            graphs[2].replay()
 
 
 def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None,
@@ -269,7 +464,8 @@ def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None,
     this rank's shard: the loss is normalized by the global denominator, and
     loss and gradients are summed over the ranks (one all-reduce of one
     buffer), which gives every rank the whole batch's values. ``remat`` /
-    ``mixed_precision``: as in :func:`masked_nll_loss`."""
+    ``mixed_precision``: as in :func:`masked_nll_loss`. Batch norm takes the
+    statistics of the rows of ``x``."""
     def loss_fn():
         if mesh is None and denom is None:
             return masked_nll_loss(model, base, x, theta, mask, remat=remat,
@@ -278,10 +474,21 @@ def _loss_and_grads(model, base, x, theta, mask, mesh=None, denom=None,
         den = torch.clamp(_global_denominator(mask, mesh, denom), min=1e-12)
         return -((base.log_prob(z) + ldj) * mask).sum() / den
 
-    loss, leaves, grads = _autograd(model, loss_fn)
+    with batch_statistics(model):
+        loss, leaves, grads = _autograd(model, loss_fn, x.shape[0])
     if mesh is not None:
         loss, leaves, grads = _reduce_grads(mesh, loss, leaves, grads)
     return loss, leaves, grads
+
+
+def _apply_update(optimizer, grads, opt_state, leaves):
+    """One optimizer update of ``leaves``, in place, in a ``df.adam`` span;
+    returns the new state."""
+    with span("df.adam"):
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
+        with torch.no_grad():
+            torch._foreach_add_(leaves, list(updates))
+    return opt_state
 
 
 def _reduce_grads(mesh, loss, leaves, grads):
@@ -318,9 +525,7 @@ def make_train_step(optimizer, *, remat: bool = False,
         loss, leaves, grads = _loss_and_grads(model, base, x, theta, mask,
                                               mesh, denom, remat,
                                               mixed_precision)
-        updates, opt_state = optimizer.update(grads, opt_state, leaves)
-        with torch.no_grad():
-            torch._foreach_add_(leaves, list(updates))
+        opt_state = _apply_update(optimizer, grads, opt_state, leaves)
         return model, opt_state, loss
 
     return train_step
@@ -359,6 +564,7 @@ def make_train_program(
     track_best: bool = False,
     guard_nonfinite: bool = False,
     mesh=None,
+    graphed: bool = False,
 ):
     """Build the plain multi-epoch training program.
 
@@ -388,7 +594,16 @@ def make_train_program(
     - ``remat`` / ``mixed_precision``: the batch losses as in
       :func:`masked_nll_loss`; the epoch evaluations stay plain float32
       (the histories are the record).
+
+    A model with batch norm gets the last, partial batch of an epoch
+    unpadded (its statistics over the real rows only). ``graphed=True``
+    replays each step from CUDA graphs (module docstring; the caller checks
+    :func:`_graph_reason`).
     """
+    if graphed and (mesh is not None or remat or mixed_precision
+                    or guard_nonfinite or type(optimizer) is not Adam):
+        raise ValueError("graphed steps run Adam on one device without "
+                         "remat, mixed precision or skipped steps")
     check_mesh(mesh)
     local = slice(None)
     if mesh is not None:
@@ -402,29 +617,38 @@ def make_train_program(
         n_batches, idx, pad_mask = _batch_order(
             x, batchsize, epochs, shuffle, generator, epoch_perms)
         ones_t, ones_v = x.new_ones(n), x.new_ones(nv)
+        # the real rows of the last batch, for a model with batch norm
+        last = n - (n_batches - 1) * batchsize \
+            if has_batch_norm(model) else batchsize
         tls, vls, skips = [], [], []
+        steps = None
+        if graphed:
+            steps = _GraphedSteps.of(model, optimizer)
+            steps.load(opt_state)
         best_vl = float("inf")
         best_values = ([p.detach().clone() for p in trainable_leaves(model)]
                        if track_best else None)
         for e in range(epochs):
             e_skips = 0
             for b in range(n_batches):
-                sl = slice(b * batchsize, (b + 1) * batchsize)
+                size = last if b == n_batches - 1 else batchsize
+                sl = slice(b * batchsize, b * batchsize + size)
                 rows = idx[e, sl][local]
                 m = pad_mask[sl][local]
                 if weighted:
                     m = m * w[rows]
+                if steps is not None:
+                    steps.step(base, x, theta, rows, m)
+                    continue
                 loss, leaves, grads = _loss_and_grads(
                     model, base, x[rows], theta[rows], m, mesh,
                     remat=remat, mixed_precision=mixed_precision)
                 if guard_nonfinite and not _all_finite(loss, grads):
                     e_skips += 1
                     continue
-                updates, opt_state = optimizer.update(grads, opt_state,
-                                                      leaves)
-                with torch.no_grad():
-                    torch._foreach_add_(leaves, list(updates))
-            with torch.no_grad():
+                opt_state = _apply_update(optimizer, grads, opt_state,
+                                          leaves)
+            with span("df.eval"), torch.no_grad():
                 tl = float(masked_nll_loss(model, base, x, theta,
                                            w if weighted else ones_t))
                 vl = float(masked_nll_loss(model, base, x_valid, theta_valid,
@@ -436,6 +660,8 @@ def make_train_program(
             tls.append(tl)
             vls.append(vl)
             skips.append(e_skips)
+        if steps is not None:
+            opt_state = steps.state()
         out = [model, opt_state, np.asarray(tls, np.float32),
                np.asarray(vls, np.float32)]
         if track_best:
@@ -1001,6 +1227,11 @@ def train(
     raises; nothing turns such a failure into a run on the other path.
     """
     check_mesh(mesh)
+    if has_batch_norm(flow.model) and (mesh is not None or remat):
+        raise ValueError(
+            "a model with batch norm trains on one device without remat: "
+            "each rank would normalise by its shard's statistics, and a "
+            "recomputed forward would move the running statistics twice")
     requested = fused_kernel
     # Adam hyperparameters the kernel can honor: None → Adam(1e-3); an
     # adam(...) → its lr/b1/b2/eps. Exact-type check: an Adam SUBCLASS may
@@ -1206,10 +1437,14 @@ def train(
     if opt_state is None:
         opt_state = optimizer.init(trainable_leaves(model))
 
+    graphed = (xt.is_cuda and mesh is None and not remat
+               and not mixed_precision and not skip_nonfinite
+               and _graph_reason(model, flow.base, optimizer) is None)
     program = make_train_program(
         optimizer, batchsize, epochs, shuffle, remat=remat,
         mixed_precision=mixed_precision, weighted=weights is not None,
-        track_best=_track_best, guard_nonfinite=skip_nonfinite, mesh=mesh)
+        track_best=_track_best, guard_nonfinite=skip_nonfinite, mesh=mesh,
+        graphed=graphed)
     t0 = time.perf_counter()
     if weights is not None:
         out = program(model, opt_state, flow.base, xt, tht, w_train, xv, thv,

@@ -21,6 +21,12 @@ The leaf order of an element is the field order of the JAX dataclass:
 ``PermutationLayer`` and ``StandardNormal``: none; containers: their
 children in order.
 
+Elements with no counterpart in that format — ``LULinearLayer``, a
+``ResidualNet`` conditioner and its batch norms, a spline coupling in
+nflows' direction or with divided bin widths — have a leaf order (their
+parameters make up ``trainable_leaves``) but no spec: saving a flow that
+holds one raises ``NotImplementedError`` before anything is written.
+
 Dtypes: float32, and bfloat16 for the conditioners that
 ``models.layers.cast_conditioners`` casts. A bfloat16 leaf is stored as its
 2-byte raw values (``|V2`` in the npz, the bytes the JAX package writes) and
@@ -69,7 +75,7 @@ from ..models.distributions import (
 )
 from ..models.embedding import EmbeddedChain
 from ..models.flow import Flow
-from ..models.glow import ActNormLayer, InvertibleLinearLayer
+from ..models.glow import ActNormLayer, InvertibleLinearLayer, LULinearLayer
 from ..models.layers import (
     JointRNVPCouplingLayer,
     NICECouplingLayer,
@@ -80,7 +86,9 @@ from ..models.normalization import (
     LogitLayer, NormalizationLayer, PermutationLayer,
 )
 from ..ops.made import MaskedMLP, made_masks
-from ..ops.mlp import MLP, TensorParallelMLP
+from ..ops.mlp import (
+    MLP, BatchNorm, ResidualBlock, ResidualNet, TensorParallelMLP,
+)
 
 __all__ = [
     "save_flow", "load_flow", "save_ensemble", "load_ensemble",
@@ -333,14 +341,37 @@ register_element(
 )
 
 
+def _no_spec(what):
+    raise NotImplementedError(
+        f"{what} has no counterpart in the JAX package's checkpoint format; "
+        "save_flow / save_element cannot write a flow that holds it")
+
+
+def _rqs_spec(el):
+    if el.spline_on != "sample" or el.bin_divisor != 1.0:
+        _no_spec("a spline coupling with spline_on='density' or a "
+                 "bin_divisor")
+    return {"p_net": element_spec(el.p_net), "axes": _axes_spec(el.axes),
+            "n_bins": int(el.n_bins), "bound": float(el.bound)}
+
+
+for _cls, _children in (
+        (LULinearLayer, lambda el: [el.lower, el.upper,
+                                    el.unconstrained_diag, el.bias]),
+        (BatchNorm, lambda el: [el.weight, el.bias, el.running_mean,
+                                el.running_var]),
+        (ResidualBlock, lambda el: list(el.norms) + [
+            el.w0, el.b0, el.w1, el.b1]
+            + ([el.wc, el.bc] if el.wc is not None else [])),
+        (ResidualNet, lambda el: [el.w_in, el.b_in] + list(el.blocks)
+            + [el.w_out, el.b_out])):
+    register_element(_cls, lambda el: _no_spec(type(el).__name__),
+                     lambda s, dev: _no_spec(s["type"]), children=_children)
+
+
 register_element(
     RQSCouplingLayer,
-    lambda el: {
-        "p_net": element_spec(el.p_net),
-        "axes": _axes_spec(el.axes),
-        "n_bins": int(el.n_bins),
-        "bound": float(el.bound),
-    },
+    _rqs_spec,
     lambda s, dev: RQSCouplingLayer(
         element_from_spec(s["p_net"], dev), _axes_from_spec(s["axes"]),
         s["n_bins"], s["bound"]),
@@ -584,10 +615,11 @@ def save_element(directory: str, el, *, erase: bool = False) -> None:
             "save_flow, which joins them over the mesh's 'model' axis, or "
             "with utils.orbax_ckpt.save_flow_orbax, which writes each rank's "
             "shards")
+    spec = element_spec(el)
     _prepare_dir(directory, erase)
     with open(os.path.join(directory, "spec.json"), "w") as f:
-        json.dump({"format_version": _FORMAT_VERSION,
-                   "spec": element_spec(el)}, f, indent=1)
+        json.dump({"format_version": _FORMAT_VERSION, "spec": spec}, f,
+                  indent=1)
     arrays = {_leaf_key(i): _leaf_array(leaf)
               for i, leaf in enumerate(element_leaves(el))}
     np.savez(os.path.join(directory, "arrays.npz"), **arrays)
@@ -748,6 +780,7 @@ def save_flow(directory: str, flow: Flow, opt_state=None, *,
         model, opt_state = _gather_tp(model, opt_state)
         if nets[0].mesh.model_rank != 0:
             return
+    element_spec(model)   # raises for an element the format cannot hold
     _prepare_dir(directory, erase)
     save_element(os.path.join(directory, "model"), model, erase=erase)
     save_element(os.path.join(directory, "base"), flow.base, erase=erase)

@@ -33,6 +33,15 @@ TRAIN_STAGES = {
 }
 
 
+def _plain_stages(data, flow, epochs, batchsize):
+    """The plain program's stages: the gather and upload, then per step the
+    loss, its gradient and the update, and per epoch the evaluation."""
+    n = data.normalized_training_data(flow.metadata)[0].shape[0]
+    steps = -(-n // batchsize)
+    return TRAIN_STAGES["plain"] + epochs * (
+        steps * ["df.forward", "df.backward", "df.adam"] + ["df.eval"])
+
+
 @pytest.fixture
 def case():
     rng = np.random.default_rng(3)
@@ -158,7 +167,9 @@ def test_train_records_its_stages_and_the_bytes_uploaded(monkeypatch, case,
         dt.train(flow, data, epochs=2, batchsize=32, verbose=False,
                  fused_kernel=route != "plain")
     (group,) = _calls(S.recorded(t0, time.time_ns()))
-    root = _check_call(group, "df.train", TRAIN_STAGES[route])
+    root = _check_call(group, "df.train", (
+        _plain_stages(data, flow, 2, 32) if route == "plain"
+        else TRAIN_STAGES[route]))
     assert flow.fused_kernel_mode == (None if route == "plain" else route)
     assert root.counts == {}
     assert all(s.parent == root.index for s in group[1:])
@@ -171,8 +182,12 @@ def test_train_records_its_stages_and_the_bytes_uploaded(monkeypatch, case,
     enqueues = [s.counts for s in group if s.name == "df.enqueue"]
     assert enqueues == ([{"tc": 0}] if route == "stream"
                         else [{}] * len(enqueues))
+    # each plain step counts its batch's rows (the last batch padded)
+    steps = _plain_stages(data, flow, 2, 32).count("df.forward")
+    assert [s.counts for s in group if s.name == "df.forward"] == (
+        [{"rows": 32}] * steps if route == "plain" else [])
     assert all(s.counts == {} for s in group
-               if s.name not in ("df.upload", "df.enqueue"))
+               if s.name not in ("df.upload", "df.enqueue", "df.forward"))
 
 
 def test_a_train_call_inside_another_is_its_stage(case):
@@ -187,9 +202,9 @@ def test_a_train_call_inside_another_is_its_stage(case):
     root = group[0]
     inner = [s for s in group if s.name == "df.train" and s is not root]
     assert [s.parent for s in inner] == [root.index] * 2
-    for outer in inner:
+    for outer, epochs in zip(inner, (10, 2)):
         stages = [s.name for s in group if s.parent == outer.index]
-        assert stages == TRAIN_STAGES["plain"]
+        assert stages == _plain_stages(data, flow, epochs, 64)
 
 
 def test_spans_lie_within_the_profilers_events_for_them(case):
