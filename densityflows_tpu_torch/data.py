@@ -20,9 +20,12 @@ last axis, partitioning along axis 0.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
+
+from .utils.spans import span
 
 __all__ = [
     "dflt_theta",
@@ -202,6 +205,69 @@ class DataArrays:
         x, th = self.validation_data()
         return x, normalize_input(th, metadata.theta_min, metadata.theta_max)
 
+    def normalized_splits_on(self, metadata: MetaData, device, weights=None):
+        """``(x_train, th_train, x_valid, th_valid, w_train, w_valid)``: the
+        splits of :meth:`normalized_training_data` /
+        :meth:`normalized_validation_data` and the rows of ``weights`` (per
+        raw row; None: ``w_train`` and ``w_valid`` are None) as float32
+        tensors on ``device``, the same bits as the host getters followed by
+        a float32 copy.
+
+        Where the two splits hold at least half of the rows, their indices
+        lie in ``[0, rows)`` and θ and its bounds are float32 or float64, it
+        copies the raw rows, θ and the index arrays once and picks and
+        normalizes the splits on ``device``, θ in the dtype NumPy would use;
+        else (a large testing split, say) NumPy gathers them on the host.
+        Spans: ``df.upload`` (``bytes``) around the copies, ``df.gather``
+        (``dev``: 1 on ``device``, 0 on the host) around the gather."""
+        n_rows = self.x.shape[0]
+        w = None
+        if weights is not None:
+            w = np.asarray(weights, np.float32).reshape(-1)
+            if w.shape[0] != n_rows:
+                raise ValueError(
+                    f"weights must have one entry per data row "
+                    f"({n_rows}), got {w.shape[0]}")
+        tr = np.asarray(self.partition.training)
+        va = np.asarray(self.partition.validation)
+        if _gathers_on_device(tr, va, n_rows, self.theta, metadata):
+            return self._splits_on_device(metadata, device, w, tr, va)
+        with span("df.gather", dev=0):
+            x_t, th_t = self.normalized_training_data(metadata)
+            x_v, th_v = self.normalized_validation_data(metadata)
+            w_t, w_v = (None, None) if w is None else (w[tr], w[va])
+        with span("df.upload") as up:
+            out = tuple(None if a is None else _put(a, device)
+                        for a in (x_t, th_t, x_v, th_v, w_t, w_v))
+            if up.recording:
+                up.counts["bytes"] = _nbytes(*out)
+        return out
+
+    def _splits_on_device(self, metadata, device, w, tr, va):
+        """:meth:`normalized_splits_on` on ``device``: the raw arrays live
+        until the return."""
+        with span("df.upload") as up:
+            x = _put(self.x, device)
+            th = _as_tensor(np.ascontiguousarray(self.theta), device)
+            t_min = _as_tensor(metadata.theta_min, device)
+            t_max = _as_tensor(metadata.theta_max, device)
+            idx = [_as_tensor(np.asarray(i, np.int64), device)
+                   for i in (tr, va)]
+            w = None if w is None else _as_tensor(w, device)
+            if up.recording:
+                up.counts["bytes"] = _nbytes(x, th, t_min, t_max, *idx, w)
+        dtype = torch.promote_types(th.dtype, torch.promote_types(
+            t_min.dtype, t_max.dtype))
+        with span("df.gather", dev=1):
+            xs, ths, ws = [], [], []
+            for i in idx:
+                xs.append(x.index_select(0, i))
+                ths.append(normalize_input(
+                    th.index_select(0, i).to(dtype), t_min, t_max)
+                    .to(torch.float32))
+                ws.append(None if w is None else w.index_select(0, i))
+        return xs[0], ths[0], xs[1], ths[1], ws[0], ws[1]
+
     def metadata(self, hash: str = "") -> MetaData:
         """Capture a :class:`MetaData` from this data."""
         return MetaData(
@@ -252,3 +318,48 @@ def normalize_input(x, x_min, x_max):
 def resize_output(y, x_min, x_max):
     """Inverse of :func:`normalize_input`."""
     return (x_max - x_min) * y + x_min
+
+
+_DEVICE_FLOATS = (np.dtype(np.float32), np.dtype(np.float64))
+
+
+def _gathers_on_device(tr, va, n_rows, theta, metadata) -> bool:
+    """Whether :meth:`DataArrays.normalized_splits_on` gathers on the
+    device: the splits hold at least half of the rows (so the raw copy is
+    at most twice the splits' bytes), their integer indices lie in
+    ``[0, n_rows)`` (an index out of range raises on the host, as NumPy's
+    gather does), and θ and its bounds are float32 or float64 (whose
+    arithmetic the device does bit for bit as NumPy does)."""
+    if 2 * (tr.size + va.size) < n_rows:
+        return False
+    if any(a.dtype not in _DEVICE_FLOATS for a in
+           (theta, metadata.theta_min, metadata.theta_max)):
+        return False
+    for i in (tr, va):
+        if i.ndim != 1 or i.dtype.kind not in "iu":
+            return False
+        if i.size and (i.min() < 0 or i.max() >= n_rows):
+            return False
+    return True
+
+
+def _as_tensor(a, device):
+    """A host array as a tensor on ``device``, without a host copy where
+    ``torch.as_tensor`` makes none. A read-only array is only read, so
+    torch's warning about it is dropped."""
+    if a.flags.writeable:
+        return torch.as_tensor(a).to(device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        return torch.as_tensor(a).to(device)
+
+
+def _put(a, device):
+    """A host array as a float32 tensor on ``device``."""
+    return _as_tensor(np.ascontiguousarray(a, np.float32), device)
+
+
+def _nbytes(*arrays) -> int:
+    """Bytes of the arrays (or tensors) that are not None."""
+    return sum(int(a.nbytes) for a in arrays if a is not None)

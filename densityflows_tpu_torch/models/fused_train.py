@@ -585,11 +585,6 @@ def fused_step_mesh_reason(flow, batchsize, mesh):
     return None
 
 
-def _nbytes(*arrays) -> int:
-    """Bytes of the arrays (or tensors) that are not None."""
-    return sum(int(a.nbytes) for a in arrays if a is not None)
-
-
 def load_leaves_(model, values) -> None:
     """Copy ``values`` (aligned with :func:`trainable_leaves`) into the
     model's parameters, in place."""
@@ -646,24 +641,14 @@ def train_fused(
         (plan, tcounts, tparams, masks, mask_slots, cparams, fold_state,
          unfold) = chain_train_fold(flow.model)
 
-    with span("df.gather"):
-        x_train, th_train = data.normalized_training_data(flow.metadata)
-        x_valid, th_valid = data.normalized_validation_data(flow.metadata)
-        n, nv = x_train.shape[0], x_valid.shape[0]
-        if n == 0 or nv == 0:
-            raise UnsupportedFusedTrain("empty training/validation split")
-        d = x_train.shape[-1]
-        n_cond = th_train.shape[-1]
-
-        w_train = w_valid = None
-        if weights is not None:
-            wf = np.asarray(weights, np.float32).reshape(-1)
-            if wf.shape[0] != data.x.shape[0]:
-                raise ValueError(
-                    f"weights must have one entry per data row "
-                    f"({data.x.shape[0]}), got {wf.shape[0]}")
-            w_train = wf[np.asarray(data.partition.training)]
-            w_valid = wf[np.asarray(data.partition.validation)]
+    n, nv = len(data.partition.training), len(data.partition.validation)
+    if n == 0 or nv == 0:
+        raise UnsupportedFusedTrain("empty training/validation split")
+    d, n_cond = data.num_dimensions, data.num_conditions
+    x_t, th_t, x_v, th_v, w_t, w_v = data.normalized_splits_on(
+        flow.metadata, flow.device, weights)
+    arrays = (x_t, th_t if n_cond else None, x_v, th_v if n_cond else None)
+    w_dev = w_t, w_v
 
     with span("df.fold"):
         packed = pack_train_plan(plan, tparams, masks, mask_slots, cparams,
@@ -700,18 +685,6 @@ def train_fused(
         perms = (draw_epoch_perms(generator, epochs, n, shuffle)
                  if _epoch_perms is None else np.asarray(_epoch_perms))
 
-    device = flow.device
-
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
-
-    with span("df.upload") as upload:
-        arrays = (put(x_train), put(th_train) if n_cond else None,
-                  put(x_valid), put(th_valid) if n_cond else None)
-        w_dev = ((put(w_train), put(w_valid)) if weights is not None
-                 else (None, None))
-        if upload.recording:
-            upload.counts["bytes"] = _nbytes(*arrays, *w_dev)
     hp = dict(lr=lr, b1=b1, b2=b2, eps=eps)
     t0 = time.perf_counter()
     if step_plan is None:

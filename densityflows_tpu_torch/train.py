@@ -73,11 +73,13 @@ neither: under ``"auto"`` such a run takes the plain program with the
 decline recorded, and ``fused_kernel=True`` with either raises.
 
 While a ``torch.profiler`` session records, a call records its stages as
-spans of ``utils/spans.py`` under its ``df.train`` root: ``df.gather``,
-``df.fold``, ``df.upload`` (``bytes``), ``df.enqueue``, ``df.eval``,
-``df.wait``, ``df.unfold`` on the kernel path; ``df.gather``, ``df.upload``,
-per step ``df.forward`` (``rows``), ``df.backward`` and ``df.adam``, and per
-epoch ``df.eval`` in the plain program.
+spans of ``utils/spans.py`` under its ``df.train`` root: ``df.gather``
+(``dev`` where it picks the splits' rows:
+``DataArrays.normalized_splits_on``), ``df.fold``, ``df.upload``
+(``bytes``), ``df.enqueue``, ``df.eval``, ``df.wait``, ``df.unfold`` on the
+kernel path; ``df.upload`` and ``df.gather``, per step ``df.forward``
+(``rows``), ``df.backward`` and ``df.adam``, and per epoch ``df.eval`` in
+the plain program.
 
 Batch norm (``ops/mlp.py::BatchNorm``, in nflows' residual conditioners):
 a plain step's batch loss normalises by the batch's own statistics and
@@ -103,11 +105,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .data import DataArrays, normalize_input
+from .data import DataArrays, _put, normalize_input
 from .models.flow import Flow, _chain_eval
 from .models.fused_train import (
     UnsupportedFusedTrain,
-    _nbytes,
     draw_epoch_perms,
     fold_for_step_mesh,
     load_leaves_,
@@ -1098,10 +1099,6 @@ def batch_iterator(
         yield x[idx], theta[idx], mask
 
 
-def _put(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
-
-
 def _in_train_span(fn):
     """``train`` inside its ``df.train`` span, the root of the call's stage
     spans (``utils/spans.py``)."""
@@ -1355,29 +1352,10 @@ def train(
             done += chunk
         return opt_state
 
-    with span("df.gather"):
-        x_train, th_train = data.normalized_training_data(flow.metadata)
-        x_valid, th_valid = data.normalized_validation_data(flow.metadata)
-        n_train = x_train.shape[0]
-        w_train = w_valid = None
-        if weights is not None:
-            w = np.asarray(weights, np.float32).reshape(-1)
-            if w.shape[0] != data.x.shape[0]:
-                raise ValueError(
-                    f"weights must have one entry per data row "
-                    f"({data.x.shape[0]}), got {w.shape[0]}")
-            w_train = w[np.asarray(data.partition.training)]
-            w_valid = w[np.asarray(data.partition.validation)]
-
     dev = flow.device
-    with span("df.upload") as upload:
-        xt, tht = _put(x_train, dev), _put(th_train, dev)
-        xv, thv = _put(x_valid, dev), _put(th_valid, dev)
-        if weights is not None:
-            w_train, w_valid = _put(w_train, dev), _put(w_valid, dev)
-        if upload.recording:
-            upload.counts["bytes"] = _nbytes(xt, tht, xv, thv, w_train,
-                                             w_valid)
+    xt, tht, xv, thv, w_train, w_valid = data.normalized_splits_on(
+        flow.metadata, dev, weights)
+    n_train = xt.shape[0]
     model = flow.model
 
     if mesh is not None:

@@ -218,7 +218,9 @@ def fake_cuda(flow, monkeypatch):
     """Make ``flow`` claim a CUDA device (there is no card here) while the
     plain program's arrays stay on the CPU: ``train``'s "auto" then tries the
     whole-run kernel and records its decline."""
-    tm = sys.modules["densityflows_tpu_torch.train"]
+    dm = sys.modules["densityflows_tpu_torch.data"]
     flow.device = _FakeCuda()
-    monkeypatch.setattr(tm, "_put", lambda a, device: torch.as_tensor(
-        np.ascontiguousarray(a, np.float32)))
+    # every host → device copy of train() (the rows, θ, the splits'
+    # indices) goes through the data module's one site
+    monkeypatch.setattr(dm, "_as_tensor",
+                        lambda a, device: torch.as_tensor(a))

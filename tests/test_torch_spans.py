@@ -7,7 +7,6 @@ and counts; and every span inside the profiler's own event for it (the
 shared clock)."""
 
 import collections
-import sys
 import time
 
 import numpy as np
@@ -16,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import densityflows_tpu_torch as dt
+from densityflows_tpu_torch import data as D
 from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.utils import profiling as P
 from densityflows_tpu_torch.utils import spans as S
@@ -25,16 +25,16 @@ SERVE_STAGES = {
     "df.sample_sweep": ["df.theta", "df.plan", "df.enqueue"],
 }
 TRAIN_STAGES = {
-    "resident": ["df.fold", "df.gather", "df.fold", "df.gather", "df.upload",
+    "resident": ["df.fold", "df.upload", "df.gather", "df.fold", "df.gather",
                  "df.enqueue", "df.wait", "df.unfold"],
-    "stream": ["df.fold", "df.gather", "df.fold", "df.gather", "df.upload",
+    "stream": ["df.fold", "df.upload", "df.gather", "df.fold", "df.gather",
                "df.enqueue", "df.eval", "df.wait", "df.unfold"],
-    "plain": ["df.gather", "df.upload"],
+    "plain": ["df.upload", "df.gather"],
 }
 
 
 def _plain_stages(data, flow, epochs, batchsize):
-    """The plain program's stages: the gather and upload, then per step the
+    """The plain program's stages: the upload and gather, then per step the
     loss, its gradient and the update, and per epoch the evaluation."""
     n = data.normalized_training_data(flow.metadata)[0].shape[0]
     steps = -(-n // batchsize)
@@ -77,9 +77,12 @@ def _check_call(group, root_name, stages):
 
 
 def _upload_bytes(data, flow):
-    x, th = data.normalized_training_data(flow.metadata)
-    xv, thv = data.normalized_validation_data(flow.metadata)
-    return 4 * (x.size + th.size + xv.size + thv.size)
+    """The raw rows, θ, its bounds and both splits' int64 indices: the
+    splits hold every row, so they are gathered on the device."""
+    meta, part = flow.metadata, data.partition
+    return (data.x.nbytes + data.theta.nbytes + meta.theta_min.nbytes
+            + meta.theta_max.nbytes
+            + 8 * (part.training.size + part.validation.size))
 
 
 def test_without_a_profiler_a_span_is_the_shared_no_op(monkeypatch, case):
@@ -101,8 +104,7 @@ def test_without_a_profiler_a_span_is_the_shared_no_op(monkeypatch, case):
 
     monkeypatch.setattr(S, "time", NoClock)
     monkeypatch.setattr(torch.profiler, "record_function", no_record_function)
-    for module in (FT, sys.modules["densityflows_tpu_torch.train"]):
-        monkeypatch.setattr(module, "_nbytes", no_count)
+    monkeypatch.setattr(D, "_nbytes", no_count)
     assert not torch.autograd._profiler_enabled()
     before = len(S.recorded())
     assert S.span("df.log_prob", rows=3) is S.span("df.plan")
@@ -174,9 +176,13 @@ def test_train_records_its_stages_and_the_bytes_uploaded(monkeypatch, case,
     assert root.counts == {}
     assert all(s.parent == root.index for s in group[1:])
     uploads = [s.counts["bytes"] for s in group if s.name == "df.upload"]
-    # a CPU flow copies the rows once; the batch order is copied by the
-    # CUDA wrappers alone
-    assert uploads == [_upload_bytes(data, flow)] == [4000]
+    # a CPU flow copies the raw rows and the splits' indices once; the batch
+    # order is copied by the CUDA wrappers alone
+    assert uploads == [_upload_bytes(data, flow)] == [5608]
+    # the splits' rows are picked on the device; the batch order's gather
+    # carries no count
+    assert [s.counts for s in group if s.name == "df.gather"] == (
+        [{"dev": 1}] + ([] if route == "plain" else [{}]))
     # the stream mode's launches say which design they take: on the CPU the
     # plain version runs, neither design
     enqueues = [s.counts for s in group if s.name == "df.enqueue"]
@@ -187,7 +193,8 @@ def test_train_records_its_stages_and_the_bytes_uploaded(monkeypatch, case,
     assert [s.counts for s in group if s.name == "df.forward"] == (
         [{"rows": 32}] * steps if route == "plain" else [])
     assert all(s.counts == {} for s in group
-               if s.name not in ("df.upload", "df.enqueue", "df.forward"))
+               if s.name not in ("df.upload", "df.gather", "df.enqueue",
+                                 "df.forward"))
 
 
 def test_a_train_call_inside_another_is_its_stage(case):

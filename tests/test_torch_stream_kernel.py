@@ -335,8 +335,8 @@ def test_auto_routing_reaches_the_stream_mode(cond, monkeypatch):
             flow.device = fake
 
     monkeypatch.setattr(tm, "train_fused", on_cpu)
-    monkeypatch.setattr(tm, "_put", lambda a, device: torch.as_tensor(
-        np.ascontiguousarray(a, np.float32)))
+    monkeypatch.setattr(sys.modules["densityflows_tpu_torch.data"],
+                        "_as_tensor", lambda a, device: torch.as_tensor(a))
     flow = torch_flow(df.Flow(CHAINS["reference"](jd, x), jd), td)
     flow.device = fake
     with warnings.catch_warnings():

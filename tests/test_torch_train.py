@@ -309,8 +309,8 @@ def test_auto_routing_on_a_cuda_flow(cond, monkeypatch, capsys):
     # they are
     ft.device = _FakeCuda()
     monkeypatch.setattr(
-        tm, "_put", lambda a, device: torch.as_tensor(
-            np.ascontiguousarray(a, np.float32)))
+        sys.modules["densityflows_tpu_torch.data"], "_as_tensor",
+        lambda a, device: torch.as_tensor(a))
     calls = []
 
     def declines(flow, data, **k):
