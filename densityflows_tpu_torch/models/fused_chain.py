@@ -39,6 +39,8 @@ from ..ops.chain_kernels import (
     run_chain_sample,
 )
 from .blocks import CouplingBlock
+from .fold import conditioner_nets as _conditioner_nets
+from .fold import fold_coupling, normalization_affine
 from .glow import ActNormLayer, InvertibleLinearLayer
 from .layers import (
     JointRNVPCouplingLayer,
@@ -75,26 +77,6 @@ def _perm_matrix(perm, d, device):
     return torch.as_tensor(m).to(device)
 
 
-def _fold_first(w0, ax, params):
-    """First dense layer (K, H), K = n + |id|, split into a θ part (n, H)
-    and an x part zero-padded to (d, H): ``θ@W1θ + x@W1x`` reproduces
-    ``[θ | x[:, id]] @ W1`` since the zero rows kill non-identity dims."""
-    n = ax.n
-    if n:
-        params.append(w0[:n])
-    if ax.axis_id:
-        w1x = w0.new_zeros(ax.d, w0.shape[1])
-        w1x[list(ax.axis_id)] = w0[n:]
-        params.append(w1x)
-
-
-def _scatter_cols(w, ax):
-    """(H, A) → (H, d) with the columns at the af positions."""
-    out = w.new_zeros(w.shape[0], ax.d)
-    out[:, list(ax.axis_af)] = w
-    return out
-
-
 def _f32(t):
     """A conditioner tensor for the kernels: detached, bfloat16 upcast to
     float32 as the JAX package's packers upcast it."""
@@ -102,89 +84,15 @@ def _f32(t):
 
 
 def _coupling_entry(layer, dirn):
-    """Fold the static split/recombine into the conditioner weights so the
-    kernel does no selection work: the final dense layer (H, A) scatters
-    into (H, d) columns at af positions (bias likewise), so the net emits
-    d-wide s/t that are exactly 0 on identity dims and the elementwise
-    ``y = x·exp(s_full) + t_full`` is the whole coupling."""
-    if isinstance(layer, JointRNVPCouplingLayer):
-        return _joint_coupling_entry(layer, dirn)
-    if isinstance(layer, RNVPCouplingLayer):
-        kind, nets = "nvp", (layer.s_net, layer.t_net)
-    else:
-        kind, nets = "nice", (None, layer.t_net)
-    s_net, t_net = nets
+    """The coupling with its split and recombine folded into the conditioner
+    weights (``fold.py``)."""
     ax = layer.axes
-    if ax.transform_dim == 0 or ax.nn_input_dim == 0:
+    nets = _conditioner_nets(layer)
+    if (ax.transform_dim == 0 or ax.nn_input_dim == 0
+            or any(len(net.weights) < 2 for net in nets)):
         raise _Unsupported  # degenerate masks keep the per-layer path
-    params = []
-
-    def fold_net(net):
-        ws = [_f32(w) for w in net.weights]
-        if len(ws) < 2:
-            raise _Unsupported
-        _fold_first(ws[0], ax, params)
-        params.extend(ws[1:-1])
-        params.append(_scatter_cols(ws[-1], ax))
-        if net.has_bias:
-            for b in list(net.biases)[:-1]:
-                params.append(_f32(b).reshape(1, -1))
-            params.append(_scatter_cols(_f32(net.biases[-1])[None], ax))
-        return len(ws), net.activation, net.has_bias
-
-    if kind == "nvp":
-        n_s, act_s, bias_s = fold_net(s_net)
-    else:
-        n_s, act_s, bias_s = 0, "identity", False
-    n_t, act_t, bias_t = fold_net(t_net)
-    clamp = float(getattr(layer, "max_log_scale", 0.0))
-    op = ("coupling", kind, dirn, n_s, n_t, act_s, act_t, bias_s, bias_t,
-          ax.n > 0, len(ax.axis_id) > 0, clamp)
+    op, params, _ = fold_coupling(layer, _f32, dirn)
     return op, params
-
-
-def _joint_coupling_entry(layer, dirn):
-    """Joint (two-headed) coupling: the shared stack folds like a plain net,
-    but the final (H, 2|af|) weight splits into two (H, d) folded heads."""
-    net = layer.st_net
-    ax = layer.axes
-    if ax.transform_dim == 0 or ax.nn_input_dim == 0:
-        raise _Unsupported
-    a = ax.transform_dim
-    ws = [_f32(w) for w in net.weights]
-    n_layers = len(ws)
-    if n_layers < 2:
-        raise _Unsupported  # a single dense layer has no shared stack
-    params = []
-    _fold_first(ws[0], ax, params)
-    params.extend(ws[1:-1])
-    wf = ws[-1]  # (H, 2a): columns [:a] are the s head, [a:] the t head
-    params.append(_scatter_cols(wf[:, :a], ax))
-    params.append(_scatter_cols(wf[:, a:], ax))
-    if net.has_bias:
-        for b in list(net.biases)[:-1]:
-            params.append(_f32(b).reshape(1, -1))
-        bf = _f32(net.biases[-1])[None]
-        params.append(_scatter_cols(bf[:, :a], ax))
-        params.append(_scatter_cols(bf[:, a:], ax))
-    op = ("coupling", "joint", dirn, n_layers, 0, net.activation,
-          net.activation, net.has_bias, False, ax.n > 0,
-          len(ax.axis_id) > 0, float(layer.max_log_scale))
-    return op, params
-
-
-def _normalization_entry(layer, dirn):
-    lo, hi = layer.x_min.detach(), layer.x_max.detach()
-    diff = hi - lo
-    delta = layer.beta - layer.alpha
-    c = torch.log(diff / delta).sum().reshape(1, 1)
-    if dirn == "fwd":  # [α,β] → [lo,hi]
-        a = diff / delta
-        b = (layer.beta * lo - layer.alpha * hi) / delta
-        return ("affine",), [a.reshape(1, -1), b.reshape(1, -1), c]
-    a = delta / diff  # [lo,hi] → [α,β]
-    b = (layer.alpha * hi - layer.beta * lo) / diff
-    return ("affine",), [a.reshape(1, -1), b.reshape(1, -1), -c]
 
 
 def _actnorm_entry(layer, dirn):
@@ -223,7 +131,7 @@ def _entry(layer, dirn, device):
     if isinstance(layer, _COUPLINGS):
         return _coupling_entry(layer, dirn)
     if isinstance(layer, NormalizationLayer):
-        return _normalization_entry(layer, dirn)
+        return ("affine",), normalization_affine(layer, dirn)
     if isinstance(layer, ActNormLayer):
         return _actnorm_entry(layer, dirn)
     if isinstance(layer, InvertibleLinearLayer):
@@ -279,16 +187,6 @@ def _plan_params(chain, dirn):
     if not plan:
         raise _Unsupported
     return tuple(plan), params
-
-
-def _conditioner_nets(layer):
-    if isinstance(layer, RNVPCouplingLayer):
-        return (layer.s_net, layer.t_net)
-    if isinstance(layer, NICECouplingLayer):
-        return (layer.t_net,)
-    if isinstance(layer, JointRNVPCouplingLayer):
-        return (layer.st_net,)
-    return ()
 
 
 def _max_hidden(chain) -> int:

@@ -66,6 +66,12 @@ from ..utils.spans import span
 from .blocks import CouplingBlock
 from .chains import FlowChain
 from .distributions import StandardNormal
+from .fold import (
+    axes_idx,
+    conditioner_nets,
+    fold_coupling,
+    normalization_affine,
+)
 from .glow import ActNormLayer
 from .layers import (
     JointRNVPCouplingLayer,
@@ -162,56 +168,13 @@ def _f32(t):
     return t.detach().float()
 
 
-def _scatter_rows(w, d, idx):
-    out = w.new_zeros(d, w.shape[1])
-    out[idx] = w
-    return out
+def _unfold_net(net, folded, n, id_idx, af_idx, heads):
+    """Inverse of the fold of one conditioner MLP (``fold.py``): the
+    on-support entries back in the MLP's own layout, as values aligned with
+    (weights..., biases...). Returns (values, folded tensors used)."""
+    def join(parts, dim):
+        return torch.cat(parts, dim) if len(parts) > 1 else parts[0]
 
-
-def _scatter_cols(w, d, idx):
-    out = w.new_zeros(w.shape[0], d)
-    out[:, idx] = w
-    return out
-
-
-def _fold_stack(net, get, d, n, id_idx, n_plain):
-    """The first dense layer split into its θ block and its zero-padded x
-    block, then ``n_plain`` further layers as they are; with the 0/1 masks of
-    the scattered tensors."""
-    ws = [get(w) for w in net.weights]
-    params, masks = [], []
-    if n > 0:
-        params.append(ws[0][:n])
-        masks.append(None)
-    if len(id_idx) > 0:
-        params.append(_scatter_rows(ws[0][n:], d, id_idx))
-        masks.append(_scatter_rows(torch.ones_like(ws[0][n:]), d, id_idx))
-    params.extend(ws[1:1 + n_plain])
-    masks.extend([None] * n_plain)
-    return ws, params, masks
-
-
-def _fold_net(net, get, d, n, id_idx, af_idx):
-    """Fold one conditioner MLP (zero-padded x block, af-scattered final
-    layer) and build the 0/1 gradient masks of the scattered tensors."""
-    _check_net(net)
-    n_layers = len(net.weights)
-    ws, params, masks = _fold_stack(net, get, d, n, id_idx, n_layers - 2)
-    params.append(_scatter_cols(ws[-1], d, af_idx))
-    masks.append(_scatter_cols(torch.ones_like(ws[-1]), d, af_idx))
-    if net.has_bias:
-        bs = [get(b).reshape(1, -1) for b in net.biases]
-        params.extend(bs[:-1])
-        masks.extend([None] * (n_layers - 1))
-        params.append(_scatter_cols(bs[-1], d, af_idx))
-        masks.append(_scatter_cols(torch.ones_like(bs[-1]), d, af_idx))
-    return params, masks, n_layers, net.has_bias
-
-
-def _unfold_net(net, folded, n, id_idx, af_idx):
-    """Inverse of ``_fold_net``: the on-support entries back in the MLP's own
-    layout, as values aligned with (weights..., biases...). Returns (values,
-    folded tensors used)."""
     n_layers = len(net.weights)
     i = 0
     parts = []
@@ -221,119 +184,47 @@ def _unfold_net(net, folded, n, id_idx, af_idx):
     if len(id_idx) > 0:
         parts.append(folded[i][id_idx])
         i += 1
-    ws = [torch.cat(parts, 0) if len(parts) > 1 else parts[0]]
+    ws = [join(parts, 0)]
     ws.extend(folded[i:i + n_layers - 2])
     i += n_layers - 2
-    ws.append(folded[i][:, af_idx])
-    i += 1
+    ws.append(join([f[:, af_idx] for f in folded[i:i + heads]], 1))
+    i += heads
     bs = []
     if net.has_bias:
         bs = [folded[i + k].reshape(-1) for k in range(n_layers - 1)]
-        bs.append(folded[i + n_layers - 1][0, af_idx])
-        i += n_layers
+        i += n_layers - 1
+        bs.append(join([f[0, af_idx] for f in folded[i:i + heads]], 0))
+        i += heads
     return ws + bs, i
-
-
-def _joint_fold(layer, get, d, n, id_idx, af_idx):
-    net = layer.st_net
-    _check_net(net)
-    n_layers = len(net.weights)
-    a = layer.axes.transform_dim
-    ws, params, masks = _fold_stack(net, get, d, n, id_idx, n_layers - 2)
-    wf = ws[-1]  # (H, 2a): s head then t head
-    for head in (wf[:, :a], wf[:, a:]):
-        params.append(_scatter_cols(head, d, af_idx))
-        masks.append(_scatter_cols(torch.ones_like(head), d, af_idx))
-    if net.has_bias:
-        bs = [get(b).reshape(1, -1) for b in net.biases]
-        params.extend(bs[:-1])
-        masks.extend([None] * (n_layers - 1))
-        for head in (bs[-1][:, :a], bs[-1][:, a:]):
-            params.append(_scatter_cols(head, d, af_idx))
-            masks.append(_scatter_cols(torch.ones_like(head), d, af_idx))
-    return params, masks, n_layers, net.has_bias
-
-
-def _joint_unfold(layer, folded, n, id_idx, af_idx):
-    net = layer.st_net
-    n_layers = len(net.weights)
-    i = 0
-    parts = []
-    if n > 0:
-        parts.append(folded[i])
-        i += 1
-    if len(id_idx) > 0:
-        parts.append(folded[i][id_idx])
-        i += 1
-    ws = [torch.cat(parts, 0) if len(parts) > 1 else parts[0]]
-    ws.extend(folded[i:i + n_layers - 2])
-    i += n_layers - 2
-    ws.append(torch.cat([folded[i][:, af_idx], folded[i + 1][:, af_idx]], 1))
-    i += 2
-    bs = []
-    if net.has_bias:
-        bs = [folded[i + k].reshape(-1) for k in range(n_layers - 1)]
-        bs.append(torch.cat([folded[i + n_layers - 1][0, af_idx],
-                             folded[i + n_layers][0, af_idx]]))
-        i += n_layers + 1
-    return ws + bs, i
-
-
-def _axes_idx(layer, coord_map):
-    ax = layer.axes
-    id_idx = np.asarray(ax.axis_id, np.int64)
-    af_idx = np.asarray(ax.axis_af, np.int64)
-    if coord_map is not None:
-        id_idx, af_idx = coord_map[id_idx], coord_map[af_idx]
-    return id_idx, af_idx
 
 
 def _coupling_fold(layer, get, coord_map=None):
-    """``coord_map`` (an int array, kernel-frame dim per layer-frame dim)
-    relabels the layer's axes into the kernel's coordinate frame — how
-    PermutationLayers fold away: the kernel never permutes, the downstream
-    couplings read and write the permuted dims. ``None`` is the identity."""
+    """``fold.fold_coupling`` in the inverse direction where the kernel can
+    train the layer. ``coord_map`` (an int array, kernel-frame dim per
+    layer-frame dim) relabels the layer's axes into the kernel's coordinate
+    frame — how PermutationLayers fold away: the kernel never permutes, the
+    downstream couplings read and write the permuted dims. ``None`` is the
+    identity."""
     ax = layer.axes
     if ax.transform_dim == 0 or ax.nn_input_dim == 0:
         raise UnsupportedFusedTrain("degenerate coupling axes")
-    clamp = float(getattr(layer, "max_log_scale", 0.0))
-    d, n = ax.d, ax.n
-    id_idx, af_idx = _axes_idx(layer, coord_map)
-    has_th, has_id = n > 0, len(id_idx) > 0
-    if isinstance(layer, JointRNVPCouplingLayer):
-        params, masks, n_l, has_bias = _joint_fold(layer, get, d, n, id_idx,
-                                                   af_idx)
-        act = layer.st_net.activation
-        op = ("coupling", "joint", "inv", n_l, 0, act, act, has_bias, False,
-              has_th, has_id, clamp)
-        return op, params, masks
-    if isinstance(layer, RNVPCouplingLayer):
-        ps, ms, n_s, bias_s = _fold_net(layer.s_net, get, d, n, id_idx,
-                                        af_idx)
-        pt, mt, n_t, bias_t = _fold_net(layer.t_net, get, d, n, id_idx,
-                                        af_idx)
-        op = ("coupling", "nvp", "inv", n_s, n_t, layer.s_net.activation,
-              layer.t_net.activation, bias_s, bias_t, has_th, has_id, clamp)
-        return op, ps + pt, ms + mt
-    pt, mt, n_t, bias_t = _fold_net(layer.t_net, get, d, n, id_idx, af_idx)
-    op = ("coupling", "nice", "inv", 0, n_t, "identity",
-          layer.t_net.activation, False, bias_t, has_th, has_id, 0.0)
-    return op, pt, mt
+    for net in conditioner_nets(layer):
+        _check_net(net)
+    return fold_coupling(layer, get, "inv", coord_map)
 
 
 def _coupling_unfold(layer, folded, coord_map=None):
     """Values aligned with the layer's trainable leaves, sliced at the same
     kernel-frame positions the fold scattered to."""
-    n = layer.axes.n
-    id_idx, af_idx = _axes_idx(layer, coord_map)
-    if isinstance(layer, JointRNVPCouplingLayer):
-        return _joint_unfold(layer, folded, n, id_idx, af_idx)
-    if isinstance(layer, RNVPCouplingLayer):
-        vs, used_s = _unfold_net(layer.s_net, folded, n, id_idx, af_idx)
-        vt, used_t = _unfold_net(layer.t_net, folded[used_s:], n, id_idx,
-                                 af_idx)
-        return vs + vt, used_s + used_t
-    return _unfold_net(layer.t_net, folded, n, id_idx, af_idx)
+    id_idx, af_idx = axes_idx(layer, coord_map)
+    heads = 2 if isinstance(layer, JointRNVPCouplingLayer) else 1
+    values, used = [], 0
+    for net in conditioner_nets(layer):
+        v, u = _unfold_net(net, folded[used:], layer.axes.n, id_idx, af_idx,
+                           heads)
+        values += v
+        used += u
+    return values, used
 
 
 def _anorm_fold(layer, get, cmap=None):
@@ -357,30 +248,25 @@ def _anorm_unfold(folded, cmap=None):
     return [b.reshape(-1), s.reshape(-1)], 2
 
 
-def _affine_const(layer):
-    """NormalizationLayer → inverse-direction (a, b, signed ldj) constants;
-    not trained (its data range is a buffer)."""
-    lo, hi = layer.x_min.detach(), layer.x_max.detach()
-    if lo.dtype != torch.float32:
+def _affine_const(layer, cmap=None):
+    """NormalizationLayer → inverse-direction (a, b, signed ldj) constants in
+    the kernel frame; not trained (its data range is a buffer)."""
+    if layer.x_min.dtype != torch.float32:
         raise UnsupportedFusedTrain(
-            f"the train kernel is float32 only (got {lo.dtype})")
-    diff = hi - lo
-    delta = layer.beta - layer.alpha
-    c = torch.log(diff / delta).sum().reshape(1, 1)
-    a = delta / diff
-    b = (layer.alpha * hi - layer.beta * lo) / diff
-    return [a.reshape(1, -1), b.reshape(1, -1), -c]
+            f"the train kernel is float32 only (got {layer.x_min.dtype})")
+    a, b, c = normalization_affine(layer, "inv")
+    if cmap is not None:
+        inv_m = np.argsort(cmap)
+        a, b = a[:, inv_m], b[:, inv_m]
+    return [a, b, c]
 
 
 def _layer_leaves(layer):
     """A trainable layer's leaves in checkpoint order."""
     if isinstance(layer, ActNormLayer):
         return [layer.bias, layer.log_scale]
-    nets = ((layer.st_net,) if isinstance(layer, JointRNVPCouplingLayer)
-            else (layer.s_net, layer.t_net)
-            if isinstance(layer, RNVPCouplingLayer) else (layer.t_net,))
     out = []
-    for net in nets:
+    for net in conditioner_nets(layer):
         out += list(net.weights) + [b for b in net.biases]
     return out
 
@@ -431,12 +317,8 @@ def chain_train_fold(chain):
             elif isinstance(layer, NormalizationLayer):
                 plan.append(("affine",))
                 ps, ms = [], []
-                consts = _affine_const(layer)
-                if cm is not None:
-                    inv_m = np.argsort(cm)
-                    consts = [consts[0][:, inv_m], consts[1][:, inv_m],
-                              consts[2]]
-                cparams.extend(c.contiguous() for c in consts)
+                cparams.extend(c.contiguous()
+                               for c in _affine_const(layer, cm))
             else:
                 op, ps, ms = _coupling_fold(layer, get, cm)
                 plan.append(op)

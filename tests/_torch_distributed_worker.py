@@ -9,7 +9,7 @@ on the plain program, and ``train_streaming(mesh=...)`` with its own loader
 shard. It writes ``result_<rank>.json``; the parent holds the results against
 the same runs in one process (:func:`single_process_reference`).
 
-This file imports torch and the port only.
+This file imports torch, the port and ``_torch_cpu`` only.
 
 usage: python _torch_distributed_worker.py <rank> <world> <init_file> <out_dir>
 """
@@ -27,6 +27,8 @@ from densityflows_tpu_torch.models.fused_train import (
     trainable_leaves,
 )
 from densityflows_tpu_torch.train import _fold_adam_state
+
+import _torch_cpu  # noqa: F401
 
 EPOCHS, BATCH, STREAM_BATCH = 2, 32, 16
 HP = dict(lr=2e-3, b1=0.9, b2=0.999, eps=1e-8)
@@ -149,7 +151,6 @@ def single_process_reference():
 def main() -> None:
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     init_file, out_dir = sys.argv[3], sys.argv[4]
-    torch.set_num_threads(1)
     dt.distributed_init(f"file://{init_file}", world, rank, backend="gloo")
     mesh = dt.make_mesh()
     assert (mesh.size, mesh.rank) == (world, rank)

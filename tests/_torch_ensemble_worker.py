@@ -8,7 +8,7 @@ all-gathered at the end. It writes ``result_<rank>.json``; the parent holds
 the results against the same call in one process (:func:`single_process`).
 A member count the mesh does not divide must raise on every rank.
 
-This file imports torch and the port only.
+This file imports torch, the port and ``_torch_cpu`` only.
 
 usage: python _torch_ensemble_worker.py <rank> <world> <init_file> <out_dir>
 """
@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 import densityflows_tpu_torch as dt
+
+import _torch_cpu  # noqa: F401
 
 K, EPOCHS, BATCH = 8, 2, 64
 
@@ -58,7 +60,6 @@ def single_process(mesh):
 
 
 def main(rank, world, init_file, out_dir):
-    torch.set_num_threads(1)
     dt.distributed_init(f"file://{init_file}", world, rank, backend="gloo")
     mesh = dt.make_mesh()
     out = single_process(mesh)

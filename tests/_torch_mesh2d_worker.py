@@ -11,7 +11,7 @@ arrays the parent wrote into ``<dir>``, runs the mode's entry points with a
 mesh, and writes ``<mode>_<rank>.npz``. The parent holds them against the
 same calls in one process and against the JAX package.
 
-This file imports torch and the port only.
+This file imports torch, the port and ``_torch_cpu`` only.
 
 usage: python _torch_mesh2d_worker.py <mode> <rank> <world> <init_file> <dir>
 """
@@ -41,6 +41,8 @@ from densityflows_tpu_torch.utils.orbax_ckpt import (
     load_flow_orbax,
     save_flow_orbax,
 )
+
+import _torch_cpu  # noqa: F401
 
 TP_EPOCHS, TP_BATCH = 2, 32
 # sharded checkpoints: steps before the save, steps after it, batch rows
@@ -419,7 +421,6 @@ def run_ranks(mode, folder, world=2, timeout=180):
 def main() -> None:
     mode, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     init_file, folder = sys.argv[4], sys.argv[5]
-    torch.set_num_threads(1)
     dt.distributed_init(f"file://{init_file}", world, rank, backend="gloo")
     out = MODES[mode](folder)
     dt.make_mesh().barrier()

@@ -19,6 +19,8 @@ import densityflows_tpu_torch as dt
 from densityflows_tpu.ops.mlp import MLP as JaxMLP
 from densityflows_tpu.utils.checkpoint import element_spec
 
+import _torch_cpu  # noqa: F401
+
 # f32 on both sides, a few layers deep: products are summed in another order
 TOL = dict(rtol=2e-5, atol=2e-5)
 

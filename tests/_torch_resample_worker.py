@@ -7,7 +7,7 @@ its contiguous block of them and runs
 ``parallel.resample.systematic_resample_sharded`` on it, once per case. It
 writes ``resample_<rank>.npz`` with its output block per case.
 
-This file imports torch and the port only.
+This file imports torch, the port and ``_torch_cpu`` only.
 
 usage: python _torch_resample_worker.py <rank> <world> <init_file> <out_dir>
        <cases.json>
@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 import densityflows_tpu_torch as dt
+
+import _torch_cpu  # noqa: F401
 
 
 def case_arrays(name, n, d=3):
@@ -47,7 +49,6 @@ def main():
     init, out_dir = sys.argv[3], sys.argv[4]
     with open(sys.argv[5]) as f:
         cases = json.load(f)
-    torch.set_num_threads(1)
     dt.distributed_init(f"file://{init}", world, rank, backend="gloo")
     mesh = dt.make_mesh()
     assert mesh.size == world and mesh.rank == rank

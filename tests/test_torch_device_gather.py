@@ -21,6 +21,8 @@ import densityflows_tpu_torch as dt
 from densityflows_tpu_torch import data as D
 from densityflows_tpu_torch.utils import spans as S
 
+import _torch_cpu  # noqa: F401
+
 NAMES = ("x_train", "th_train", "x_valid", "th_valid", "w_train", "w_valid")
 
 

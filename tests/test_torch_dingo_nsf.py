@@ -31,6 +31,8 @@ from perfbench.kinds import dingo_nsf as kind
 from perfbench.reference import dingo_nsf as ref_mod
 from perfbench.reference.train import replay
 
+import _torch_cpu  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, N = 5, 6
 RTOL = 1e-5

@@ -18,6 +18,8 @@ import pytest
 import densityflows_tpu_torch as dt_real
 from densityflows_tpu_torch import examples
 
+import _torch_cpu  # noqa: F401
+
 # per-function work-budget clamps: kwarg -> (cap, default_if_absent)
 _BUDGETS = {
     "train": {"epochs": (1, 1)},
@@ -65,21 +67,9 @@ def _numbers(out):
     return []
 
 
-@pytest.fixture
-def one_thread():
-    """The examples' many small operations, one CPU thread each: under a
-    parallel test run, threads of their own only contend."""
-    import torch
-
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.mark.parametrize("name", examples.NAMES)
 def test_example_runs_on_the_cpu_with_clamped_budgets(name, monkeypatch,
-                                                      capsys, one_thread):
+                                                      capsys):
     module = importlib.import_module(f"densityflows_tpu_torch.examples.{name}")
     monkeypatch.setattr(module, "dt", _BudgetedAPI())
     if name == "multihost_dp":

@@ -20,6 +20,7 @@ import densityflows_tpu as df
 import densityflows_tpu_torch as dt
 from densityflows_tpu.models.fused_train import (
     chain_train_fold as jax_chain_train_fold)
+from densityflows_tpu_torch.models import fused_chain as FC
 from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.models.fused_train import trainable_leaves
 from densityflows_tpu_torch.ops import train_kernels as TK
@@ -299,6 +300,37 @@ def test_fold_against_the_jax_fold_where_the_layouts_agree(cond):
     # a split RNVP is two nets
     plan = FT.chain_train_fold(to_torch(CHAINS["reference"](jd, x)))[0]
     assert [op[1] for op in plan if op[0] == "coupling"] == ["nvp"] * 3
+
+
+@pytest.mark.parametrize("n,identity", [(2, True), (2, False), (0, True)],
+                         ids=["theta-id", "theta", "id"])
+@pytest.mark.parametrize("kind", ["nvp", "joint", "nice"])
+def test_serving_and_training_plans_fold_a_coupling_alike(kind, n, identity):
+    """The chain kernels' plan in the inverse direction and the training
+    plan fold a coupling to the same op and the same tensors, bit for bit
+    (a coupling with neither θ nor an identity block is declined by both)."""
+    d = 5
+    g = torch.Generator().manual_seed(7)
+    kw = dict(n=n, generator=g, device="cpu", hidden_dim_s=6, hidden_dim_t=6)
+    if kind == "nvp":
+        kw.update(max_log_scale=1.5)
+    elif kind == "joint":
+        kw.update(joint_conditioner=True, max_log_scale=2.0)
+    else:
+        kw.update(kind=dt.NICECouplingLayer)
+    mask = [0, 3] if identity else list(range(d))
+    chain = dt.flow_chain(dt.coupling_layer(d, mask, **kw))
+    with torch.no_grad():  # no zero biases or final layers to hide a slip
+        for p in chain.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    plan, params = FC._plan_params(chain, "inv")
+    t_plan, tcounts, tparams = FT.chain_train_fold(chain)[:3]
+    assert plan == t_plan and plan[0][1] == kind
+    assert plan[0][9:11] == (n > 0, identity)
+    assert tcounts == (len(params),) == (len(tparams),)
+    for p, q in zip(params, tparams):
+        assert p.dtype == q.dtype == torch.float32
+        assert torch.equal(p, q)
 
 
 def test_permutation_folds_into_index_maps(cond):

@@ -21,6 +21,8 @@ from densityflows_tpu_torch.ops import step_kernels as SK
 from densityflows_tpu_torch.ops import stream_kernels as STK
 from densityflows_tpu_torch.ops import train_kernels as TK
 
+import _torch_cpu  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 

@@ -30,6 +30,8 @@ from perfbench.check import leaf_gap, moved_leaves, scalar_gap
 from perfbench.inputs import draw_weights
 from perfbench.kinds import dingo_nsf as kind
 
+import _torch_cpu  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import _torch_cpu  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "optax", "densityflows_tpu", "flax", "orbax")
 
@@ -186,6 +188,39 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                 names = [node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def _top_level_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_every_port_test_process_runs_one_cpu_thread():
+    """The one-thread rule lives in ``tests/_torch_cpu.py``: every test module
+    of the port imports it at its top (directly or through
+    ``_torch_parity``), and so does every worker those tests start, so a file
+    run alone runs as it does beside others."""
+    tests = os.path.join(ROOT, "tests")
+    files = sorted(f for f in os.listdir(tests) if f.endswith(".py") and (
+        f.startswith("test_torch_")
+        or f.startswith("_torch_") and f.endswith("_worker.py")))
+    assert len(files) > 33
+    assert "_torch_cpu" in _top_level_imports(
+        os.path.join(tests, "_torch_parity.py"))
+    via = {"_torch_cpu", "_torch_parity"}
+    missing = [f for f in files
+               if not via & _top_level_imports(os.path.join(tests, f))]
+    assert not missing, missing
+    import torch
+
+    assert torch.get_num_threads() == 1
 
 
 def test_kernel_sources_are_package_data():

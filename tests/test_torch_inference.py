@@ -41,16 +41,6 @@ from _torch_parity import (
 KNOT_TOL = 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small models: one intra-op thread is the fastest, and keeps the
-    test's time steady beside the other test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 class Fed(tinf._Draws):
     """The JAX program's draws, handed to the port in the JAX order."""
 

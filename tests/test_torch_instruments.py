@@ -15,6 +15,7 @@ import densityflows_tpu_torch as dt
 from densityflows_tpu_torch.parallel import scaling as S
 from densityflows_tpu_torch.utils import profiling as P
 
+import _torch_cpu  # noqa: F401
 from _torch_mesh2d_worker import run_ranks
 
 

@@ -43,6 +43,7 @@ from densityflows_tpu_torch.utils.orbax_ckpt import (
     save_flow_orbax,
 )
 
+import _torch_cpu  # noqa: F401
 from _torch_mesh2d_worker import CK_BATCH, CK_MORE, CK_STEPS, run_ranks
 
 D, N = 4, 1

@@ -30,6 +30,7 @@ from densityflows_tpu import inference as jinf
 from densityflows_tpu_torch import inference as tinf
 from densityflows_tpu_torch.parallel import resample as R
 
+import _torch_cpu  # noqa: F401
 import _torch_resample_worker as W
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))

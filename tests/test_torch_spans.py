@@ -20,6 +20,8 @@ from densityflows_tpu_torch.models import fused_train as FT
 from densityflows_tpu_torch.utils import profiling as P
 from densityflows_tpu_torch.utils import spans as S
 
+import _torch_cpu  # noqa: F401
+
 SERVE_STAGES = {
     "df.log_prob": ["df.theta", "df.plan", "df.enqueue", "df.density"],
     "df.sample_sweep": ["df.theta", "df.plan", "df.enqueue"],
